@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the CUDA kernel of the lane-polynomial integrity hash from
-``src/repro_torch/csrc`` and then, on the card:
+Builds the CUDA kernels of the lane-polynomial integrity hash and of the
+Mamba2 SSD chunked scan from ``src/repro_torch/csrc`` (one nvcc each, in
+parallel) and then, on the card:
 
   kernel        the kernel against its plain PyTorch version, bit-exact, at
                 every listed shape, with its median time, the plain
@@ -18,7 +19,23 @@ Builds the CUDA kernel of the lane-polynomial integrity hash from
                 records of 1 MiB, reopened and verified;
   strict crash  the 16 MiB ring of 1 KiB records on a strict device,
                 crashed with keep probability 0.3 and reopened: every
-                durable-acked record must come back byte-exact.
+                durable-acked record must come back byte-exact;
+  ssd kernel    the SSD kernel against its plain version at every listed
+                shape (fp32 within 1e-4, bf16 within 5e-2), with its
+                median time, the plain version's time and its bound;
+  serving       mamba2-130m at full width from --seed, saved as a
+                checkpoint whose manifest commits through a replicated log
+                (2 backups, W = 2 of 3, phash threshold 256 B), the log
+                reopened and the params restored byte-exact, then 8
+                prompts of 4096 tokens prefilled (one SSD launch per
+                layer) and 32 greedy decode steps, with 4 teacher-forced
+                decode steps held against the prefill logits;
+  card vs cpu   the restored params in fp32, one 512-token prefill on the
+                card (kernel) and on the CPU (plain): logits within 2e-3
+                and the same next greedy token.  The teacher-forced and
+                card-vs-CPU checks run again on a variant of the params in
+                which the scan carries each mixer's output (at init it is
+                mostly the 4-token conv).
 
 Every failure exits non-zero.  Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
@@ -46,7 +63,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core rate, the closest
                                # published peak to the kernel's 32-bit
-                               # integer multiply-adds (2 ops each)
+                               # integer multiply-adds (2 ops each), and
+                               # the peak for fp32 products
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 RING_BYTES = 1 << 30           # Kafka's default log.segment.bytes
 RECORD_BYTES = 1024
 FIG7_RING_BYTES = 16 << 20
@@ -327,6 +346,308 @@ def strict_crash_phase(base: bytes) -> dict:
     return dict(written=len(written), durable=durable, recovered=len(got))
 
 
+# ------------------------------ SSD kernel ------------------------------ #
+
+# (B, S, H, P, G, N, chunk): the shapes of tests/test_kernels.py, H=6 over
+# G=3 groups, one short chunk at mamba2-130m's head widths, and the
+# serving shape (8 prompts of 4096 tokens) in both dtypes
+SSD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32"),
+              ((1, 128, 2, 64, 1, 32, 32), "float32"),
+              ((2, 64, 4, 32, 4, 16, 64), "float32"),
+              ((1, 64, 2, 32, 1, 16, 16), "bfloat16"),
+              ((1, 96, 6, 16, 3, 8, 16), "float32"),
+              ((1, 100, 24, 64, 1, 128, 256), "float32"),
+              ((8, 4096, 24, 64, 1, 128, 256), "bfloat16"),
+              ((8, 4096, 24, 64, 1, 128, 256), "float32")]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 8, 4096, 32
+DEV = "cuda"
+# teacher-forced decode against prefill, bf16 logits below 1 in magnitude:
+# about five bf16 spacings (2^-8) at init, where each mixer's output is
+# mostly its 4-token conv; 0.1 where the scan carries the mixer (the same
+# check on the CPU gave 0.0215 there), since every layer's scan output is rounded
+# to bf16 at other places on the two paths
+TEACHER_TOL = {"init": 2e-2, "scan-dominated": 0.1}
+
+
+def ssd_inputs(shape, dtype, seed: int):
+    """Inputs on the card, drawn with numpy from ``seed``: those of
+    tests/test_kernels.py, except that at mamba2-130m's head widths
+    (N = 128) dt and A are drawn as the model initialises them (dt in
+    [1e-3, 0.1], A = exp(A_log) in [1, 16]).  With the tests' dt range the
+    chunk's cumulative decay nears -200 at Q = 256, where the fp32 plain
+    version itself is 4e-4 from the float64 answer."""
+    B, S, H, P, G, N, _ = shape
+    rng = np.random.default_rng(seed)
+    mixer = N == 128
+    dt = rng.uniform(1e-3, 0.1, (B, S, H)) if mixer else \
+        rng.uniform(0.05, 0.9, (B, S, H))
+    a_log = np.log(rng.uniform(1.0, 16.0, H)) if mixer else \
+        rng.uniform(-1.0, 0.5, H)
+    cast = getattr(torch, dtype)
+    t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(DEV).to(dt)
+    return (t(rng.standard_normal((B, S, H, P), np.float32), cast), t(dt),
+            t(a_log), t(rng.standard_normal((B, S, G, N), np.float32), cast),
+            t(rng.standard_normal((B, S, G, N), np.float32), cast))
+
+
+def ssd_bound_ms(shape, dtype) -> tuple[float, str]:
+    """Least time for the scan: inputs read and outputs written once at the
+    HBM rate, against its operations — the causal half of the intra-chunk
+    products, Q(Q+1)(N+P) per chunk, plus 4·Q·N·P for the inter-chunk term
+    and the state update — at the peak rate for the dtype (bf16 tensor
+    cores; fp32 CUDA cores)."""
+    B, S, H, P, G, N, chunk = shape
+    Q = min(chunk, S)
+    el = 2 if dtype == "bfloat16" else 4
+    n_bytes = (2 * B * S * H * P * el + B * S * H * 4 + H * 4
+               + 2 * B * S * G * N * el + B * H * P * N * 4)
+    ops = B * H * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    results = {}
+    for k, (shape, dtype) in enumerate(SSD_SHAPES):
+        args = ssd_inputs(shape, dtype, seed + k)
+        chunk = shape[-1]
+        y, st = ops.ssd(*args, chunk=chunk)
+        y_ref, st_ref = ref.ssd_reference(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dtype]
+        err = 0.0
+        for got, want in ((y, y_ref), (st, st_ref)):
+            got, want = got.float(), want.float()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"SSD {shape} {dtype}: non-finite output")
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                raise AssertionError(
+                    f"SSD {shape} {dtype}: kernel differs from plain version "
+                    f"by {float((got - want).abs().max())} (tolerance {tol})")
+        big = shape[0] * shape[1] > 4096
+        ms = timed_ms(lambda: ops.ssd(*args, chunk=chunk), 10 if big else 20,
+                      flush)
+        plain = timed_ms(lambda: ref.ssd_reference(*args, chunk=chunk),
+                         3 if big else 20, flush)
+        b, by = ssd_bound_ms(shape, dtype)
+        name = f"ssd{shape} {dtype}"
+        results[name] = dict(shape=list(shape), dtype=dtype, max_abs_err=err,
+                             tol=tol, ms=ms, plain_ms=plain, bound_ms=b,
+                             bound_by=by)
+        log(f"kernel {name}: max abs err {err:.3e} (within {tol} + "
+            f"{tol}·|plain|), {ms:.6f} ms, plain {plain:.6f} ms, "
+            f"bound {b:.6f} ms ({by})")
+        del args, y, st, y_ref, st_ref
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------- serving mamba2-130m -------------------------- #
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def serving_phase(seed: int) -> dict:
+    """Save -> reopen -> restore -> prefill -> decode, at full width."""
+    from repro_torch.checkpoint import (CheckpointManager, ObjectStore,
+                                        ReplicatedStore)
+    from repro_torch.configs import get_config
+    from repro_torch.core import Log, LogConfig, build_replica_set
+    from repro_torch.kernels.checksum import checksum
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaf_paths
+
+    cfg = get_config("mamba2-130m")
+    out: dict = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                 "param_count": cfg.param_count()}
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = M.init_params(cfg, gen, device=DEV)
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(DEV)
+
+    stores = [ObjectStore(f"store{i}") for i in range(3)]
+    store = ReplicatedStore(stores, write_quorum=2)
+    rs = build_replica_set(mode="local+remote", capacity=1 << 20,
+                           n_backups=2, write_quorum=2, device=DEV,
+                           phash_threshold=PHASH_THRESHOLD)
+    checksum.LAUNCHES = 0
+    ssd_scan.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(store, rs.log)
+        lsn = mgr.save(0, params, extra={"arch": cfg.name, "seed": seed},
+                       sync=True)
+        if rs.log.durable_lsn < lsn:
+            raise AssertionError("sync save returned before its manifest "
+                                 "was durable")
+        rs.group.drain()
+        mgr.close()
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        relog = Log.open(rs.primary_dev, LogConfig(capacity=rs.cfg.capacity),
+                         device=DEV)
+        template = M.init_params(cfg, torch.Generator(device=DEV
+                                                      ).manual_seed(seed + 1),
+                                 device=DEV)
+        reader = CheckpointManager(store, relog)
+        step, restored, extra = reader.restore(template)
+        reader.close()
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+    finally:
+        rs.shutdown()
+    out["checkpoint_launches"] = checksum.LAUNCHES
+    saved, got = dict(leaf_paths(params)), dict(leaf_paths(restored))
+    bad = [n for n in saved if n not in got
+           or not bitwise_equal(saved[n], got[n])]
+    if step != 0 or extra.get("seed") != seed or bad or set(got) != set(saved):
+        raise AssertionError(f"restore: step {step}, extra {extra}, "
+                             f"leaves differing {bad[:5]}")
+    if out["checkpoint_launches"] < 3:
+        raise AssertionError("the manifest commit and the reopen did not go "
+                             "through the checksum kernel")
+    log(f"serving checkpoint: {len(saved)} leaves "
+        f"({out['param_count']} params) saved at lsn {lsn} (W=2 of 3 log, "
+        f"2 of 3 stores) in {out['save_s']:.3f} s, reopened and restored "
+        f"byte-exact in {out['restore_s']:.3f} s, "
+        f"{out['checkpoint_launches']} checksum launches")
+    del params, template
+
+    served = M.cast_params(restored, cfg)
+    res = serve.generate(served, cfg, prompts, SERVE_DECODE + 1)
+    out["ssd_launches"] = ssd_scan.LAUNCHES
+    out["checksum_launches"] = checksum.LAUNCHES
+    if out["ssd_launches"] != cfg.n_layers:
+        raise AssertionError(f"prefill made {out['ssd_launches']} SSD "
+                             f"launches, expected {cfg.n_layers}")
+    logits = res.prefill_logits
+    if tuple(logits.shape) != (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"not finite or not [B,S,V]")
+    toks = res.tokens
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_DECODE + 1) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"decoded tokens {tuple(toks.shape)} out of range")
+    n_tok = SERVE_BATCH * SERVE_PROMPT
+    out.update(
+        prefill_ms=res.prefill_s * 1e3,
+        prefill_tokens_per_s=n_tok / res.prefill_s,
+        decode_ms_per_step=res.decode_s * 1e3 / res.decode_steps,
+        decode_tokens_per_s=SERVE_BATCH * res.decode_steps / res.decode_s,
+        decode_steps=res.decode_steps,
+        logits_abs_max=float(logits.float().abs().max()))
+    log(f"serving prefill: {SERVE_BATCH} x {SERVE_PROMPT} tokens in "
+        f"{out['prefill_ms']:.3f} ms ({out['prefill_tokens_per_s']:.1f} tok/s), "
+        f"{out['ssd_launches']} SSD launches; decode: {res.decode_steps} "
+        f"steps, {out['decode_ms_per_step']:.3f} ms/step "
+        f"({out['decode_tokens_per_s']:.1f} tok/s)")
+
+    # teacher-forced decode from a shorter prefill must reproduce the
+    # prefill logits (tests/test_arch_smoke.py's check, in bf16), with the
+    # restored params and with a variant in which the scan matters
+    cut = SERVE_PROMPT - cfg.ssm_chunk
+    want = logits[:, cut:cut + 4].float().clone()
+    del logits, res
+    variants = {"init": (served, want)}
+    dominated = M.cast_params(scan_dominated(restored), cfg)
+    full, _ = M.serve_step(dominated, cfg, {"tokens": prompts}, None, None)
+    variants["scan-dominated"] = (dominated, full[:, cut:cut + 4].float()
+                                  .clone())
+    del full
+    for name, (p, want) in variants.items():
+        cache = M.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT, device=DEV)
+        _, cache = M.serve_step(p, cfg, {"tokens": prompts[:, :cut]},
+                                cache, 0)
+        diffs = []
+        for j in range(4):
+            step_logits, cache = M.serve_step(
+                p, cfg, {"tokens": prompts[:, cut + j:cut + j + 1]}, cache,
+                cut + j)
+            diffs.append(float((step_logits[:, 0].float() - want[:, j]
+                                ).abs().max()))
+        out[f"teacher_forced_max_abs_diff[{name}]"] = max(diffs)
+        log(f"serving teacher-forced decode at {cut}..{cut + 3}, {name} "
+            f"params: max abs diff {max(diffs):.4e} against the prefill "
+            f"logits (tolerance {TEACHER_TOL[name]}; logits up to "
+            f"{float(want.abs().max()):.3f})")
+        if not max(diffs) <= TEACHER_TOL[name]:
+            raise AssertionError(f"teacher-forced decode diverges: {diffs}")
+    out["restored"] = restored
+    return out
+
+
+def scan_dominated(params):
+    """``params`` with each mixer's output carried by its SSD scan: the
+    conv weights at the 1/sqrt(width) scale (0.5) instead of the init's
+    0.02 cap, and no D skip.  At the init's scale each mixer's output is
+    almost all its 4-token conv — changing the first 128 of 512 tokens
+    moves the fp32 logits by about 2e-6 — so end-to-end checks at init
+    see little of the scan; here they move by about 0.08."""
+    from repro_torch.tree import tree_map
+
+    out = tree_map(lambda t: t, params)
+    ssm = out["blocks"]["l0"]["ssm"]
+    ssm["conv_w"] = ssm["conv_w"] * 25.0
+    ssm["D_skip"] = torch.zeros_like(ssm["D_skip"])
+    return out
+
+
+def card_vs_cpu_phase(restored, seed: int) -> dict:
+    """The same params in fp32 compute, as restored and scan-dominated: one
+    prefill on the card (kernel) and one on the CPU (plain) each, logits
+    within 2e-3 (tests/test_arch_smoke.py's decode tolerance), the same
+    next greedy token."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = replace(get_config("mamba2-130m"), compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab_size, (1, 512)))
+    out = {}
+    for name, params in (("init", restored),
+                         ("scan-dominated", scan_dominated(restored))):
+        before = ssd_scan.LAUNCHES
+        card, _ = M.serve_step(params, cfg, {"tokens": toks.to(DEV)}, None,
+                               None)
+        card = card.cpu()
+        if ssd_scan.LAUNCHES - before != cfg.n_layers:
+            raise AssertionError("the card's prefill did not go through the "
+                                 "kernel")
+        host = tree_map(lambda t: t.cpu(), params)
+        plain, _ = M.serve_step(host, cfg, {"tokens": toks}, None, None)
+        if ssd_scan.LAUNCHES - before != cfg.n_layers:
+            raise AssertionError("the CPU prefill launched the kernel")
+        diff = float((card - plain).abs().max())
+        same = bool(torch.equal(card[:, -1].argmax(-1),
+                                plain[:, -1].argmax(-1)))
+        agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
+        log(f"card vs cpu (fp32, 1 x 512, {name} params): max abs logit diff "
+            f"{diff:.3e} (tolerance 2e-3), next greedy token equal: {same}, "
+            f"greedy tokens equal at {agree:.4f} of positions")
+        if not (torch.allclose(card, plain, atol=2e-3, rtol=2e-3) and same):
+            raise AssertionError(f"card and CPU disagree ({name} params)")
+        out[name] = dict(max_abs_diff=diff, next_token_equal=same,
+                         greedy_agreement=agree)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -335,16 +656,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.core.log import REC_HDR_SIZE
+    from repro_torch.kernels import nvcc
     from repro_torch.kernels.checksum import checksum
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
+    # fp32 on the card in full fp32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     t0 = time.perf_counter()
-    checksum.build()
+    nvcc.build_all([checksum.SOURCE, ssd_scan.SOURCE])
     build_s = time.perf_counter() - t0
     log(card)                    # nvidia-smi's "name, power.limit" line
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    log(f"kernel build (nvcc, sm_90a): {build_s:.3f} s")
+    log(f"kernel build (nvcc, sm_90a, 2 sources in parallel): {build_s:.3f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     base = np.random.default_rng(args.seed).integers(
@@ -358,6 +684,9 @@ def main() -> int:
                              f"expected {main_rows}")
     default_config_phase(base)
     strict_crash_phase(base)
+    ssd = ssd_kernel_phase(args.seed)
+    serving = serving_phase(args.seed)
+    cross = card_vs_cpu_phase(serving.pop("restored"), args.seed)
 
     at = kern[f"batch({main_rows},259) 1GiB ring"]
     kernels = [dict(
@@ -369,7 +698,19 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in kern.values()),
         ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
         bound_by=at["bound_by"], library_ms=None)]
-    print(json.dumps({"shapes": kern, "main_path": main}))
+    serve_at = ssd[f"ssd({SERVE_BATCH}, {SERVE_PROMPT}, 24, 64, 1, 128, 256) "
+                   f"bfloat16"]
+    kernels.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
+        launches=serving["ssd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
+        ms=serve_at["ms"], plain_ms=serve_at["plain_ms"],
+        bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
+        library_ms=None))
+    print(json.dumps({"shapes": kern, "main_path": main, "ssd_shapes": ssd,
+                      "serving": serving, "card_vs_cpu": cross}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..kernels.checksum.ops import tensor_checksum_batch
+from ..device import resolve_device
 from .pmem import PMEMDevice
 from .primitives import (AtomicRegion, ForceRound, REP_LF, reissue_segs,
                          write_and_force, write_and_force_segs_async)
@@ -188,21 +189,6 @@ def _rec_crc(lsn: int, size: int, payload) -> int:
     fields the LSN-based header check doesn't.
     """
     return crc32(payload, crc32(_SEED.pack(lsn, size)))
-
-
-def resolve_device(device) -> torch.device:
-    """The device integrity hashing runs on.  ``"cuda"`` (the default of
-    every entry point) needs a card and raises without one — there is no
-    silent fall back to the CPU; ``"cpu"`` selects the plain versions."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' but no CUDA device is available "
-                "(pass device='cpu' to hash with the plain version)")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported integrity-hash device {dev}")
-    return dev
 
 
 def _lane_buffer(rows: int, lanes: int, device: torch.device) -> torch.Tensor:

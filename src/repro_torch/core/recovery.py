@@ -29,8 +29,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .log import (CorruptLogError, Log, LogConfig, Superline,
-                  resolve_device, ring_offset, superline_region)
+from ..device import resolve_device
+from .log import (CorruptLogError, Log, LogConfig, Superline, ring_offset,
+                  superline_region)
 from .pmem import CACHE_LINE, PMEMDevice
 from .transport import (QuorumError, ReplicaServer, ReplicationGroup,
                         Transport, TransportError)

@@ -1,0 +1,117 @@
+"""Serving launcher: batched prefill + greedy decode with the SSM state
+cache, on the card unless ``--device cpu`` is given.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --reduced --device cpu --batch 4 --prompt-len 64 --gen 32
+
+Parameters are initialised from ``--seed`` (no weights are downloaded).
+The port serves SSM-only configs (mamba2-130m) so far; any other config
+raises ``NotImplementedError`` naming its ROADMAP item.  The prompt
+length must be at most ``ssm_chunk`` or a multiple of it (the chunked
+scan's condition).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import ARCH_NAMES, get_config, reduced_config
+from ..device import resolve_device
+from ..models import model as M
+from ..models.config import ModelConfig
+from ..models.layers import NOT_PORTED
+
+
+def check_servable(cfg: ModelConfig, prompt_len: int) -> None:
+    """Raise unless the port can serve ``cfg`` at ``prompt_len``."""
+    if not cfg.causal:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode serving")
+    mixers = {k.mixer for k in cfg.block_pattern()}
+    if mixers != {"ssm"} or cfg.first_dense_layers or cfg.d_ff or \
+            cfg.n_experts or cfg.input_kind != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves SSM-only token models so far; its "
+            f"attention/MLP/MoE layers and frontends are {NOT_PORTED}")
+    q = cfg.ssm_chunk
+    if prompt_len > q and prompt_len % q:
+        raise ValueError(f"prompt length {prompt_len} must be <= {q} or a "
+                         f"multiple of it (ssm_chunk)")
+
+
+@dataclass
+class Generation:
+    tokens: torch.Tensor                  # [B, gen] greedy continuation
+    prefill_logits: torch.Tensor          # [B, P, V]
+    prefill_s: float                      # prefill wall time, synchronised
+    decode_s: float                       # all decode steps, synchronised
+    decode_steps: int
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int
+             ) -> Generation:
+    """Prefill ``prompts`` [B, P] (one SSD scan per layer), then ``gen - 1``
+    greedy decode steps: ``gen`` new tokens in all."""
+    B, P = prompts.shape
+    check_servable(cfg, P)
+    device = prompts.device
+    cache = M.init_cache(cfg, B, P + gen, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = M.serve_step(params, cfg, {"tokens": prompts}, cache, 0)
+    tok = logits[:, -1:].argmax(-1)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for j in range(gen - 1):
+        step_logits, cache = M.serve_step(params, cfg, {"tokens": tok}, cache,
+                                          P + j)
+        tok = step_logits[:, -1:].argmax(-1)
+        out.append(tok)
+    _sync(device)
+    return Generation(torch.cat(out, dim=1), logits, t_prefill,
+                      time.perf_counter() - t0, gen - 1)
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_NAMES)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = reduced_config(args.arch) if args.reduced else \
+        get_config(args.arch)
+    check_servable(cfg, args.prompt_len)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = M.cast_params(M.init_params(cfg, gen, device=device), cfg)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
+    out = generate(params, cfg, prompts, args.gen)
+    B = args.batch
+    print(f"[serve] {cfg.name} on {device}: prefill {B}x{args.prompt_len} in "
+          f"{out.prefill_s * 1e3:.1f}ms; decoded {out.decode_steps} steps in "
+          f"{out.decode_s * 1e3:.1f}ms "
+          f"({B * out.decode_steps / max(out.decode_s, 1e-9):.1f} tok/s)")
+    print(f"[serve] sample continuation: {out.tokens[0, :16].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

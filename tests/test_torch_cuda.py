@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-log's path through it.  Every test here needs an NVIDIA card and skips
+"""The port on the card: the CUDA kernels against their plain versions, and
+the log's path through the checksum kernel.  Every test here needs an NVIDIA card and skips
 elsewhere; on the GPU machine run
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -13,6 +13,9 @@ import torch
 
 from repro_torch.core import Log, LogConfig, PMEMDevice, device_size
 from repro_torch.kernels.checksum import checksum, ops, ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +86,159 @@ def test_log_on_the_card_writes_the_cpu_image(cuda_device, mode):
     got = [p for _, p in relog.iter_records()]
     assert checksum.LAUNCHES == before + 2        # scan + replay, one each
     assert got == [p for w in waves[:5] for p in w]
+
+
+# ------------------------------ SSD scan ------------------------------- #
+
+def ssd_inputs(B, S, H, P, G, N, dtype, seed, device, mixer=False):
+    """The SSD inputs of tests/test_kernels.py, or (``mixer``) with dt and
+    A drawn as mamba2-130m initialises them (dt in [1e-3, 0.1], A = exp(A_log)
+    in [1, 16]).  At N=128, Q=256 the tests' dt range puts the chunk's
+    cumulative decay near -200, where even the JAX package's fp32
+    reference is 4e-4 from the float64 answer; the mixer's range keeps
+    both versions well inside 1e-4."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(device=device, dtype=dt)
+    dt = rng.uniform(1e-3, 0.1, size=(B, S, H)) if mixer else \
+        rng.uniform(0.05, 0.9, size=(B, S, H))
+    A_log = np.log(rng.uniform(1.0, 16.0, size=(H,))) if mixer else \
+        rng.uniform(-1.0, 0.5, size=(H,))
+    return (t(rng.normal(size=(B, S, H, P)), dtype), t(dt), t(A_log),
+            t(rng.normal(size=(B, S, G, N)), dtype),
+            t(rng.normal(size=(B, S, G, N)), dtype))
+
+
+@pytest.fixture
+def fp32_exact():
+    """fp32 products on the card in full fp32 (no TF32) for the plain side."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+# the shapes of tests/test_kernels.py (SSD), plus H=6 over G=3 groups, and
+# mamba2-130m's head widths in one short chunk and in two full ones
+SSD_SHAPES = [(2, 64, 4, 32, 2, 16, 16), (1, 128, 2, 64, 1, 32, 32),
+              (2, 64, 4, 32, 4, 16, 64), (1, 96, 6, 16, 3, 8, 16),
+              (1, 100, 24, 64, 1, 128, 256), (1, 512, 24, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_version(cuda_device, fp32_exact,
+                                          B, S, H, P, G, N, chunk):
+    args = ssd_inputs(B, S, H, P, G, N, torch.float32, S * H, cuda_device,
+                      mixer=N == 128)
+    before = ssd_scan.LAUNCHES
+    y, st = ssd_ops.ssd(*args, chunk=chunk)
+    assert ssd_scan.LAUNCHES == before + 1
+    y_ref, st_ref = ssd_ref.ssd_reference(*args, chunk=chunk)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, st_ref, atol=1e-4, rtol=1e-4)
+    if S <= 128:
+        y_seq, st_seq = ssd_ref.ssd_sequential_oracle(*args)
+        torch.testing.assert_close(y, y_seq, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, st_seq, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_bf16(cuda_device, fp32_exact):
+    args = ssd_inputs(1, 64, 2, 32, 1, 16, torch.bfloat16, 5, cuda_device)
+    y, st = ssd_ops.ssd(*args, chunk=16)
+    y_ref, st_ref = ssd_ref.ssd_reference(*args, chunk=16)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(st, st_ref, atol=5e-2, rtol=5e-2)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
+    xh, dt, A, Bm, Cm = ssd_inputs(1, 64, 4, 32, 2, 16, torch.float32, 0,
+                                   cuda_device)
+    with pytest.raises(ValueError):                   # chunk does not divide S
+        ssd_scan.ssd_cuda(xh, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(TypeError):                    # mixed input dtypes
+        ssd_scan.ssd_cuda(xh, dt, A, Bm.bfloat16(), Cm, chunk=16)
+    with pytest.raises(ValueError):                   # not contiguous
+        ssd_scan.ssd_cuda(xh.transpose(1, 2), dt, A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError):                   # a CPU tensor
+        ssd_scan.ssd_cuda(xh.cpu(), dt, A, Bm, Cm, chunk=16)
+
+
+# --------------------------- serving on the card --------------------------- #
+
+def scan_dominated(params):
+    """Conv weights at 1/sqrt(width), no D skip: each mixer's output is
+    carried by its SSD scan (at the init's scale it is mostly the conv)."""
+    from repro_torch.tree import tree_map
+    out = tree_map(lambda t: t, params)
+    ssm = out["blocks"]["l0"]["ssm"]
+    ssm["conv_w"] = ssm["conv_w"] * 25.0
+    ssm["D_skip"] = torch.zeros_like(ssm["D_skip"])
+    return out
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
+    """Reduced mamba2-130m (2 layers, fp32): prefill through the kernel and
+    4 decode steps on the card against the same on the CPU (plain)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = replace(reduced_config("mamba2-130m"), n_layers=2)
+    host = scan_dominated(M.init_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu"))
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 68)))
+    caches = {d: M.init_cache(cfg, 2, 68, device=d) for d in ("cpu", "cuda")}
+    before = ssd_scan.LAUNCHES
+    got, caches["cuda"] = M.serve_step(card, cfg, {"tokens": toks[:, :64]
+                                                   .to(cuda_device)},
+                                       caches["cuda"], 0)
+    assert ssd_scan.LAUNCHES == before + cfg.n_layers
+    want, caches["cpu"] = M.serve_step(host, cfg, {"tokens": toks[:, :64]},
+                                       caches["cpu"], 0)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    for j in range(64, 68):
+        got, caches["cuda"] = M.serve_step(
+            card, cfg, {"tokens": toks[:, j:j + 1].to(cuda_device)},
+            caches["cuda"], j)
+        want, caches["cpu"] = M.serve_step(
+            host, cfg, {"tokens": toks[:, j:j + 1]}, caches["cpu"], j)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+        assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
+    assert ssd_scan.LAUNCHES == before + cfg.n_layers   # decode: no kernel
+
+
+def test_checkpoint_restores_onto_the_card(cuda_device):
+    from repro_torch.checkpoint import (CheckpointManager, ObjectStore,
+                                        ReplicatedStore)
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import build_replica_set
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaf_paths
+
+    cfg = reduced_config("mamba2-130m")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    rs = build_replica_set(mode="local+remote", capacity=1 << 18,
+                           n_backups=2, write_quorum=2, phash_threshold=256)
+    try:
+        store = ReplicatedStore([ObjectStore(f"s{i}") for i in range(3)], 2)
+        before = checksum.LAUNCHES
+        mgr = CheckpointManager(store, rs.log)
+        mgr.save(5, params, sync=True)
+        assert checksum.LAUNCHES > before           # the manifest was hashed
+        template = M.init_params(cfg, torch.Generator(device="cuda"))
+        step, got, _ = mgr.restore(template)
+        mgr.close()
+    finally:
+        rs.shutdown()
+    assert step == 5
+    for (name, a), (_, b) in zip(leaf_paths(params), leaf_paths(got)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype, name
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name

@@ -145,6 +145,10 @@ def test_read_quorum_not_met_raises():
                             write_quorum=2, device="cpu")   # R = 3 - 2 + 1
     try:
         trs.log.append(b"x")
+        # both backups hold the record: W = 2 acks at the primary and one
+        # backup, so the other may still lag (with no readable copy at all
+        # both packages fail in max() with ValueError; ROADMAP Queue 3)
+        trs.group.drain()
         accs = accessors(trs, CopyAccessor, include_primary=False)[:1]
         with pytest.raises(RecoveryError):
             quorum_recover(accs, trs.cfg, write_quorum=2, device="cpu")

@@ -113,7 +113,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.core, "
-            "repro_torch.kernels.checksum.ops; "
+            "repro_torch.kernels.checksum.ops, repro_torch.kernels.ssd_scan.ops, "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.checkpoint, repro_torch.configs, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
