@@ -22,7 +22,9 @@ parallel) and then, on the card:
                 durable-acked record must come back byte-exact;
   ssd kernel    the SSD kernel against its plain version at every listed
                 shape (fp32 within 1e-4, bf16 within 5e-2), with its
-                median time, the plain version's time and its bound;
+                median time, the plain version's time and its bound; in
+                fp32 both against a float64 recurrence, where at N = 128
+                the kernel may be no further from it than the plain one;
   serving       mamba2-130m at full width from --seed, saved as a
                 checkpoint whose manifest commits through a replicated log
                 (2 backups, W = 2 of 3, phash threshold 256 B), the log
@@ -52,6 +54,7 @@ import subprocess
 import sys
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -188,14 +191,15 @@ def replay(log_obj) -> tuple[int, int]:
     return n, digest
 
 
-def main_path_phase(base: bytes) -> dict:
-    from repro_torch.core import (CopyAccessor, CostModel, Log, LogConfig,
-                                  LogFullError, PMEMDevice, ReplicaServer,
-                                  ReplicationGroup, Transport, device_size,
-                                  quorum_recover)
-    from repro_torch.kernels.checksum import checksum
+def replicated_deployment(capacity: int):
+    """A local primary and two backups, W = 2 of 3, whose log hashes every
+    record of at least PHASH_THRESHOLD bytes: (primary device, backup
+    servers, replication group, log config)."""
+    from repro_torch.core import (CostModel, LogConfig, PMEMDevice,
+                                  ReplicaServer, ReplicationGroup, Transport,
+                                  device_size)
 
-    size = device_size(RING_BYTES)
+    size = device_size(capacity)
     cost = CostModel()
     primary = PMEMDevice(size, mode="fast", cost=cost, name="node0/pmem")
     servers = [ReplicaServer(PMEMDevice(size, mode="fast", cost=cost,
@@ -204,8 +208,17 @@ def main_path_phase(base: bytes) -> dict:
     transports = [Transport(s, primary_id="node0", cost=cost)
                   for s in servers]
     group = ReplicationGroup(transports, 2, local_is_durable=True)
-    cfg = LogConfig(capacity=RING_BYTES, write_quorum=2,
+    cfg = LogConfig(capacity=capacity, write_quorum=2,
                     phash_threshold=PHASH_THRESHOLD)
+    return primary, servers, group, cfg
+
+
+def main_path_phase(base: bytes) -> dict:
+    from repro_torch.core import (CopyAccessor, Log, LogConfig, LogFullError,
+                                  quorum_recover)
+    from repro_torch.kernels.checksum import checksum
+
+    primary, servers, group, cfg = replicated_deployment(RING_BYTES)
     out = {}
     try:
         wal = Log.create(primary, cfg, repl=group)
@@ -376,7 +389,8 @@ def ssd_inputs(shape, dtype, seed: int):
     (N = 128) dt and A are drawn as the model initialises them (dt in
     [1e-3, 0.1], A = exp(A_log) in [1, 16]).  With the tests' dt range the
     chunk's cumulative decay nears -200 at Q = 256, where the fp32 plain
-    version itself is 4e-4 from the float64 answer."""
+    version itself is 3e-4 to 1e-3 from a float64 recurrence (the float64
+    check is tests/test_torch_cuda.py's)."""
     B, S, H, P, G, N, _ = shape
     rng = np.random.default_rng(seed)
     mixer = N == 128
@@ -432,6 +446,21 @@ def ssd_kernel_phase(seed: int) -> dict:
                 raise AssertionError(
                     f"SSD {shape} {dtype}: kernel differs from plain version "
                     f"by {float((got - want).abs().max())} (tolerance {tol})")
+        err64 = {}
+        if dtype == "float32":         # both versions against float64
+            exact = ref.ssd_sequential_oracle(*(a.double() for a in args))
+            for side, outs in (("kernel", (y, st)), ("plain", (y_ref, st_ref))):
+                err64[side] = max(float(((o.double() - e).abs()
+                                         / (1 + e.abs())).max())
+                                  for o, e in zip(outs, exact))
+            log(f"kernel ssd{shape} float32: max |err| / (1 + |exact|) "
+                f"against float64, kernel {err64['kernel']:.3e}, plain "
+                f"{err64['plain']:.3e}")
+            del exact
+            # at mamba2-130m's state width the chunk's decays run long
+            if shape[5] == 128 and err64["kernel"] > err64["plain"]:
+                raise AssertionError(f"SSD {shape}: kernel further from "
+                                     f"float64 than the plain version")
         big = shape[0] * shape[1] > 4096
         ms = timed_ms(lambda: ops.ssd(*args, chunk=chunk), 10 if big else 20,
                       flush)
@@ -441,7 +470,7 @@ def ssd_kernel_phase(seed: int) -> dict:
         name = f"ssd{shape} {dtype}"
         results[name] = dict(shape=list(shape), dtype=dtype, max_abs_err=err,
                              tol=tol, ms=ms, plain_ms=plain, bound_ms=b,
-                             bound_by=by)
+                             bound_by=by, err_from_float64=err64)
         log(f"kernel {name}: max abs err {err:.3e} (within {tol} + "
             f"{tol}·|plain|), {ms:.6f} ms, plain {plain:.6f} ms, "
             f"bound {b:.6f} ms ({by})")
@@ -462,7 +491,7 @@ def serving_phase(seed: int) -> dict:
     from repro_torch.checkpoint import (CheckpointManager, ObjectStore,
                                         ReplicatedStore)
     from repro_torch.configs import get_config
-    from repro_torch.core import Log, LogConfig, build_replica_set
+    from repro_torch.core import Log, LogConfig
     from repro_torch.kernels.checksum import checksum
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
@@ -479,24 +508,23 @@ def serving_phase(seed: int) -> dict:
 
     stores = [ObjectStore(f"store{i}") for i in range(3)]
     store = ReplicatedStore(stores, write_quorum=2)
-    rs = build_replica_set(mode="local+remote", capacity=1 << 20,
-                           n_backups=2, write_quorum=2, device=DEV,
-                           phash_threshold=PHASH_THRESHOLD)
+    primary, _, group, log_cfg = replicated_deployment(1 << 20)
     checksum.LAUNCHES = 0
     ssd_scan.LAUNCHES = 0
     try:
+        wal = Log.create(primary, log_cfg, repl=group, device=DEV)
         t0 = time.perf_counter()
-        mgr = CheckpointManager(store, rs.log)
+        mgr = CheckpointManager(store, wal)
         lsn = mgr.save(0, params, extra={"arch": cfg.name, "seed": seed},
                        sync=True)
-        if rs.log.durable_lsn < lsn:
+        if wal.durable_lsn < lsn:
             raise AssertionError("sync save returned before its manifest "
                                  "was durable")
-        rs.group.drain()
+        group.drain()
         mgr.close()
         out["save_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        relog = Log.open(rs.primary_dev, LogConfig(capacity=rs.cfg.capacity),
+        relog = Log.open(primary, LogConfig(capacity=log_cfg.capacity),
                          device=DEV)
         template = M.init_params(cfg, torch.Generator(device=DEV
                                                       ).manual_seed(seed + 1),
@@ -507,7 +535,7 @@ def serving_phase(seed: int) -> dict:
         torch.cuda.synchronize()
         out["restore_s"] = time.perf_counter() - t0
     finally:
-        rs.shutdown()
+        group.shutdown()
     out["checkpoint_launches"] = checksum.LAUNCHES
     saved, got = dict(leaf_paths(params)), dict(leaf_paths(restored))
     bad = [n for n in saved if n not in got
@@ -665,7 +693,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     t0 = time.perf_counter()
-    nvcc.build_all([checksum.SOURCE, ssd_scan.SOURCE])
+    sources = [checksum.SOURCE, ssd_scan.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
     log(card)                    # nvidia-smi's "name, power.limit" line
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "

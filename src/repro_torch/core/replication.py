@@ -170,7 +170,6 @@ def build_replica_set(
     ingest: Optional[IngestConfig] = None,
     backup_ids: Optional[List[str]] = None,
     device="cuda",
-    phash_threshold: Optional[int] = None,
 ) -> ReplicaSet:
     """Construct devices + transports + group + log for one deployment.
 
@@ -184,8 +183,7 @@ def build_replica_set(
     across a multi-shard deployment is globally unique.
     ``device`` is where the log's integrity hashing runs: ``"cuda"``
     needs a card and raises (before anything is built) without one,
-    ``"cpu"`` uses the plain versions.  ``phash_threshold`` overrides
-    ``LogConfig``'s (records at least this long are hashed on ``device``)."""
+    ``"cpu"`` uses the plain versions."""
     device = resolve_device(device)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
@@ -206,8 +204,6 @@ def build_replica_set(
                     local_durable=local_durable,
                     pipeline_depth=pipeline_depth,
                     adaptive_depth=adaptive_depth, salvage=salvage)
-    if phash_threshold is not None:
-        cfg.phash_threshold = phash_threshold
     size = device_size(capacity)
     cost = cost or CostModel()
     # remote-only staging is DRAM: model as fast device (never persisted)

@@ -32,7 +32,7 @@
 //     chunk: 256 KB at Q=256 in fp32, over the 227 KB a block may use.  Here
 //     the intra-chunk product is tiled as flash attention is: 64-row tiles
 //     i, and for each the 64-column tiles j ≤ i, with y_i accumulated in
-//     registers over the j tiles.  About 134 KB of dynamic shared memory at
+//     registers over the j tiles.  About 135 KB of dynamic shared memory at
 //     the serving shape (set with cudaFuncSetAttribute).
 //   * Mask before exp.  For j > i, cum_i - cum_j > 0 and its exp can
 //     overflow; an inf times a 0 mask is NaN.  The kernel selects 0 for
@@ -43,6 +43,13 @@
 //     accumulates in fp32 and writes y in xh's dtype.
 //   * Grouping.  Head h reads B and C of group h / (H/G) straight from the
 //     [B,S,G,N] tensors; nothing is repeated in memory.
+//   * Decay differences.  At Q=256 the cumulative log-decay reaches -100 to
+//     -200, where an fp32 rounding is ~1e-5, and that error would enter
+//     every decay exp(cum_i - cum_j) — most of all those of nearby tokens,
+//     which carry most of y.  The kernel sums cum in fp64 (one thread, 256
+//     adds a chunk, 2 KB of shared memory) and rounds each difference to
+//     fp32 once, so its decays are as exact as fp32 allows.  The plain
+//     version sums in fp32 and is the less exact of the two.
 // Shared-memory tiles are padded to N+1 (and 64+1) floats a row, so the
 // lanes of a warp that walk rows hit distinct banks.
 //
@@ -74,32 +81,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);                             // round to nearest even
 }
 
-// In-place inclusive prefix sum of v[0..n) by one warp: each lane sums a
-// run of ceil(n/32) entries, then the lanes' totals are scanned by shuffles.
-__device__ __forceinline__ void warp_inclusive_scan(float* v, int n, int lane) {
-  const int per = (n + 31) / 32;
-  const int lo = min(lane * per, n);
-  const int hi = min(lo + per, n);
-  float run = 0.f;
-  for (int i = lo; i < hi; ++i) {
+// In-place inclusive prefix sum of v[0..n) in fp64, in order, by one thread.
+__device__ __forceinline__ void serial_inclusive_scan(double* v, int n) {
+  double run = 0.0;
+  for (int i = 0; i < n; ++i) {
     run += v[i];
     v[i] = run;
   }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  const float excl = incl - run;
-  for (int i = lo; i < hi; ++i) v[i] += excl;
 }
 
 // Shared memory of one block, in floats.
 __host__ __device__ __forceinline__ long long smem_floats(int P, int N, int Q) {
   const long long ldn = N + 1;
-  return P * ldn            // h      [P][N+1]
-         + 2LL * Q          // cum, dt [Q]
+  return 2LL * Q            // cum [Q], fp64
+         + P * ldn          // h      [P][N+1]
+         + Q                // dt [Q]
          + 2LL * kTile * ldn  // C tile, B tile [64][N+1]
          + 1LL * kTile * P    // x·dt tile [64][P]
          + kTile * (kTile + 1LL);  // masked C·Bᵀ tile [64][65]
@@ -111,13 +107,13 @@ ssd_scan_kernel(const T* __restrict__ xh, const float* __restrict__ dt,
                 const float* __restrict__ A_log, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, T* __restrict__ y,
                 float* __restrict__ state_out, Dims d) {
-  extern __shared__ float smem[];
+  extern __shared__ double smem[];
   const int P = d.P, N = d.N, Q = d.Q;
   const int ldn = N + 1;
   constexpr int lds = kTile + 1;
-  float* h_s = smem;                  // running state h[p][n]
-  float* cum = h_s + P * ldn;         // cumulative log-decay of the chunk
-  float* dts = cum + Q;               // dt of the chunk
+  double* cum = smem;                 // cumulative log-decay of the chunk, fp64
+  float* h_s = reinterpret_cast<float*>(cum + Q);  // running state h[p][n]
+  float* dts = h_s + P * ldn;         // dt of the chunk
   float* Ct = dts + Q;                // C rows of tile i
   float* Bt = Ct + kTile * ldn;       // B rows of tile j
   float* Xt = Bt + kTile * ldn;       // x·dt rows of tile j
@@ -142,12 +138,12 @@ ssd_scan_kernel(const T* __restrict__ xh, const float* __restrict__ dt,
     for (int i = tid; i < Q; i += kThreads) {
       const float v = dtb[static_cast<long long>(t0 + i) * d.H];
       dts[i] = v;
-      cum[i] = A * v;
+      cum[i] = static_cast<double>(A) * v;
     }
     __syncthreads();
-    if (tid < 32) warp_inclusive_scan(cum, Q, tid);
+    if (tid == 0) serial_inclusive_scan(cum, Q);
     __syncthreads();
-    const float total = cum[Q - 1];
+    const double total = cum[Q - 1];
 
     // ---- y of the chunk, one 64-row tile i at a time ----
     for (int i0 = 0; i0 < Q; i0 += kTile) {
@@ -181,7 +177,7 @@ ssd_scan_kernel(const T* __restrict__ xh, const float* __restrict__ dt,
             const float* ci = Ct + i * ldn;
             const float* bj = Bt + j * ldn;
             for (int n = 0; n < N; ++n) s = fmaf(ci[n], bj[n], s);
-            s *= expf(cum[i0 + i] - cum[j0 + j]);
+            s *= expf(static_cast<float>(cum[i0 + i] - cum[j0 + j]));
           }
           St[i * lds + j] = s;
         }
@@ -209,7 +205,7 @@ ssd_scan_kernel(const T* __restrict__ xh, const float* __restrict__ dt,
           const float* hp = h_s + p * ldn;
           float a = 0.f;
           for (int n = 0; n < N; ++n) a = fmaf(ci[n], hp[n], a);
-          const float v = acc[k] + expf(cum[i0 + i]) * a;
+          const float v = acc[k] + expf(static_cast<float>(cum[i0 + i])) * a;
           y[x_base + static_cast<long long>(t0 + i0 + i) * x_tok + p] = from_f32<T>(v);
         }
       }
@@ -217,14 +213,14 @@ ssd_scan_kernel(const T* __restrict__ xh, const float* __restrict__ dt,
 
     // ---- state update: every row has read the old h ----
     __syncthreads();
-    const float decay = expf(total);
+    const float decay = expf(static_cast<float>(total));
     for (int e = tid; e < P * N; e += kThreads) h_s[(e / N) * ldn + e % N] *= decay;
     for (int j0 = 0; j0 < Q; j0 += kTile) {
       const int nj = min(kTile, Q - j0);
       __syncthreads();                // Bt, Xt free
       for (int e = tid; e < nj * N; e += kThreads) {
         const int r = e / N, n = e - r * N;
-        const float w = expf(total - cum[j0 + r]);
+        const float w = expf(static_cast<float>(total - cum[j0 + r]));
         Bt[r * ldn + n] = w * to_f32(Bm[bc_base + static_cast<long long>(t0 + j0 + r) * bc_tok + n]);
       }
       for (int e = tid; e < nj * P; e += kThreads) {

@@ -65,29 +65,6 @@ def build(source: Path) -> Path:
     return out
 
 
-def build_all(sources) -> Dict[Path, Path]:
-    """Build several sources at once, one nvcc process each, all started
-    together; returns {source: library}."""
-    sources = list(sources)
-    results: Dict[Path, object] = {}
-
-    def one(src: Path) -> None:
-        try:
-            results[src] = build(src)
-        except BaseException as exc:      # re-raised below, in this thread
-            results[src] = exc
-
-    threads = [threading.Thread(target=one, args=(s,)) for s in sources]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for src in sources:
-        if isinstance(results[src], BaseException):
-            raise results[src]
-    return results
-
-
 def load(source: Path, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library of ``source``, built at the first call; ``bind``
     sets the C functions' argument and result types once."""

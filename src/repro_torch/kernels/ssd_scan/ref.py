@@ -82,18 +82,26 @@ def ssd_reference(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return y.reshape(B_, S, H, P).to(xh.dtype), h
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32, or float64 for float64 inputs (the oracle of the kernels'
+    accuracy checks)."""
+    return torch.promote_types(x.dtype, F32)
+
+
 def ssd_decode_reference(xh: torch.Tensor, dt: torch.Tensor,
                          A_log: torch.Tensor, Bm: torch.Tensor,
                          Cm: torch.Tensor, state: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-token recurrence.  xh [B,1,H,P]; state [B,H,P,N] fp32."""
+    """One-token recurrence.  xh [B,1,H,P]; state [B,H,P,N] fp32 (float64
+    with float64 inputs)."""
+    f = _compute_dtype(xh)
     G = Bm.shape[2]
     rep = xh.shape[2] // G
-    dt32 = dt[:, 0].to(F32)                                   # [B,H]
-    decay = torch.exp(_decay_logs(dt32, A_log))[:, :, None, None]
-    Br = Bm[:, 0].to(F32).repeat_interleave(rep, dim=1)       # [B,H,N]
-    Cr = Cm[:, 0].to(F32).repeat_interleave(rep, dim=1)
-    xdt = xh[:, 0].to(F32) * dt32[..., None]                  # [B,H,P]
+    dtf = dt[:, 0].to(f)                                      # [B,H]
+    decay = torch.exp(-torch.exp(A_log.to(f)) * dtf)[:, :, None, None]
+    Br = Bm[:, 0].to(f).repeat_interleave(rep, dim=1)         # [B,H,N]
+    Cr = Cm[:, 0].to(f).repeat_interleave(rep, dim=1)
+    xdt = xh[:, 0].to(f) * dtf[..., None]                     # [B,H,P]
     new_state = state * decay + torch.einsum("bhp,bhn->bhpn", xdt, Br)
     y = torch.einsum("bhn,bhpn->bhp", Cr, new_state)
     return y[:, None].to(xh.dtype), new_state
@@ -102,10 +110,11 @@ def ssd_decode_reference(xh: torch.Tensor, dt: torch.Tensor,
 def ssd_sequential_oracle(xh, dt, A_log, Bm, Cm
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-by-token recurrence: the ground truth the chunked algorithm
-    must match."""
+    must match.  Given float64 inputs it computes in float64."""
     B_, S, H, P = xh.shape
     N = Bm.shape[3]
-    state = torch.zeros(B_, H, P, N, dtype=F32, device=xh.device)
+    state = torch.zeros(B_, H, P, N, dtype=_compute_dtype(xh),
+                        device=xh.device)
     ys = []
     for t in range(S):
         y, state = ssd_decode_reference(

@@ -149,14 +149,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # forward machinery
 # ---------------------------------------------------------------------- #
 
-def _cast_compute(p, cfg: ModelConfig):
+def _cast_compute(p, cfg: ModelConfig, stacked: int = 0):
     """Mixed-precision policy: matmul weights (ndim>=2, floating) compute
     in compute_dtype regardless of storage dtype; 1-D leaves (norm gains,
-    A_log, dt_bias, biases) keep their own (fp32) semantics."""
+    A_log, dt_bias, biases) keep their own (fp32) semantics.  ``stacked``
+    leading axes (the blocks' ``[n_blocks, ...]``) do not count toward a
+    leaf's rank."""
     dt = torch_dtype(cfg.compute_dtype)
 
     def conv(a):
-        if isinstance(a, torch.Tensor) and a.dim() >= 2 and \
+        if isinstance(a, torch.Tensor) and a.dim() - stacked >= 2 and \
                 a.is_floating_point() and a.dtype != dt:
             return a.to(dt)
         return a
@@ -164,11 +166,14 @@ def _cast_compute(p, cfg: ModelConfig):
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
-    """``params`` with every matrix already in the compute dtype.  The
-    forward casts exactly these leaves at every layer (and the embedding
-    at every step); casting them once at load gives identical values and
-    leaves the per-step casts nothing to do."""
-    return _cast_compute(params, cfg)
+    """``params`` with the leaves the forward casts already in the compute
+    dtype: the embedding and every leaf that is a matrix within its layer
+    (a block leaf's stacked axis does not count).  Per-layer vectors —
+    norm gains, A_log, dt_bias, D_skip, the conv bias — stay fp32, as the
+    forward keeps them.  The forward's own casts of the cast leaves then
+    have nothing to do, and its values are bitwise those of ``params``."""
+    return {k: _cast_compute(v, cfg, stacked=int(k == "blocks"))
+            for k, v in params.items()}
 
 
 def _apply_layer(h, p, cfg: ModelConfig, kind: LayerKind, cache, index):

@@ -150,6 +150,32 @@ def test_prefill_goes_through_the_ssd_route_once_per_layer():
     assert tuple(cache["blocks"]["l0"]["state"].shape)[:2] == (2, 1)
 
 
+def test_cast_params_keeps_bf16_serving_bitwise():
+    """Casting once at load changes nothing the forward computes: bf16
+    prefill and decode logits on ``cast_params(p)`` are bitwise those on
+    ``p``, and each layer's vectors (A_log, dt_bias, D_skip, the conv
+    bias, the norm gains) stay fp32, as the JAX package's per-layer cast
+    keeps them."""
+    _, tcfg, _, tparams = jax_and_port_params(seed=4, scan_dominated=True)
+    cfg = replace(tcfg, compute_dtype="bfloat16")
+    cast = TM.cast_params(tparams, cfg)
+    for name, leaf in leaf_paths(cast):
+        per_layer = leaf.dim() - int(name.startswith("['blocks']"))
+        assert leaf.dtype == (torch.bfloat16 if per_layer >= 2
+                              else torch.float32), name
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 36)))
+    caches = [TM.init_cache(cfg, 2, 36, device="cpu") for _ in range(2)]
+    for j, (lo, hi) in enumerate([(0, 32), (32, 33), (33, 34), (34, 35)]):
+        got, caches[0] = TM.serve_step(cast, cfg, {"tokens": toks[:, lo:hi]},
+                                       caches[0], lo)
+        want, caches[1] = TM.serve_step(tparams, cfg,
+                                        {"tokens": toks[:, lo:hi]},
+                                        caches[1], lo)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want), f"step {j}"
+
+
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_param_specs_and_counts_match_jax(name):
     jspecs = JM.param_specs(jax_get_config(name))

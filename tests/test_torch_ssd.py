@@ -5,8 +5,10 @@ token-by-token oracle, on the same numpy-seeded inputs.
 Tolerances are those of tests/test_kernels.py: 1e-4 in fp32, 5e-2 in
 bf16.  The mamba2-130m head shapes (N=128, Q=256) draw dt and A as the
 model initialises them: with the tests' dt range the chunk's cumulative
-decay nears -200 and the JAX reference itself is 4e-4 from the float64
-answer there.
+decay nears -200, where the JAX reference and the port's plain version
+are each 3e-4 to 1e-3 (about 1e-4 of |y|) from a float64 recurrence, so
+1e-4 between two fp32 versions does not hold there.  tests/test_torch_cuda.py
+holds the CUDA kernel to a float64 recurrence at that range.
 """
 
 import numpy as np
@@ -111,6 +113,48 @@ def test_plain_ssd_matches_sequential_oracles(shape):
     assert_close(st_seq, st_jseq, F32_TOL)
 
 
+def test_sequential_oracle_in_float64():
+    """Given float64 inputs the oracle computes in float64: it matches a
+    numpy float64 recurrence to rounding, and the fp32 oracle at 1e-4."""
+    B, S, H, P, G, N = 1, 24, 4, 8, 2, 8
+    args = inputs(B, S, H, P, G, N, seed=13)
+    y, st = ref.ssd_sequential_oracle(*(torch.from_numpy(a).double()
+                                        for a in args))
+    assert y.dtype == st.dtype == torch.float64
+    xh, dt, A_log, Bm, Cm = (a.astype(np.float64) for a in args)
+    rep = H // G
+    Bh, Ch = Bm.repeat(rep, axis=2), Cm.repeat(rep, axis=2)
+    h = np.zeros((B, H, P, N))
+    for t in range(S):
+        h = h * np.exp(-np.exp(A_log) * dt[:, t])[..., None, None] + \
+            (xh[:, t] * dt[:, t, :, None])[..., None] * Bh[:, t, :, None, :]
+        np.testing.assert_allclose(y[:, t].numpy(),
+                                   np.einsum("bhpn,bhn->bhp", h, Ch[:, t]),
+                                   rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(st.numpy(), h, rtol=1e-12, atol=1e-12)
+    y32, st32 = ref.ssd_sequential_oracle(*to_torch(args))
+    assert_close(y32, y, F32_TOL)
+    assert_close(st32, st, F32_TOL)
+
+
+def test_fp32_chunked_scans_drift_at_long_decays():
+    """At mamba2-130m's head shapes with tests/test_kernels.py's dt draw
+    (cumulative decays near -200), the port's plain version and the JAX
+    reference are each 3e-4 to 1e-3 from the float64 recurrence — beyond
+    1e-4, which is why the head-shape cases draw dt and A as the model
+    does — while within 2e-4 of 1 + |y|."""
+    *dims, chunk = MAMBA2_SHAPE
+    args = inputs(*dims, seed=dims[1] + dims[2])
+    exact, _ = ref.ssd_sequential_oracle(*(torch.from_numpy(a).double()
+                                           for a in args))
+    y, _ = ops.ssd(*to_torch(args), chunk=chunk)
+    y_j, _ = jref.ssd_reference(*to_jax(args), chunk=chunk)
+    for got in (y.double(), torch.from_numpy(np.array(y_j)).double()):
+        err = (got - exact).abs()
+        assert 3e-4 <= float(err.max()) <= 1e-3
+        assert float((err / (1 + exact.abs())).max()) <= 2e-4
+
+
 @pytest.mark.parametrize("shape,mixer",
                          [((1, 64, 2, 32, 1, 16, 16), False),
                           (MAMBA2_SHAPE, True)], ids=["small", "mamba2"])
@@ -197,6 +241,6 @@ def test_build_failure_raises(tmp_path, monkeypatch):
     srcs = [tmp_path / "a.cu", tmp_path / "b.cu"]
     for s in srcs:
         s.write_text(f"// {s.name}\n")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        nvcc.build_all(srcs)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            nvcc.build(s)
     assert not any((tmp_path / "build").glob("*.so"))
