@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the CUDA kernels of the lane-polynomial integrity hash and of the
-Mamba2 SSD chunked scan from ``src/repro_torch/csrc`` (one nvcc each, in
-parallel) and then, on the card:
+Builds the CUDA kernels of the lane-polynomial integrity hash, of the
+Mamba2 SSD chunked scan and of forward flash attention from
+``src/repro_torch/csrc`` (one nvcc each, in parallel) and then, on the
+card:
 
   kernel        the kernel against its plain PyTorch version, bit-exact, at
                 every listed shape, with its median time, the plain
@@ -37,7 +38,23 @@ parallel) and then, on the card:
                 and the same next greedy token.  The teacher-forced and
                 card-vs-CPU checks run again on a variant of the params in
                 which the scan carries each mixer's output (at init it is
-                mostly the 4-token conv).
+                mostly the 4-token conv);
+  flash kernel  the flash-attention kernel against its plain version
+                (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16) at
+                the shapes of tests/test_kernels.py, a window narrower
+                than a tile, a ragged length and the serving shapes of
+                gemma2-9b (global and local layers) and qwen2-7b, with its
+                median time, the plain version's, its bound and, where one
+                PyTorch call computes the same function, that call's;
+  gemma2        gemma2-9b at full width (42 layers, bf16) from --seed:
+                2 prompts of 8192 tokens prefilled (one flash launch per
+                layer) and 32 greedy decode steps, then a prefill of 8128
+                tokens and 4 teacher-forced decode steps held against the
+                first prefill's logits, with the peak device memory;
+  gemma2 cpu    gemma2-9b at full width cut to one block (2 layers, local
+                and global), fp32: one 512-token prefill on the card
+                (kernel) and on the CPU (plain), logits within 2e-3 and
+                the same next greedy token.
 
 Every failure exits non-zero.  Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
@@ -676,6 +693,313 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
     return out
 
 
+# ---------------------------- flash attention ---------------------------- #
+
+# (name, (B, H, KV, S, D), mask options, dtype): the shapes of
+# tests/test_kernels.py (four causal, four mask variants, bf16), a window
+# narrower than a 64-row tile (the first tile some rows visit is wholly
+# masked for them and must be wiped), ragged lengths, and the serving
+# shapes: gemma2-9b's global and local layers at 2 x 8192 tokens (bf16,
+# and the global one in fp32) and qwen2-7b's width (28 heads over 4)
+FLASH_CASES = [
+    ("causal (2, 4, 2, 256, 64)", (2, 4, 2, 256, 64), dict(causal=True), "float32"),
+    ("causal (1, 8, 8, 128, 128)", (1, 8, 8, 128, 128), dict(causal=True), "float32"),
+    ("causal (2, 2, 1, 512, 32)", (2, 2, 1, 512, 32), dict(causal=True), "float32"),
+    ("causal (1, 4, 2, 384, 64)", (1, 4, 2, 384, 64), dict(causal=True), "float32"),
+    ("full (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64), dict(causal=False), "float32"),
+    ("window 128 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
+     dict(causal=True, window=128), "float32"),
+    ("cap 50 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
+     dict(causal=True, cap=50.0), "float32"),
+    ("window 64 cap 30 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
+     dict(causal=True, window=64, cap=30.0), "float32"),
+    ("causal (1, 2, 2, 256, 64)", (1, 2, 2, 256, 64), dict(causal=True), "bfloat16"),
+    ("window 16 below a tile (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
+     dict(causal=True, window=16), "float32"),
+    ("ragged (1, 4, 2, 1000, 64)", (1, 4, 2, 1000, 64),
+     dict(causal=True, window=100), "float32"),
+    ("ragged (2, 16, 8, 1000, 256)", (2, 16, 8, 1000, 256),
+     dict(causal=True, window=300, cap=50.0), "bfloat16"),
+    ("gemma2 global (2, 16, 8, 8192, 256)", (2, 16, 8, 8192, 256),
+     dict(causal=True, cap=50.0), "bfloat16"),
+    ("gemma2 local (2, 16, 8, 8192, 256)", (2, 16, 8, 8192, 256),
+     dict(causal=True, window=4096, cap=50.0), "bfloat16"),
+    ("qwen2 width (2, 28, 4, 8192, 128)", (2, 28, 4, 8192, 128),
+     dict(causal=True), "bfloat16"),
+    ("gemma2 global (2, 16, 8, 8192, 256)", (2, 16, 8, 8192, 256),
+     dict(causal=True, cap=50.0), "float32"),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
+
+
+def attended_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask leaves: the work the function needs."""
+    s = np.arange(S, dtype=np.int64)
+    hi = s if causal else np.full(S, S - 1, dtype=np.int64)
+    lo = np.maximum(0, s - window + 1) if window else np.zeros(S, np.int64)
+    return int((hi - lo + 1).sum())
+
+
+def flash_bound_ms(shape, kw, dtype) -> tuple[float, str]:
+    """Least time for the attention: q, k, v read and o written once at the
+    HBM rate, against 4·B·H·D operations per unmasked pair (the two
+    products) at the peak rate for the dtype (bf16 tensor cores; fp32 CUDA
+    cores)."""
+    B, H, KV, S, D = shape
+    el = 2 if dtype == "bfloat16" else 4
+    n_bytes = (2 * B * H * S * D + 2 * B * KV * S * D) * el
+    ops = 4 * B * H * D * attended_pairs(S, kw.get("causal", True),
+                                         kw.get("window"))
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_kernel_phase(seed: int) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    results = {}
+    for n, (name, shape, kw, dtype) in enumerate(FLASH_CASES):
+        B, H, KV, S, D = shape
+        gen = torch.Generator(device=DEV).manual_seed(seed + n)
+        q, k, v = (torch.randn(s, device=DEV, generator=gen).to(getattr(torch, dtype))
+                   for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+        before = fa.LAUNCHES
+        got = ops.flash_attention(q, k, v, **kw)
+        if fa.LAUNCHES != before + 1:
+            raise AssertionError(f"flash {name}: the kernel was not launched once")
+        want = ref.attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash {name} {dtype}: non-finite output")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"flash {name} {dtype}: kernel differs from "
+                                 f"plain version by {err} (tolerance {tol})")
+        del got, want
+        big = S >= 8192
+        ms = timed_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                      5 if big else 20, flush)
+        plain = timed_ms(lambda: ref.attention_reference(q, k, v, **kw),
+                         3 if big else 20, flush)
+        library = None
+        if kw.get("cap") is None and kw.get("window") is None:
+            # without a softcap or a window one PyTorch call computes the
+            # same function: timed as a yardstick, never called by the port
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=kw["causal"], enable_gqa=True)
+            library = timed_ms(sdpa, 5 if big else 20, flush)
+        b, by = flash_bound_ms(shape, kw, dtype)
+        key = f"{name} {dtype}"
+        results[key] = dict(shape=list(shape), options=kw, dtype=dtype,
+                            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                            bound_ms=b, bound_by=by, library_ms=library)
+        lib = "none" if library is None else f"{library:.6f} ms"
+        log(f"kernel flash {key} {kw}: max abs err {err:.3e} (within {tol} + "
+            f"{tol}·|plain|), {ms:.6f} ms, plain {plain:.6f} ms, bound "
+            f"{b:.6f} ms ({by}), library {lib}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return results
+
+
+# -------------------------- serving gemma2-9b --------------------------- #
+
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_DECODE = 2, 8192, 32
+GEMMA_CUT = GEMMA_PROMPT - 64        # teacher-forced positions 8128..8131
+# teacher-forced decode against prefill, bf16 logits: at init the logits
+# have a spread of about 0.12 (the tied embedding's 256000^-1/2 scale over
+# 3584 dims) and reach about 0.6.  Prefill (flash kernel, fp32 p) and
+# decode (plain direct path, p rounded to bf16; other matmul shapes) round
+# differently in each of 42 layers; a CPU rehearsal of the same check at 42
+# layers in bf16 (d_model 512 to 1024) differed by 1.4% to 1.7% of the
+# largest logit.  0.05 is 13 bf16 spacings at 0.5; a wrong window changes
+# every local layer's normalised mix and moves logits by their spread.
+GEMMA_TEACHER_TOL = 5e-2
+
+
+def device_window(fn):
+    """Run ``fn`` under torch.profiler: (its result, the window's wall ms,
+    the device (kernel) ms, their ratio, and the five kernels that took
+    the most device time).  Kernel times are the profiler's CUDA events
+    only, so no op's time is counted twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return result, dict(
+        wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+        top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
+                          count=e.count) for e in top])
+
+
+def gemma2_serving_phase(seed: int) -> dict:
+    """Full width, 42 layers, bf16: prefill 2 x 8192, 32 greedy decode
+    steps; then a prefill of GEMMA_CUT tokens and 4 teacher-forced decode
+    steps held against the first prefill's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config("gemma2-9b")
+    B, P = GEMMA_BATCH, GEMMA_PROMPT
+    kv_bytes = (2 * cfg.n_layers * B * (P + GEMMA_DECODE + 1) * cfg.n_kv_heads
+                * cfg.resolved_head_dim * 2)
+    out: dict = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                 "param_count": cfg.param_count(),
+                 "reckoned_gb": dict(params=cfg.param_count() * 2 / 1e9,
+                                     kv_cache=kv_bytes / 1e9,
+                                     logits=B * P * cfg.vocab_size * 2 / 1e9)}
+    log(f"gemma2 memory reckoned before the run: params "
+        f"{out['reckoned_gb']['params']:.2f} GB (bf16), KV cache "
+        f"{out['reckoned_gb']['kv_cache']:.2f} GB, logits "
+        f"{out['reckoned_gb']['logits']:.2f} GB (bf16) plus the softcap's "
+        f"temporaries")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.cast_params(M.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed), device=DEV), cfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, P))).to(DEV)
+
+    fa.LAUNCHES = 0
+    res = serve.generate(params, cfg, prompts, GEMMA_DECODE + 1)
+    out["flash_launches"] = fa.LAUNCHES
+    if out["flash_launches"] != cfg.n_layers:
+        raise AssertionError(f"prefill and decode made {out['flash_launches']} "
+                             f"flash launches, expected {cfg.n_layers} (one "
+                             f"per layer of the prefill, none in decode)")
+    logits = res.prefill_logits
+    if tuple(logits.shape) != (B, P, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite or not [B,S,V]")
+    toks = res.tokens
+    if tuple(toks.shape) != (B, GEMMA_DECODE + 1) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"decoded tokens {tuple(toks.shape)} out of range")
+    out.update(
+        prefill_ms=res.prefill_s * 1e3,
+        prefill_tokens_per_s=B * P / res.prefill_s,
+        decode_ms_per_step=res.decode_s * 1e3 / res.decode_steps,
+        decode_tokens_per_s=B * res.decode_steps / res.decode_s,
+        decode_steps=res.decode_steps,
+        logits_abs_max=float(logits.abs().max().float()),
+        logits_std=float(logits[:, -64:].float().std()))
+    log(f"gemma2 init {out['init_s']:.3f} s; prefill: {B} x {P} tokens in "
+        f"{out['prefill_ms']:.3f} ms ({out['prefill_tokens_per_s']:.1f} tok/s), "
+        f"{out['flash_launches']} flash launches; decode: {res.decode_steps} "
+        f"steps, {out['decode_ms_per_step']:.3f} ms/step "
+        f"({out['decode_tokens_per_s']:.1f} tok/s); logits up to "
+        f"{out['logits_abs_max']:.4f}")
+
+    want = logits[:, GEMMA_CUT:GEMMA_CUT + 4].float().clone()
+    del logits, res
+    torch.cuda.empty_cache()
+    # the teacher-forced run, each half in a profiled window: the device's
+    # share of the prefill and of the decode steps, and where it goes
+    fa.LAUNCHES = 0
+    cache = M.init_cache(cfg, B, P, device=DEV)
+    (_, cache), out["prefill_profile"] = device_window(
+        lambda: M.serve_step(params, cfg, {"tokens": prompts[:, :GEMMA_CUT]},
+                             cache, 0))
+    if fa.LAUNCHES != cfg.n_layers:
+        raise AssertionError(f"the {GEMMA_CUT}-token prefill made "
+                             f"{fa.LAUNCHES} flash launches")
+
+    def teacher_forced():
+        steps = []
+        for j in range(4):
+            step, _ = M.serve_step(
+                params, cfg,
+                {"tokens": prompts[:, GEMMA_CUT + j:GEMMA_CUT + j + 1]},
+                cache, GEMMA_CUT + j)
+            steps.append(step[:, 0].float())
+        return steps
+    steps, out["decode_profile"] = device_window(teacher_forced)
+    diffs = [float((s - want[:, j]).abs().max()) for j, s in enumerate(steps)]
+    out["teacher_forced_max_abs_diff"] = max(diffs)
+    for name in ("prefill", "decode"):
+        w = out[f"{name}_profile"]
+        log(f"gemma2 {name} under the profiler: wall {w['wall_ms']:.3f} ms, "
+            f"device {w['device_ms']:.3f} ms (busy {w['busy_share']:.4f}); "
+            f"top: " + "; ".join(f"{k['name'][:48]} {k['ms']:.3f} ms x"
+                                 f"{k['count']}" for k in w["top_kernels"]))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"gemma2 teacher-forced decode at {GEMMA_CUT}..{GEMMA_CUT + 3} (window "
+        f"{cfg.sliding_window} active): max abs diff {max(diffs):.4e} against "
+        f"the prefill logits (tolerance {GEMMA_TEACHER_TOL}); peak device "
+        f"memory {out['peak_memory_gb']:.3f} GB")
+    if not max(diffs) <= GEMMA_TEACHER_TOL:
+        raise AssertionError(f"gemma2 teacher-forced decode diverges: {diffs}")
+    del params, cache, prompts
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma2_card_vs_cpu_phase(seed: int) -> dict:
+    """gemma2-9b at full width cut to one block (2 layers: local, global),
+    fp32 compute: one 512-token prefill on the card (kernel) and on the CPU
+    (plain), logits within 2e-3 (tests/test_arch_smoke.py's decode
+    tolerance), the same next greedy token."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = replace(get_config("gemma2-9b"), n_layers=2, compute_dtype="float32")
+    params = M.cast_params(M.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed + 3), device=DEV),
+        cfg)
+    toks = torch.from_numpy(np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab_size, (1, 512)))
+    before = fa.LAUNCHES
+    card, _ = M.serve_step(params, cfg, {"tokens": toks.to(DEV)}, None, None)
+    card = card.cpu()
+    if fa.LAUNCHES - before != cfg.n_layers:
+        raise AssertionError("the card's prefill did not go through the kernel")
+    host = tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain, _ = M.serve_step(host, cfg, {"tokens": toks}, None, None)
+    cpu_s = time.perf_counter() - t0
+    if fa.LAUNCHES - before != cfg.n_layers:
+        raise AssertionError("the CPU prefill launched the kernel")
+    diff = float((card - plain).abs().max())
+    same = bool(torch.equal(card[:, -1].argmax(-1), plain[:, -1].argmax(-1)))
+    agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"gemma2 card vs cpu (fp32, 2 layers, 1 x 512): max abs logit diff "
+        f"{diff:.3e} (tolerance 2e-3; logits up to "
+        f"{float(plain.abs().max()):.4f}), next greedy token equal: {same}, "
+        f"greedy tokens equal at {agree:.4f} of positions; CPU prefill "
+        f"{cpu_s:.3f} s")
+    if not (torch.allclose(card, plain, atol=2e-3, rtol=2e-3) and same):
+        raise AssertionError("gemma2: card and CPU disagree")
+    return dict(max_abs_diff=diff, next_token_equal=same,
+                greedy_agreement=agree, cpu_prefill_s=cpu_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -686,6 +1010,7 @@ def main() -> int:
     from repro_torch.core.log import REC_HDR_SIZE
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.checksum import checksum
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     # fp32 on the card in full fp32: no TF32 in matmuls or convolutions
@@ -693,14 +1018,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     t0 = time.perf_counter()
-    sources = [checksum.SOURCE, ssd_scan.SOURCE]
+    sources = [checksum.SOURCE, ssd_scan.SOURCE, flash_attention.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
     log(card)                    # nvidia-smi's "name, power.limit" line
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    log(f"kernel build (nvcc, sm_90a, 2 sources in parallel): {build_s:.3f} s")
+    log(f"kernel build (nvcc, sm_90a, {len(sources)} sources in parallel): "
+        f"{build_s:.3f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     base = np.random.default_rng(args.seed).integers(
@@ -717,6 +1043,10 @@ def main() -> int:
     ssd = ssd_kernel_phase(args.seed)
     serving = serving_phase(args.seed)
     cross = card_vs_cpu_phase(serving.pop("restored"), args.seed)
+    torch.cuda.empty_cache()
+    flash = flash_kernel_phase(args.seed)
+    gemma = gemma2_serving_phase(args.seed)
+    gemma_cpu = gemma2_card_vs_cpu_phase(args.seed)
 
     at = kern[f"batch({main_rows},259) 1GiB ring"]
     kernels = [dict(
@@ -739,8 +1069,20 @@ def main() -> int:
         ms=serve_at["ms"], plain_ms=serve_at["plain_ms"],
         bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
         library_ms=None))
+    flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
+        launches=gemma["flash_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in flash.values()),
+        ms=flash_at["ms"], plain_ms=flash_at["plain_ms"],
+        bound_ms=flash_at["bound_ms"], bound_by=flash_at["bound_by"],
+        library_ms=flash_at["library_ms"]))
     print(json.dumps({"shapes": kern, "main_path": main, "ssd_shapes": ssd,
-                      "serving": serving, "card_vs_cpu": cross}))
+                      "serving": serving, "card_vs_cpu": cross,
+                      "flash_shapes": flash, "gemma2_serving": gemma,
+                      "gemma2_card_vs_cpu": gemma_cpu}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

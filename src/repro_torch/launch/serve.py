@@ -1,14 +1,18 @@
-"""Serving launcher: batched prefill + greedy decode with the SSM state
-cache, on the card unless ``--device cpu`` is given.
+"""Serving launcher: batched prefill + greedy decode with the KV / SSM
+state cache, on the card unless ``--device cpu`` is given.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+      --batch 2 --prompt-len 8192 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --reduced --device cpu --batch 4 --prompt-len 64 --gen 32
 
 Parameters are initialised from ``--seed`` (no weights are downloaded).
-The port serves SSM-only configs (mamba2-130m) so far; any other config
-raises ``NotImplementedError`` naming its ROADMAP item.  The prompt
-length must be at most ``ssm_chunk`` or a multiple of it (the chunked
-scan's condition).
+The port serves causal token models built of GQA attention, dense MLP
+and SSM layers (qwen2-7b, starcoder2-3b, gemma2-9b, command-r-35b,
+mamba2-130m); an MLA, MoE or frontend config raises
+``NotImplementedError`` naming its ROADMAP item.  With SSM layers the
+prompt length must be at most ``ssm_chunk`` or a multiple of it (the
+chunked scan's condition).
 """
 
 from __future__ import annotations
@@ -29,17 +33,22 @@ from ..models.layers import NOT_PORTED
 
 
 def check_servable(cfg: ModelConfig, prompt_len: int) -> None:
-    """Raise unless the port can serve ``cfg`` at ``prompt_len``."""
+    """Raise unless the port can serve ``cfg`` at ``prompt_len``: a causal
+    token model whose layers are GQA attention, SSM or dense MLP."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode serving")
-    mixers = {k.mixer for k in cfg.block_pattern()}
-    if mixers != {"ssm"} or cfg.first_dense_layers or cfg.d_ff or \
-            cfg.n_experts or cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves SSM-only token models so far; its "
-            f"attention/MLP/MoE layers and frontends are {NOT_PORTED}")
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(f"{cfg.name}: {cfg.input_kind} inputs are "
+                                  f"{NOT_PORTED}, the frame/patch frontends")
+    if cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: MLA attention is "
+                                  f"{NOT_PORTED}, the MLA layer")
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE layers are {NOT_PORTED}, "
+                                  f"the MoE layer")
     q = cfg.ssm_chunk
-    if prompt_len > q and prompt_len % q:
+    has_ssm = any(k.mixer == "ssm" for k in cfg.block_pattern())
+    if has_ssm and prompt_len > q and prompt_len % q:
         raise ValueError(f"prompt length {prompt_len} must be <= {q} or a "
                          f"multiple of it (ssm_chunk)")
 
@@ -60,8 +69,9 @@ def _sync(device: torch.device) -> None:
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int
              ) -> Generation:
-    """Prefill ``prompts`` [B, P] (one SSD scan per layer), then ``gen - 1``
-    greedy decode steps: ``gen`` new tokens in all."""
+    """Prefill ``prompts`` [B, P] (one SSD scan or flash attention launch
+    per layer on the card), then ``gen - 1`` greedy decode steps: ``gen``
+    new tokens in all."""
     B, P = prompts.shape
     check_servable(cfg, P)
     device = prompts.device

@@ -24,7 +24,10 @@ def _is_bf16(dtype: np.dtype) -> bool:
     return dtype.name == "bfloat16"
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """One numpy array -> a tensor of its dtype on ``device`` (the card
+    unless the caller passes the CPU)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if _is_bf16(a.dtype):
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()

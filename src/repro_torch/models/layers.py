@@ -1,27 +1,36 @@
-"""Neural layers of the port, in PyTorch: the numerics helpers and the
-Mamba2 (SSD) mixer of the JAX package's ``models/layers.py``.
+"""Neural layers of the port, in PyTorch: the numerics helpers, rotary
+embeddings, the attention strategies and the GQA attention layer, the
+dense MLP and the Mamba2 (SSD) mixer of the JAX package's
+``models/layers.py``.
 
-The mixer's chunked scan goes through ``kernels/ssd_scan/ops.ssd``: the
-hand-written CUDA kernel for CUDA tensors, the plain version for CPU
-tensors.  The parameter shapes of the attention, MLA, MLP and MoE layers
-are here too (pure data, so that ``param_specs`` and ``param_count``
-cover every config); their forward passes are not ported yet (ROADMAP
-Queue 1, "attention/MLA/MLP/MoE layers").
+Two kernels sit under these layers.  The mixer's chunked scan goes
+through ``kernels/ssd_scan/ops.ssd``; the prefill attention of a CUDA
+tensor goes through ``kernels/flash_attention/ops.flash_attention``.
+Each routes a CUDA tensor to its hand-written kernel and a CPU tensor to
+its plain version.  On the CPU, ``attention`` picks the JAX package's
+strategy by shape (direct, blockwise or sliding), so that each strategy
+can be held against its counterpart.  Decode attention (one query
+against the cache) is the plain direct path on both devices, as in the
+JAX package.  The parameter shapes of the MLA and MoE layers are here
+too, so that ``param_specs`` and ``param_count`` cover every config, but
+their forward passes are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
 
-NOT_PORTED = ("not ported yet: ROADMAP.md Queue 1, the attention/MLA/MLP/MoE "
-              "layers")
+NOT_PORTED = "not ported yet: ROADMAP.md Queue 1"
+NEG_INF = -2.0 ** 30
 
 
 @dataclass(frozen=True)
@@ -66,8 +75,157 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, as a JAX einsum of mixed
+    dtypes computes (a bf16 weight against an fp32 residual is fp32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+def rope_tables(positions: torch.Tensor, dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [..., S] -> cos/sin tables [..., S, dim/2] (fp32)."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x [..., S, H, D]; cos/sin [..., S, D/2] broadcast over heads.  The
+    two halves of the head dim rotate together (not interleaved pairs),
+    in fp32."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    c, s = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
 # ---------------------------------------------------------------------- #
-# parameter shapes of the layers whose forward is not ported yet
+# attention strategies
+# ---------------------------------------------------------------------- #
+
+def _mask_bias(qi: torch.Tensor, ki: torch.Tensor, causal: bool,
+               window: Optional[int], kv_len: Optional[int]) -> torch.Tensor:
+    """Additive fp32 bias [q, k] from absolute indices: 0 where the key is
+    seen, NEG_INF where it is masked."""
+    ok = torch.ones((qi.shape[-1], ki.shape[-1]), dtype=torch.bool,
+                    device=qi.device)
+    if causal:
+        ok &= ki[None, :] <= qi[:, None]
+    if window is not None:
+        ok &= ki[None, :] > qi[:, None] - window
+    if kv_len is not None:
+        ok &= ki[None, :] < kv_len
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _scores(q, k, scale, cap):
+    """fp32 scores [B,K,G,q,t] of q [B,q,K,G,D] against k [B,t,K,D]: the
+    products of the inputs summed in fp32, as the JAX package's
+    ``preferred_element_type=float32``."""
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * scale
+    return softcap(s, cap)
+
+
+def _direct_attention(q, k, v, *, scale, causal, window, cap, q_offset,
+                      kv_len):
+    """q [B,Sq,K,G,D]; k,v [B,Sk,K,D] -> [B,Sq,K,G,D] (materialised
+    scores: short sequences and decode)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    s = _scores(q, k, scale, cap)
+    qi = q_offset + torch.arange(Sq, device=q.device)
+    ki = torch.arange(Sk, device=q.device)
+    s = s + _mask_bias(qi, ki, causal, window, kv_len)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqt,btkd->bqkgd", p, v)
+
+
+def _blockwise_attention(q, k, v, *, scale, causal, window, cap, q_offset,
+                         chunk_q):
+    """q-chunked attention against the full K/V (memory O(chunk_q × Sk)):
+    long global prefill on the CPU."""
+    Sq = q.shape[1]
+    kpos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for start in range(0, Sq, chunk_q):
+        s = _scores(q[:, start:start + chunk_q], k, scale, cap)
+        qpos = q_offset + start + torch.arange(chunk_q, device=q.device)
+        s = s + _mask_bias(qpos, kpos, causal, window, None)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgqt,btkd->bqkgd", p, v))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _sliding_attention(q, k, v, *, scale, window, cap, chunk_q):
+    """Banded local attention: each query chunk sees only the keys in
+    [start - window, start + chunk_q) — O(S·w) instead of O(S²), gemma2's
+    local layers on the CPU.  Causal by construction."""
+    Sq = q.shape[1]
+    band = window + chunk_q               # kv slab per query chunk
+    # left-pad K/V so that every slab read is in bounds
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    outs = []
+    for start in range(0, Sq, chunk_q):
+        s = _scores(q[:, start:start + chunk_q], kp[:, start:start + band],
+                    scale, cap)
+        qpos = start + torch.arange(chunk_q, device=q.device)
+        kpos = start - window + torch.arange(band, device=q.device)
+        ok = (kpos[None, :] <= qpos[:, None]) & \
+            (kpos[None, :] > qpos[:, None] - window) & (kpos[None, :] >= 0)
+        s = s + torch.where(ok, 0.0, NEG_INF).float()
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgqt,btkd->bqkgd", p,
+                                 vp[:, start:start + band]))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _flash_attention(q, k, v, *, scale, causal, window, cap):
+    """Prefill through ``kernels/flash_attention``: q [B,S,K,G,D] read as
+    [B,H,S,D] with H = K·G (query head k·G + g reads kv head k, the
+    kernel's h // G), k and v as [B,K,S,D] — permuted views, no copy."""
+    B, S, K, G, D = q.shape
+    o = flash_ops.flash_attention(
+        q.reshape(B, S, K * G, D).transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), causal=causal, window=window, cap=cap,
+        scale=scale)
+    return o.transpose(1, 2).reshape(B, S, K, G, D)
+
+
+def attention(q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
+              kv_len=None, chunk_q=512, scale=None):
+    """q [B,Sq,K,G,D]; k,v [B,Sk,K,D] -> [B,Sq,K,G,D].
+
+    A prefill of CUDA tensors (Sq == Sk, no ``kv_len``, no offset) goes to
+    the flash kernel, whatever the shape.  Everything else chooses as the
+    JAX package does: decode or short -> direct; long local -> sliding;
+    long global -> q-chunked lazy softmax."""
+    B, Sq, K, G, D = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.device.type == "cuda" and Sq == Sk and kv_len is None and \
+            q_offset == 0:
+        return _flash_attention(q, k, v, scale=scale, causal=causal,
+                                window=window, cap=cap)
+    if Sq == 1 or Sq * Sk <= 2048 * 2048 or kv_len is not None:
+        return _direct_attention(q, k, v, scale=scale, causal=causal,
+                                 window=window, cap=cap, q_offset=q_offset,
+                                 kv_len=kv_len)
+    if window is not None and Sq % chunk_q == 0 and Sq > window:
+        return _sliding_attention(q, k, v, scale=scale, window=window,
+                                  cap=cap, chunk_q=chunk_q)
+    if Sq % chunk_q == 0:
+        return _blockwise_attention(q, k, v, scale=scale, causal=causal,
+                                    window=window, cap=cap,
+                                    q_offset=q_offset, chunk_q=chunk_q)
+    return _direct_attention(q, k, v, scale=scale, causal=causal,
+                             window=window, cap=cap, q_offset=q_offset,
+                             kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------- #
+# GQA attention layer and the dense MLP
 # ---------------------------------------------------------------------- #
 
 def gqa_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -85,6 +243,96 @@ def gqa_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def gqa_attention(x, p, cfg: ModelConfig, *, local: bool,
+                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  index: Optional[int] = None):
+    """x [B,S,D].  cache = {"k","v" [B,T,KV,hd]} for serving; ``index`` is
+    the global write position (0 at prefill).  Returns (y, new_cache).
+
+    Unlike the JAX package, which returns updated copies, the port writes
+    the new keys and values into ``cache`` in place and returns the same
+    tensors: at gemma2-9b's width the cache is 5.6 GB, and a copy per
+    layer and step would move it all every decode step."""
+    B, S, D = x.shape
+    hd = cfg.resolved_head_dim
+    K, G = p["wq"].shape[1], p["wq"].shape[2]
+    q = _mm(x, p["wq"].reshape(D, K * G * hd)).view(B, S, K, G, hd)
+    k = _mm(x, p["wk"].reshape(D, K * hd)).view(B, S, K, hd)
+    v = _mm(x, p["wv"].reshape(D, K * hd)).view(B, S, K, hd)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    pos0 = 0 if index is None else int(index)
+    positions = (pos0 + torch.arange(S, device=x.device))[None, :]
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(q.reshape(B, S, K * G, hd), cos, sin).reshape(q.shape)
+    k = apply_rope(k, cos, sin)
+    window = cfg.sliding_window if local else None
+    cap = cfg.attn_logit_softcap
+    if cache is None:
+        o = attention(q, k, v, causal=cfg.causal, window=window, cap=cap)
+        new_cache = None
+    else:
+        ck, cv = cache["k"], cache["v"]
+        ck[:, pos0:pos0 + S] = k.to(ck.dtype)
+        cv[:, pos0:pos0 + S] = v.to(cv.dtype)
+        if S > 1:
+            # prefill (index 0 by construction): attend within the new
+            # span, skipping the still-empty tail of the cache
+            o = attention(q, k, v, causal=cfg.causal, window=window, cap=cap)
+        else:
+            o = attention(q, ck, cv, causal=False, window=window, cap=cap,
+                          q_offset=pos0, kv_len=pos0 + S)
+        new_cache = {"k": ck, "v": cv}
+    y = _mm(o.reshape(B, S, K * G * hd), p["wo"].reshape(K * G * hd, D))
+    return y, new_cache
+
+
+def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int
+                   ) -> Dict[str, TensorSpec]:
+    dt = torch_dtype(cfg.compute_dtype)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": TensorSpec(shape, dt), "v": TensorSpec(shape, dt)}
+
+
+def mlp_params_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, Tuple]:
+    D = cfg.d_model
+    n_in = 2 if cfg.gated_mlp else 1
+    shapes = {"wi": (D, n_in, d_ff), "wo": (d_ff, D)}
+    if cfg.mlp_bias:
+        shapes.update({"bi": (n_in, d_ff), "bo": (D,)})
+    return shapes
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The activation in fp32.  gelu is the tanh approximation:
+    ``jax.nn.gelu`` defaults to it, torch's ``gelu`` to the exact erf."""
+    if kind == "gelu":
+        return F.gelu(x.float(), approximate="tanh")
+    return F.silu(x.float())
+
+
+def mlp(x, p, cfg: ModelConfig):
+    """Dense FFN: gated (act(gate) · up) or 2-matrix, optional biases."""
+    D = x.shape[-1]
+    n_in, d_ff = p["wi"].shape[1], p["wi"].shape[2]
+    h = _mm(x, p["wi"].reshape(D, n_in * d_ff)).view(*x.shape[:-1], n_in,
+                                                     d_ff)
+    if cfg.mlp_bias:
+        h = h + p["bi"]
+    if cfg.gated_mlp:
+        act = _act(h[..., 0, :], cfg.mlp_act).to(x.dtype) * h[..., 1, :]
+    else:
+        act = _act(h[..., 0, :], cfg.mlp_act).to(x.dtype)
+    y = _mm(act, p["wo"])
+    if cfg.mlp_bias:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------- #
+# parameter shapes of the layers whose forward is not ported yet
+# ---------------------------------------------------------------------- #
+
 def mla_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     D, H = cfg.d_model, cfg.n_heads
     qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
@@ -96,15 +344,6 @@ def mla_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         "wkv_b": (kr, H, dn + dv),
         "wo_mla": (H, dv, D),
     }
-
-
-def mlp_params_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, Tuple]:
-    D = cfg.d_model
-    n_in = 2 if cfg.gated_mlp else 1
-    shapes = {"wi": (D, n_in, d_ff), "wo": (d_ff, D)}
-    if cfg.mlp_bias:
-        shapes.update({"bi": (n_in, d_ff), "bo": (D,)})
-    return shapes
 
 
 def moe_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:

@@ -14,10 +14,12 @@ Public entry points:
   cache_specs(cfg, batch, max_len) / init_cache(...)
   serve_step(params, cfg, batch, cache, index) — prefill & decode
 
-Only SSM layers run here (mamba2-130m); an attention, MLP or MoE layer
-raises ``NotImplementedError`` naming its ROADMAP item.  Training
-(``forward_train``, the loss, multi-token prediction) waits for the
-training slice.
+GQA attention (with gemma2's local/global alternation, softcaps and
+post-norms, and command-r's parallel block), dense MLP and SSM layers run
+here: qwen2-7b, starcoder2-3b, gemma2-9b, command-r-35b and mamba2-130m.
+An MLA or MoE layer raises ``NotImplementedError`` naming its ROADMAP
+item.  Training (``forward_train``, the loss, multi-token prediction)
+waits for the training slice.
 """
 
 from __future__ import annotations
@@ -178,22 +180,43 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
 
 def _apply_layer(h, p, cfg: ModelConfig, kind: LayerKind, cache, index):
     """One residual layer.  Returns (h, new_cache, aux)."""
+    if kind.mixer == "attn" and cfg.use_mla:
+        raise NotImplementedError(f"MLA attention is {NOT_PORTED}, the MLA "
+                                  f"layer")
+    if kind.moe:
+        raise NotImplementedError(f"MoE layers are {NOT_PORTED}, the MoE "
+                                  f"layer")
     p = _cast_compute(p, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind.mixer == "attn":
-        raise NotImplementedError(f"attention layers are {NOT_PORTED}")
     u = L.rms_norm(h, p["ln1"]["w"], cfg.norm_eps)
-    mix, new_cache = L.ssm_mixer(u, p["ssm"], cfg, cache=cache)
+    if kind.mixer == "attn":
+        mix, new_cache = L.gqa_attention(u, p["attn"], cfg, local=kind.local,
+                                         cache=cache, index=index)
+    else:
+        mix, new_cache = L.ssm_mixer(u, p["ssm"], cfg, cache=cache)
     if "ffn" not in p:                         # mamba2: mixer-only layer
         return h + mix, new_cache, aux
-    raise NotImplementedError(f"MLP and MoE layers are {NOT_PORTED}")
+    if cfg.parallel_block:                     # command-r: shared-norm ||
+        ff = L.mlp(u, p["ffn"], cfg)
+        return h + mix + ff, new_cache, aux
+    if cfg.use_post_norm:
+        mix = L.rms_norm(mix, p["post_ln1"]["w"], cfg.norm_eps)
+    h = h + mix
+    u2 = L.rms_norm(h, p["ln2"]["w"], cfg.norm_eps)
+    ff = L.mlp(u2, p["ffn"], cfg)
+    if cfg.use_post_norm:
+        ff = L.rms_norm(ff, p["post_ln2"]["w"], cfg.norm_eps)
+    return h + ff, new_cache, aux
 
 
 def _layer_cache_spec(cfg: ModelConfig, kind: LayerKind, batch: int,
                       max_len: int):
     if kind.mixer == "ssm":
         return L.ssm_cache_spec(cfg, batch)
-    raise NotImplementedError(f"attention caches are {NOT_PORTED}")
+    if cfg.use_mla:
+        raise NotImplementedError(f"MLA caches are {NOT_PORTED}, the MLA "
+                                  f"layer")
+    return L.gqa_cache_spec(cfg, batch, max_len)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
@@ -229,38 +252,37 @@ def apply_block(bp, h, cfg: ModelConfig, bc=None, index=None):
     return h, ncs, aux_acc
 
 
-def _stack(trees):
-    """List of same-structure trees -> one tree of stacked leaves."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _write_into(dst, src) -> None:
+    """Copy each leaf of ``src`` into the same leaf of ``dst`` (a view into
+    the stacked cache), unless the layer already wrote it in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write_into(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
 
 
 def _run_stack(params: Params, cfg: ModelConfig, h, cache, index):
-    """Dense prologue + the blocks, in order.  Returns (h, new_cache, aux)."""
+    """Dense prologue + the blocks, in order.  Returns (h, cache, aux), with
+    ``cache`` updated in place (``serve_step``)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    new_cache: Dict[str, Any] = {}
     dense_kind = LayerKind(mixer="attn")
     for i in range(cfg.first_dense_layers):
         c = None if cache is None else cache[f"dense{i}"]
         h, nc, aux = _apply_layer(h, params[f"dense{i}"], cfg, dense_kind,
                                   c, index)
         aux_total = aux_total + aux
-        if nc is not None:
-            new_cache[f"dense{i}"] = nc
-    block_caches = []
+        if cache is not None:
+            _write_into(c, nc)
     for b in range(cfg.n_blocks):
         bp = tree_map(lambda t: t[b], params["blocks"])
         bc = None if cache is None else \
             tree_map(lambda t: t[b], cache["blocks"])
         h, ncs, aux = apply_block(bp, h, cfg, bc, index)
         aux_total = aux_total + aux
-        block_caches.append(ncs)
-    if cache is None:
-        return h, None, aux_total
-    new_cache["blocks"] = _stack(block_caches)
-    return h, new_cache, aux_total
+        if cache is not None:
+            _write_into(bc, ncs)
+    return h, cache, aux_total
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
@@ -289,7 +311,12 @@ def serve_step(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                cache, index) -> Tuple[torch.Tensor, Any]:
     """Prefill (S>1, index=0) or decode (S=1) against a persistent cache
     (or a whole-sequence forward with ``cache=None``).
-    Returns (logits [B,S,V], new_cache)."""
+    Returns (logits [B,S,V], new_cache).
+
+    The JAX package returns a new cache and leaves the old one as it was;
+    the port writes the blocks' caches in place (an attention layer's
+    keys and values straight into the cache, a mixer's new state into its
+    slot) and returns ``cache`` itself, so no step copies the cache."""
     h = _embed_inputs(params, cfg, batch)
     h, new_cache, _ = _run_stack(params, cfg, h, cache=cache, index=index)
     return _logits(params, cfg, h), new_cache

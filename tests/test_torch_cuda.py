@@ -271,3 +271,157 @@ def test_checkpoint_restores_onto_the_card(cuda_device):
     for (name, a), (_, b) in zip(leaf_paths(params), leaf_paths(got)):
         assert b.device.type == "cuda" and b.dtype == a.dtype, name
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+
+
+# ---------------------------- flash attention ---------------------------- #
+
+def attn_inputs(B, H, KV, S, D, dtype, seed, device):
+    """q [B,H,S,D], k and v [B,KV,S,D] from numpy's normal draw."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(device=device, dtype=dtype)
+                 for shape in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels.py
+
+
+def check_flash(q, k, v, **kw):
+    """One launch of the kernel, held within tol·(1 + |plain|) of the plain
+    version on the same inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    before = fa.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == before + 1
+    want = fa_ref.attention_reference(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_kernel_head_dims(cuda_device, fp32_exact, D):
+    check_flash(*attn_inputs(2, 4, 2, 192, D, torch.float32, D, cuda_device),
+                causal=True, cap=50.0)
+
+
+@pytest.mark.parametrize("B,H,KV,S,D", [(2, 4, 2, 256, 64), (1, 8, 8, 128, 128),
+                                        (2, 2, 1, 512, 32), (1, 4, 2, 384, 64)])
+def test_flash_kernel_causal_shapes_of_the_tpu_tests(cuda_device, fp32_exact,
+                                                     B, H, KV, S, D):
+    check_flash(*attn_inputs(B, H, KV, S, D, torch.float32, B * S,
+                             cuda_device), causal=True)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=False), dict(causal=True, window=128),
+                                dict(causal=True, cap=50.0),
+                                dict(causal=True, window=64, cap=30.0),
+                                dict(causal=True, window=16),
+                                dict(causal=False, window=40, cap=20.0)],
+                         ids=["full", "window128", "cap50", "window64-cap30",
+                              "window-below-a-tile", "noncausal-window"])
+def test_flash_kernel_mask_variants(cuda_device, fp32_exact, kw):
+    """The variants of tests/test_kernels.py, a window of 16 (narrower than
+    a 64-row tile: the first tile some rows visit is wholly masked for
+    them) and a window without causality."""
+    check_flash(*attn_inputs(1, 4, 2, 256, 64, torch.float32, 7, cuda_device),
+                **kw)
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 1000])
+def test_flash_kernel_ragged_lengths(cuda_device, fp32_exact, S):
+    check_flash(*attn_inputs(1, 4, 2, S, 64, torch.float32, S, cuda_device),
+                causal=True, window=100)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 4), (14, 2)],
+                         ids=["gqa1", "gqa2", "gqa7"])
+def test_flash_kernel_gqa_ratios(cuda_device, fp32_exact, H, KV):
+    check_flash(*attn_inputs(2, H, KV, 160, 128, torch.float32, H, cuda_device),
+                causal=True)
+
+
+def test_flash_kernel_bf16(cuda_device):
+    check_flash(*attn_inputs(1, 2, 2, 256, 64, torch.bfloat16, 3, cuda_device),
+                causal=True)
+    check_flash(*attn_inputs(1, 16, 8, 640, 256, torch.bfloat16, 4,
+                             cuda_device), causal=True, window=256, cap=50.0)
+
+
+def test_flash_kernel_counts_each_launch_and_reads_strided_views(cuda_device,
+                                                                 fp32_exact):
+    """The layer's [B,S,H,D] projections go in as permuted views, without a
+    copy, and the result matches the contiguous inputs'."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v = attn_inputs(2, 8, 4, 96, 64, torch.float32, 11, cuda_device)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    before = fa.LAUNCHES
+    a = fa.flash_attention_cuda(q, k, v, causal=True)
+    b = fa.flash_attention_cuda(qs, ks, vs, causal=True)
+    assert fa.LAUNCHES == before + 2
+    assert b.stride() == qs.stride()
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    """No fallback: a dtype, head dim or layout the kernel does not take
+    raises, and nothing is launched."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = attn_inputs(1, 4, 2, 64, 64, torch.float16, 0, cuda_device)
+    before = fa.LAUNCHES
+    with pytest.raises(TypeError):                    # fp16
+        fa_ops.flash_attention(q, k, v)
+    with pytest.raises(TypeError):                    # mixed dtypes
+        fa_ops.flash_attention(q.float(), k.float(), v.bfloat16())
+    with pytest.raises(ValueError):                   # head dim above 256
+        fa_ops.flash_attention(*attn_inputs(1, 2, 1, 8, 260, torch.float32, 0,
+                                            cuda_device))
+    with pytest.raises(ValueError):                   # 3 kv heads for 4 heads
+        fa_ops.flash_attention(*attn_inputs(1, 4, 3, 8, 64, torch.float32, 0,
+                                            cuda_device))
+    with pytest.raises(ValueError):                   # head dim not contiguous
+        fa.flash_attention_cuda(q.float().transpose(2, 3), k.float(),
+                                v.float())
+    assert fa.LAUNCHES == before
+
+
+def test_gemma2_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
+    """Reduced gemma2-9b (2 layers: local window 64, global; softcaps,
+    post-norms), 2 x 160 tokens: prefill through the flash kernel (one
+    launch a layer) and 4 decode steps on the card against the same on
+    the CPU (plain)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_config("gemma2-9b")
+    host = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 164)))
+    caches = {d: M.init_cache(cfg, 2, 164, device=d) for d in ("cpu", "cuda")}
+    before = fa.LAUNCHES
+    got, caches["cuda"] = M.serve_step(card, cfg, {"tokens": toks[:, :160]
+                                                   .to(cuda_device)},
+                                       caches["cuda"], 0)
+    assert fa.LAUNCHES == before + cfg.n_layers
+    want, caches["cpu"] = M.serve_step(host, cfg, {"tokens": toks[:, :160]},
+                                       caches["cpu"], 0)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    for j in range(160, 164):
+        got, caches["cuda"] = M.serve_step(
+            card, cfg, {"tokens": toks[:, j:j + 1].to(cuda_device)},
+            caches["cuda"], j)
+        want, caches["cpu"] = M.serve_step(
+            host, cfg, {"tokens": toks[:, j:j + 1]}, caches["cpu"], j)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+        assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
+    assert fa.LAUNCHES == before + cfg.n_layers       # decode: no kernel

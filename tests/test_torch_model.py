@@ -241,15 +241,18 @@ def test_entry_points_default_to_the_card_and_other_archs_raise():
             TM.init_cache(cfg, 1, 8)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             convert.params_from_numpy({"w": np.zeros(2, np.float32)})
-    qwen = reduced_config("qwen2-7b")
-    params = TM.init_params(qwen, torch.Generator().manual_seed(0),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.serve_step(params, qwen, {"tokens": torch.zeros((1, 4),
-                                                           dtype=torch.int64)},
-                      None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(qwen, 1, 8, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.tensor_from_numpy(np.zeros(2, np.float32))
+    for name, what in (("deepseek-v3-671b", "MLA"),
+                       ("moonshot-v1-16b-a3b", "MoE")):
+        cfg = reduced_config(name)
+        params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+            TM.serve_step(params, cfg, {"tokens": torch.zeros(
+                (1, 4), dtype=torch.int64)}, None, None)
+    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP"):
+        TM.init_cache(reduced_config("deepseek-v3-671b"), 1, 8, device="cpu")
 
 
 def test_serve_launcher_on_the_cpu(capsys):
