@@ -40,12 +40,18 @@ card:
                 which the scan carries each mixer's output (at init it is
                 mostly the 4-token conv);
   flash kernel  the flash-attention kernel against its plain version
-                (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16) at
-                the shapes of tests/test_kernels.py, a window narrower
-                than a tile, a ragged length and the serving shapes of
-                gemma2-9b (global and local layers) and qwen2-7b, with its
-                median time, the plain version's, its bound and, where one
-                PyTorch call computes the same function, that call's;
+                (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16, and
+                per output row within 1e-4 / 2^-6 of the row's largest
+                value) at the shapes of tests/test_kernels.py, a window
+                narrower than a tile, ragged lengths and the serving
+                shapes of gemma2-9b (global and local layers, bf16 and
+                fp32, and scores in the softcap's range) and qwen2-7b,
+                the bf16 ones as the layer's permuted views; a dropped
+                window and a dropped softcap must fail the row check;
+                with its median time, the plain version's, its bound and,
+                where one PyTorch call computes the same function (SDPA,
+                or compiled flex_attention at gemma2's bf16 shapes), that
+                call's;
   gemma2        gemma2-9b at full width (42 layers, bf16) from --seed:
                 2 prompts of 8192 tokens prefilled (one flash launch per
                 layer) and 32 greedy decode steps, then a prefill of 8128
@@ -54,7 +60,10 @@ card:
   gemma2 cpu    gemma2-9b at full width cut to one block (2 layers, local
                 and global), fp32: one 512-token prefill on the card
                 (kernel) and on the CPU (plain), logits within 2e-3 and
-                the same next greedy token.
+                the same next greedy token, at init and with a 128-token
+                window and scores in the softcap's range, where a dropped
+                window, softcap or causal mask must each move the logits
+                by more than 2e-3.
 
 Every failure exits non-zero.  Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
@@ -66,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -74,10 +84,18 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
-
 ROOT = Path(__file__).resolve().parent
+# compiled flex_attention, timed beside the flash kernel, keeps its build
+# inside the checkout and compiles in this process (no worker pool)
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                      str(ROOT / "src" / "repro_torch" / "_build" / "inductor"))
+os.environ.setdefault("TRITON_CACHE_DIR",
+                      str(ROOT / "src" / "repro_torch" / "_build" / "triton"))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -695,41 +713,118 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
 
 # ---------------------------- flash attention ---------------------------- #
 
-# (name, (B, H, KV, S, D), mask options, dtype): the shapes of
-# tests/test_kernels.py (four causal, four mask variants, bf16), a window
-# narrower than a 64-row tile (the first tile some rows visit is wholly
-# masked for them and must be wiped), ragged lengths, and the serving
-# shapes: gemma2-9b's global and local layers at 2 x 8192 tokens (bf16,
-# and the global one in fp32) and qwen2-7b's width (28 heads over 4)
+def flash_case(name, shape, dtype, *, layout="bhsd", q_mul=1.0, fault=None,
+               **kw) -> dict:
+    """One shape of the flash phase.  ``layout`` "bshd" makes q, k, v
+    permuted [B,S,H,D] views, as the layer passes them; ``q_mul`` scales q
+    (16 puts the scores in the softcap's range); ``fault`` names mask
+    options of a wrong function the check must be able to tell apart."""
+    return dict(name=name, shape=shape, dtype=dtype, layout=layout,
+                q_mul=q_mul, fault=fault, kw=kw)
+
+
+# the shapes of tests/test_kernels.py (four causal, four mask variants,
+# bf16), a window narrower than a 64-row tile (the first tile some rows
+# visit is wholly masked for them and must be wiped), ragged lengths, and
+# the serving shapes at 2 x 8192 tokens: gemma2-9b's global and local
+# layers and qwen2-7b's width (28 heads over 4) in bf16 as the layer lays
+# them out, gemma2's global layer with scores in the softcap's range, and
+# both gemma2 layers in fp32
+G2 = (2, 16, 8, 8192, 256)
 FLASH_CASES = [
-    ("causal (2, 4, 2, 256, 64)", (2, 4, 2, 256, 64), dict(causal=True), "float32"),
-    ("causal (1, 8, 8, 128, 128)", (1, 8, 8, 128, 128), dict(causal=True), "float32"),
-    ("causal (2, 2, 1, 512, 32)", (2, 2, 1, 512, 32), dict(causal=True), "float32"),
-    ("causal (1, 4, 2, 384, 64)", (1, 4, 2, 384, 64), dict(causal=True), "float32"),
-    ("full (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64), dict(causal=False), "float32"),
-    ("window 128 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
-     dict(causal=True, window=128), "float32"),
-    ("cap 50 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
-     dict(causal=True, cap=50.0), "float32"),
-    ("window 64 cap 30 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
-     dict(causal=True, window=64, cap=30.0), "float32"),
-    ("causal (1, 2, 2, 256, 64)", (1, 2, 2, 256, 64), dict(causal=True), "bfloat16"),
-    ("window 16 below a tile (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
-     dict(causal=True, window=16), "float32"),
-    ("ragged (1, 4, 2, 1000, 64)", (1, 4, 2, 1000, 64),
-     dict(causal=True, window=100), "float32"),
-    ("ragged (2, 16, 8, 1000, 256)", (2, 16, 8, 1000, 256),
-     dict(causal=True, window=300, cap=50.0), "bfloat16"),
-    ("gemma2 global (2, 16, 8, 8192, 256)", (2, 16, 8, 8192, 256),
-     dict(causal=True, cap=50.0), "bfloat16"),
-    ("gemma2 local (2, 16, 8, 8192, 256)", (2, 16, 8, 8192, 256),
-     dict(causal=True, window=4096, cap=50.0), "bfloat16"),
-    ("qwen2 width (2, 28, 4, 8192, 128)", (2, 28, 4, 8192, 128),
-     dict(causal=True), "bfloat16"),
-    ("gemma2 global (2, 16, 8, 8192, 256)", (2, 16, 8, 8192, 256),
-     dict(causal=True, cap=50.0), "float32"),
+    flash_case("causal (2, 4, 2, 256, 64)", (2, 4, 2, 256, 64), "float32", causal=True),
+    flash_case("causal (1, 8, 8, 128, 128)", (1, 8, 8, 128, 128), "float32", causal=True),
+    flash_case("causal (2, 2, 1, 512, 32)", (2, 2, 1, 512, 32), "float32", causal=True),
+    flash_case("causal (1, 4, 2, 384, 64)", (1, 4, 2, 384, 64), "float32", causal=True),
+    flash_case("full (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64), "float32", causal=False),
+    flash_case("window 128 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64), "float32",
+               causal=True, window=128),
+    flash_case("cap 50 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64), "float32",
+               causal=True, cap=50.0),
+    flash_case("window 64 cap 30 (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
+               "float32", causal=True, window=64, cap=30.0),
+    flash_case("causal (1, 2, 2, 256, 64)", (1, 2, 2, 256, 64), "bfloat16", causal=True),
+    flash_case("window 16 below a tile (1, 4, 2, 256, 64)", (1, 4, 2, 256, 64),
+               "float32", causal=True, window=16),
+    flash_case("ragged (1, 4, 2, 1000, 64)", (1, 4, 2, 1000, 64), "float32",
+               causal=True, window=100),
+    flash_case("ragged (2, 16, 8, 1000, 256)", (2, 16, 8, 1000, 256),
+               "bfloat16", causal=True, window=300, cap=50.0),
+    flash_case(f"gemma2 global {G2}", G2, "bfloat16", layout="bshd",
+               causal=True, cap=50.0),
+    flash_case(f"gemma2 local {G2}", G2, "bfloat16", layout="bshd",
+               fault=dict(window=None), causal=True, window=4096, cap=50.0),
+    flash_case(f"gemma2 global {G2} scores x16", G2, "bfloat16", layout="bshd",
+               q_mul=16.0, fault=dict(cap=None), causal=True, cap=50.0),
+    flash_case("qwen2 width (2, 28, 4, 8192, 128)", (2, 28, 4, 8192, 128),
+               "bfloat16", layout="bshd", causal=True),
+    flash_case(f"gemma2 global {G2}", G2, "float32", causal=True, cap=50.0),
+    flash_case(f"gemma2 local {G2}", G2, "float32", causal=True, window=4096,
+               cap=50.0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
+# the same check scaled to each output row: max over the row of
+# |kernel - plain| / max over the row of |plain|.  q, k, v from randn
+# average v over up to 8192 keys, so most outputs are about 0.02 and the
+# elementwise bf16 tolerance is as large as they are.  In bf16 both
+# outputs are rounded to bf16 (one spacing apart at most, 2^-7 of the
+# row's largest value) and the plain version also rounds p to bf16 before
+# the PV product (2^-9 of it); 2^-6 leaves a factor of two.  In fp32 the
+# two differ only in the order of their fp32 sums.
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of max|got - want| / max|want| (rows: the last dim)."""
+    got, want = got.float(), want.float()
+    num = (got - want).abs().amax(-1)
+    den = want.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float((num / den).max())
+
+
+def flash_inputs(case: dict, seed: int):
+    """q [B,H,S,D], k and v [B,KV,S,D] from the seed, in the case's dtype;
+    for layout "bshd" views of [B,S,H,D] storage."""
+    B, H, KV, S, D = case["shape"]
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dt = getattr(torch, case["dtype"])
+    out = []
+    for n, heads in enumerate((H, KV, KV)):
+        shape = (B, S, heads, D) if case["layout"] == "bshd" else \
+            (B, heads, S, D)
+        t = torch.randn(shape, device=DEV, generator=gen)
+        if n == 0:
+            t *= case["q_mul"]
+        t = t.to(dt)
+        out.append(t.transpose(1, 2) if case["layout"] == "bshd" else t)
+    return out
+
+
+def flex_library(q, k, v, kw):
+    """One PyTorch call computing the same function as the kernel where
+    SDPA cannot (a softcap or a window): compiled flex_attention with the
+    softcap as its score_mod and the causal window as its block mask.
+    Timed as a yardstick only; the port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    causal, window, cap = kw.get("causal", True), kw.get("window"), \
+        kw.get("cap")
+    S = q.shape[2]
+
+    def mask(b, h, qi, ki):
+        ok = ki <= qi if causal else ki >= 0
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        return ok
+
+    def score(s, b, h, qi, ki):
+        return torch.tanh(s / cap) * cap
+
+    block_mask = create_block_mask(mask, None, None, S, S, device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=score if cap is not None else None,
+                      block_mask=block_mask, enable_gqa=True)
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -757,53 +852,97 @@ def flash_bound_ms(shape, kw, dtype) -> tuple[float, str]:
 
 
 def flash_kernel_phase(seed: int) -> dict:
+    """Each case: one launch, held against the plain version elementwise
+    (FLASH_TOL) and row by row (FLASH_ROW_TOL); where the case names a
+    fault, the plain version of that wrong function must fail the row
+    check.  Times of the kernel, the plain version and, where one PyTorch
+    call computes the same function (SDPA without a softcap or a window,
+    else flex_attention at the bf16 serving shapes), that call."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops, ref
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     results = {}
-    for n, (name, shape, kw, dtype) in enumerate(FLASH_CASES):
-        B, H, KV, S, D = shape
-        gen = torch.Generator(device=DEV).manual_seed(seed + n)
-        q, k, v = (torch.randn(s, device=DEV, generator=gen).to(getattr(torch, dtype))
-                   for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+    for n, case in enumerate(FLASH_CASES):
+        name, shape, kw, dtype = (case[x] for x in ("name", "shape", "kw",
+                                                     "dtype"))
+        S = shape[3]
+        q, k, v = flash_inputs(case, seed + n)
         before = fa.LAUNCHES
         got = ops.flash_attention(q, k, v, **kw)
         if fa.LAUNCHES != before + 1:
             raise AssertionError(f"flash {name}: the kernel was not launched once")
         want = ref.attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
-        tol = FLASH_TOL[dtype]
-        got, want = got.float(), want.float()
+        tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
         if not torch.isfinite(got).all():
             raise AssertionError(f"flash {name} {dtype}: non-finite output")
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
-            raise AssertionError(f"flash {name} {dtype}: kernel differs from "
-                                 f"plain version by {err} (tolerance {tol})")
-        del got, want
+        err = float((got.float() - want.float()).abs().max())
+        row_err = row_rel_err(got, want)
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) \
+                or not row_err <= row_tol:
+            raise AssertionError(
+                f"flash {name} {dtype}: kernel differs from plain version by "
+                f"{err} (tolerance {tol}), by {row_err} of a row's largest "
+                f"value (tolerance {row_tol})")
+        fault_err = None
+        if case["fault"] is not None:
+            wrong = ref.attention_reference(q, k, v, **{**kw, **case["fault"]})
+            fault_err = row_rel_err(got, wrong)
+            del wrong
+            if not fault_err > row_tol:
+                raise AssertionError(
+                    f"flash {name}: the row check cannot tell the kernel from "
+                    f"the plain version with {case['fault']} ({fault_err})")
+        del got
         big = S >= 8192
         ms = timed_ms(lambda: ops.flash_attention(q, k, v, **kw),
                       5 if big else 20, flush)
         plain = timed_ms(lambda: ref.attention_reference(q, k, v, **kw),
                          3 if big else 20, flush)
-        library = None
+        library = library_err = library_error = call = None
         if kw.get("cap") is None and kw.get("window") is None:
-            # without a softcap or a window one PyTorch call computes the
-            # same function: timed as a yardstick, never called by the port
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=kw["causal"], enable_gqa=True)
-            library = timed_ms(sdpa, 5 if big else 20, flush)
+            call = "scaled_dot_product_attention"
+        elif big and dtype == "bfloat16" and case["q_mul"] == 1.0:
+            call = "flex_attention (compiled)"
+        if call is not None:
+            try:
+                if call == "flex_attention (compiled)":
+                    lib = flex_library(q, k, v, kw)
+                else:
+                    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                        q, k, v, is_causal=kw["causal"], enable_gqa=True)
+                library_err = row_rel_err(lib(), want)
+                library = timed_ms(lib, 5 if big else 20, flush)
+            except Exception as e:       # the yardstick only: recorded
+                library_error = f"{type(e).__name__}: {e}"[:300]
         b, by = flash_bound_ms(shape, kw, dtype)
         key = f"{name} {dtype}"
         results[key] = dict(shape=list(shape), options=kw, dtype=dtype,
-                            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                            bound_ms=b, bound_by=by, library_ms=library)
-        lib = "none" if library is None else f"{library:.6f} ms"
-        log(f"kernel flash {key} {kw}: max abs err {err:.3e} (within {tol} + "
-            f"{tol}·|plain|), {ms:.6f} ms, plain {plain:.6f} ms, bound "
-            f"{b:.6f} ms ({by}), library {lib}")
-        del q, k, v
+                            layout=case["layout"], q_mul=case["q_mul"],
+                            max_abs_err=err, tol=tol, row_rel_err=row_err,
+                            row_tol=row_tol, fault=case["fault"],
+                            fault_row_rel_err=fault_err, ms=ms,
+                            plain_ms=plain, bound_ms=b, bound_by=by,
+                            library=call, library_ms=library,
+                            library_row_rel_err=library_err,
+                            library_error=library_error)
+        if call is None:
+            lib_txt = "none"
+        elif library_error is not None:
+            lib_txt = f"{call} raised {library_error}"
+        else:
+            lib_txt = (f"{call} {library:.6f} ms (row err {library_err:.3e})")
+        fault_txt = "" if fault_err is None else (
+            f"; with {case['fault']} the plain version is {fault_err:.3e} "
+            f"of a row off")
+        q_txt = "" if case["q_mul"] == 1.0 else f" q x{case['q_mul']:g}"
+        log(f"kernel flash {key} {kw} {case['layout']}{q_txt}: "
+            f"max abs err {err:.3e} (within {tol} + {tol}·|plain|), row err "
+            f"{row_err:.3e} (within {row_tol:.4g}){fault_txt}; {ms:.6f} ms, "
+            f"plain {plain:.6f} ms, bound {b:.6f} ms ({by}), library "
+            f"{lib_txt}")
+        del q, k, v, want
         torch.cuda.empty_cache()
     return results
 
@@ -955,11 +1094,37 @@ def gemma2_serving_phase(seed: int) -> dict:
     return out
 
 
+def attention_dominated(params, mul: float):
+    """The params with every layer's wq scaled by ``mul``: at init the
+    scores q·k/16 are about N(0, 1), so the softcap of 50 barely acts;
+    scaled by 20 they reach it."""
+    from repro_torch.tree import tree_map
+
+    out = tree_map(lambda t: t, params)
+    for block in out["blocks"].values():
+        block["attn"]["wq"] = block["attn"]["wq"] * mul
+    return out
+
+
+# planted faults of the attention: the same params run on the CPU by a
+# config that lacks one of its options
+GEMMA_FAULTS = {"window dropped": dict(sliding_window=None),
+                "softcap dropped": dict(attn_logit_softcap=None),
+                "causality dropped": dict(causal=False)}
+
+
 def gemma2_card_vs_cpu_phase(seed: int) -> dict:
     """gemma2-9b at full width cut to one block (2 layers: local, global),
     fp32 compute: one 512-token prefill on the card (kernel) and on the CPU
     (plain), logits within 2e-3 (tests/test_arch_smoke.py's decode
-    tolerance), the same next greedy token."""
+    tolerance), the same next greedy token.  Twice: on the params at init,
+    where at 512 tokens the 4096-token window masks nothing and the scores
+    stay far below the softcap; and with the window cut to 128 tokens and
+    wq scaled by 20, where both act.  Each planted fault (GEMMA_FAULTS) is
+    run on the CPU and its distance from the plain logits reported; in the
+    second variant every one of them must exceed the tolerance, so that
+    the check can see a kernel that drops the window, the softcap or the
+    causal mask."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -967,37 +1132,59 @@ def gemma2_card_vs_cpu_phase(seed: int) -> dict:
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
 
-    cfg = replace(get_config("gemma2-9b"), n_layers=2, compute_dtype="float32")
+    base_cfg = replace(get_config("gemma2-9b"), n_layers=2,
+                       compute_dtype="float32")
     params = M.cast_params(M.init_params(
-        cfg, torch.Generator(device=DEV).manual_seed(seed + 3), device=DEV),
-        cfg)
-    toks = torch.from_numpy(np.random.default_rng(seed + 9).integers(
-        0, cfg.vocab_size, (1, 512)))
-    before = fa.LAUNCHES
-    card, _ = M.serve_step(params, cfg, {"tokens": toks.to(DEV)}, None, None)
-    card = card.cpu()
-    if fa.LAUNCHES - before != cfg.n_layers:
-        raise AssertionError("the card's prefill did not go through the kernel")
-    host = tree_map(lambda t: t.cpu(), params)
+        base_cfg, torch.Generator(device=DEV).manual_seed(seed + 3),
+        device=DEV), base_cfg)
+    host_init = tree_map(lambda t: t.cpu(), params)
     del params
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    plain, _ = M.serve_step(host, cfg, {"tokens": toks}, None, None)
-    cpu_s = time.perf_counter() - t0
-    if fa.LAUNCHES - before != cfg.n_layers:
-        raise AssertionError("the CPU prefill launched the kernel")
-    diff = float((card - plain).abs().max())
-    same = bool(torch.equal(card[:, -1].argmax(-1), plain[:, -1].argmax(-1)))
-    agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
-    log(f"gemma2 card vs cpu (fp32, 2 layers, 1 x 512): max abs logit diff "
-        f"{diff:.3e} (tolerance 2e-3; logits up to "
-        f"{float(plain.abs().max()):.4f}), next greedy token equal: {same}, "
-        f"greedy tokens equal at {agree:.4f} of positions; CPU prefill "
-        f"{cpu_s:.3f} s")
-    if not (torch.allclose(card, plain, atol=2e-3, rtol=2e-3) and same):
-        raise AssertionError("gemma2: card and CPU disagree")
-    return dict(max_abs_diff=diff, next_token_equal=same,
-                greedy_agreement=agree, cpu_prefill_s=cpu_s)
+    toks = torch.from_numpy(np.random.default_rng(seed + 9).integers(
+        0, base_cfg.vocab_size, (1, 512)))
+    out = {}
+    for name, cfg, host, must_see in (
+            ("init", base_cfg, host_init, False),
+            ("window 128, wq x20", replace(base_cfg, sliding_window=128),
+             attention_dominated(host_init, 20.0), True)):
+        card_params = tree_map(lambda t: t.to(DEV), host)
+        before = fa.LAUNCHES
+        card, _ = M.serve_step(card_params, cfg, {"tokens": toks.to(DEV)},
+                               None, None)
+        card = card.cpu()
+        del card_params
+        torch.cuda.empty_cache()
+        if fa.LAUNCHES - before != cfg.n_layers:
+            raise AssertionError("the card's prefill did not go through the "
+                                 "kernel")
+        t0 = time.perf_counter()
+        plain, _ = M.serve_step(host, cfg, {"tokens": toks}, None, None)
+        cpu_s = time.perf_counter() - t0
+        faults = {}
+        for fault, change in GEMMA_FAULTS.items():
+            wrong, _ = M.serve_step(host, replace(cfg, **change),
+                                    {"tokens": toks}, None, None)
+            faults[fault] = float((wrong - plain).abs().max())
+        if fa.LAUNCHES - before != cfg.n_layers:
+            raise AssertionError("the CPU prefill launched the kernel")
+        diff = float((card - plain).abs().max())
+        same = bool(torch.equal(card[:, -1].argmax(-1),
+                                plain[:, -1].argmax(-1)))
+        agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
+        log(f"gemma2 card vs cpu (fp32, 2 layers, 1 x 512, {name}): max abs "
+            f"logit diff {diff:.3e} (tolerance 2e-3; logits up to "
+            f"{float(plain.abs().max()):.4f}), next greedy token equal: "
+            f"{same}, greedy tokens equal at {agree:.4f} of positions; CPU "
+            f"prefill {cpu_s:.3f} s; planted faults move the plain logits "
+            f"by " + ", ".join(f"{f} {d:.3e}" for f, d in faults.items()))
+        if not (torch.allclose(card, plain, atol=2e-3, rtol=2e-3) and same):
+            raise AssertionError(f"gemma2 ({name}): card and CPU disagree")
+        if must_see and not all(d > 2e-3 for d in faults.values()):
+            raise AssertionError(f"gemma2 ({name}): a planted fault stays "
+                                 f"within the tolerance: {faults}")
+        out[name] = dict(max_abs_diff=diff, next_token_equal=same,
+                         greedy_agreement=agree, cpu_prefill_s=cpu_s,
+                         planted_fault_max_abs_diff=faults)
+    return out
 
 
 def main() -> int:
@@ -1013,9 +1200,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
-    # fp32 on the card in full fp32: no TF32 in matmuls or convolutions
+    # fp32 on the card in full fp32: no TF32 in matmuls or convolutions;
+    # bf16 products summed in fp32, as the JAX package's reference does
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     t0 = time.perf_counter()
     sources = [checksum.SOURCE, ssd_scan.SOURCE, flash_attention.SOURCE]

@@ -4,8 +4,9 @@ CPU tensors go to the plain PyTorch version (``ref.py``), CUDA tensors to
 the hand-written kernel (``flash_attention.py``), anything else raises.
 Nothing falls back: a CUDA tensor never reaches the plain version, and a
 kernel that cannot build or launch, or an input it does not take (a dtype
-other than fp32 or bf16, a head dim above 256), raises.  The kernel's
-launch count is ``flash_attention.LAUNCHES``.
+other than fp32 or bf16, a head dim above 256, a head dim that is not
+contiguous), raises.  The kernel's launch count is
+``flash_attention.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -16,16 +17,6 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_cuda
-
-
-def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where the kernel can read it through its strides (head
-    dim contiguous, strides and data aligned to 4 elements), else a
-    contiguous copy."""
-    if t.stride(-1) == 1 and not any(s % 4 for s in t.stride()[:3]) and \
-            not t.data_ptr() % (4 * t.element_size()):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,7 +30,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention_reference(q, k, v, causal=causal, window=window,
                                        cap=cap, scale=scale)
     if kind == "cuda":
-        return flash_attention_cuda(
-            _kernel_layout(q), _kernel_layout(k), _kernel_layout(v),
-            causal=causal, window=window, cap=cap, scale=scale)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    cap=cap, scale=scale)
     raise ValueError(f"no attention route for device {q.device}")

@@ -200,7 +200,9 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
     A prefill of CUDA tensors (Sq == Sk, no ``kv_len``, no offset) goes to
     the flash kernel, whatever the shape.  Everything else chooses as the
     JAX package does: decode or short -> direct; long local -> sliding;
-    long global -> q-chunked lazy softmax."""
+    long global -> q-chunked lazy softmax.  CPU prefill keeps these
+    strategies rather than the plain version behind ``flash_ops`` so that
+    the CPU parity tests hold each of them to its JAX counterpart."""
     B, Sq, K, G, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
