@@ -39,22 +39,28 @@ card:
                 card-vs-CPU checks run again on a variant of the params in
                 which the scan carries each mixer's output (at init it is
                 mostly the 4-token conv);
-  flash kernel  the flash-attention kernel against its plain version
+  flash kernel  the flash-attention kernels against their plain version
                 (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16, and
                 per output row within 1e-4 / 2^-6 of the row's largest
                 value) at the shapes of tests/test_kernels.py, a window
-                narrower than a tile, ragged lengths and the serving
+                narrower than a tile, ragged lengths, the bf16 twins of the
+                mask variants at head dims 128 and 256, and the serving
                 shapes of gemma2-9b (global and local layers, bf16 and
                 fp32, and scores in the softcap's range) and qwen2-7b,
-                the bf16 ones as the layer's permuted views; a dropped
-                window and a dropped softcap must fail the row check;
-                with its median time, the plain version's, its bound and,
-                where one PyTorch call computes the same function (SDPA,
-                or compiled flex_attention at gemma2's bf16 shapes), that
-                call's;
+                the bf16 ones as the layer's permuted views; each bf16
+                case at head dim 64, 128 or 256 must launch the
+                tensor-core kernel, every other case the CUDA-core one; a
+                dropped window and a dropped softcap must fail the row
+                check; with its median time, the plain version's, its
+                bound and, where one PyTorch call computes the same
+                function (SDPA, or compiled flex_attention at gemma2's bf16
+                shapes), that call's; then each flash kernel's registers,
+                local (spill) bytes and shared bytes (a tensor-core kernel
+                that spills fails);
   gemma2        gemma2-9b at full width (42 layers, bf16) from --seed:
                 2 prompts of 8192 tokens prefilled (one flash launch per
-                layer) and 32 greedy decode steps, then a prefill of 8128
+                layer, on the tensor cores) and 32 greedy decode steps,
+                then a prefill of 8128
                 tokens and 4 teacher-forced decode steps held against the
                 first prefill's logits, with the peak device memory;
   gemma2 cpu    gemma2-9b at full width cut to one block (2 layers, local
@@ -68,7 +74,9 @@ card:
 Every failure exits non-zero.  Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
 The last line of standard output is the JSON object
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
+the one before it lists the kernels ({"kernels": [...]}), and the one
+before that the flash kernels' attributes.
 """
 
 from __future__ import annotations
@@ -762,6 +770,24 @@ FLASH_CASES = [
     flash_case(f"gemma2 local {G2}", G2, "float32", causal=True, window=4096,
                cap=50.0),
 ]
+# the fp32 mask variants' bf16 twins at the serving head dims, which the
+# tensor-core kernel serves (key tiles of 128 at D 128, 64 at D 256), and a
+# ragged length that neither its 128-row blocks nor its key tiles divide
+for _D in (128, 256):
+    _shape = (1, 4, 2, 256, _D)
+    FLASH_CASES += [
+        flash_case(f"full {_shape}", _shape, "bfloat16", causal=False),
+        flash_case(f"window 128 {_shape}", _shape, "bfloat16", causal=True,
+                   window=128),
+        flash_case(f"cap 50 {_shape}", _shape, "bfloat16", causal=True,
+                   cap=50.0),
+        flash_case(f"window 64 cap 30 {_shape}", _shape, "bfloat16",
+                   causal=True, window=64, cap=30.0),
+        flash_case(f"window 16 below a tile {_shape}", _shape, "bfloat16",
+                   causal=True, window=16)]
+FLASH_CASES.append(flash_case("ragged (1, 4, 2, 1000, 128)",
+                              (1, 4, 2, 1000, 128), "bfloat16", causal=True,
+                              window=100))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 # the same check scaled to each output row: max over the row of
 # |kernel - plain| / max over the row of |plain|.  q, k, v from randn
@@ -868,10 +894,15 @@ def flash_kernel_phase(seed: int) -> dict:
                                                      "dtype"))
         S = shape[3]
         q, k, v = flash_inputs(case, seed + n)
-        before = fa.LAUNCHES
+        route = fa.tile_plan(q.dtype, shape[4]).route
+        before = (fa.LAUNCHES, fa.TENSOR_CORE_LAUNCHES, fa.CUDA_CORE_LAUNCHES)
         got = ops.flash_attention(q, k, v, **kw)
-        if fa.LAUNCHES != before + 1:
-            raise AssertionError(f"flash {name}: the kernel was not launched once")
+        moved = (fa.LAUNCHES - before[0], fa.TENSOR_CORE_LAUNCHES - before[1],
+                 fa.CUDA_CORE_LAUNCHES - before[2])
+        if moved != ((1, 1, 0) if route == "tensor_cores" else (1, 0, 1)):
+            raise AssertionError(f"flash {name} {dtype}: launches {moved} "
+                                 f"(all, tensor cores, CUDA cores), expected "
+                                 f"one on the {route} kernel")
         want = ref.attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
@@ -919,7 +950,8 @@ def flash_kernel_phase(seed: int) -> dict:
         b, by = flash_bound_ms(shape, kw, dtype)
         key = f"{name} {dtype}"
         results[key] = dict(shape=list(shape), options=kw, dtype=dtype,
-                            layout=case["layout"], q_mul=case["q_mul"],
+                            route=route, layout=case["layout"],
+                            q_mul=case["q_mul"],
                             max_abs_err=err, tol=tol, row_rel_err=row_err,
                             row_tol=row_tol, fault=case["fault"],
                             fault_row_rel_err=fault_err, ms=ms,
@@ -937,7 +969,7 @@ def flash_kernel_phase(seed: int) -> dict:
             f"; with {case['fault']} the plain version is {fault_err:.3e} "
             f"of a row off")
         q_txt = "" if case["q_mul"] == 1.0 else f" q x{case['q_mul']:g}"
-        log(f"kernel flash {key} {kw} {case['layout']}{q_txt}: "
+        log(f"kernel flash {key} {kw} {case['layout']}{q_txt} ({route}): "
             f"max abs err {err:.3e} (within {tol} + {tol}·|plain|), row err "
             f"{row_err:.3e} (within {row_tol:.4g}){fault_txt}; {ms:.6f} ms, "
             f"plain {plain:.6f} ms, bound {b:.6f} ms ({by}), library "
@@ -947,18 +979,49 @@ def flash_kernel_phase(seed: int) -> dict:
     return results
 
 
+def flash_attributes() -> list:
+    """``cudaFuncGetAttributes`` of each flash kernel: registers a thread,
+    local (spill) bytes a thread, shared bytes a block (dynamic + static)
+    and threads a block, for bf16 at the tensor-core head dims with and
+    without a softcap and for fp32 at each CUDA-core width.  A tensor-core
+    kernel that spills fails the run."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    out = []
+    for dtype, dims, caps in ((torch.bfloat16, fa.TENSOR_CORE_HEAD_DIMS,
+                               (False, True)),
+                              (torch.float32, (32, 64, 128, 256), (False,))):
+        for D in dims:
+            for capped in caps:
+                info = fa.kernel_info(dtype, D, capped)
+                out.append(dict(
+                    dtype=str(dtype).removeprefix("torch."), head_dim=D,
+                    softcap=capped, route=info["route"],
+                    registers=info["registers"],
+                    local_bytes=info["local_bytes"],
+                    shared_bytes=info["smem_bytes"]
+                    + info["static_smem_bytes"],
+                    threads=info["max_threads"]))
+                if info["route"] == "tensor_cores" and info["local_bytes"]:
+                    raise AssertionError(f"the tensor-core flash kernel spills "
+                                         f"at D={D}: {info}")
+    return out
+
+
 # -------------------------- serving gemma2-9b --------------------------- #
 
 GEMMA_BATCH, GEMMA_PROMPT, GEMMA_DECODE = 2, 8192, 32
 GEMMA_CUT = GEMMA_PROMPT - 64        # teacher-forced positions 8128..8131
 # teacher-forced decode against prefill, bf16 logits: at init the logits
 # have a spread of about 0.12 (the tied embedding's 256000^-1/2 scale over
-# 3584 dims) and reach about 0.6.  Prefill (flash kernel, fp32 p) and
-# decode (plain direct path, p rounded to bf16; other matmul shapes) round
-# differently in each of 42 layers; a CPU rehearsal of the same check at 42
-# layers in bf16 (d_model 512 to 1024) differed by 1.4% to 1.7% of the
-# largest logit.  0.05 is 13 bf16 spacings at 0.5; a wrong window changes
-# every local layer's normalised mix and moves logits by their spread.
+# 3584 dims) and reach about 0.6.  Prefill (flash kernel: fp32 softmax, the
+# unnormalised P rounded to bf16 for the tensor cores, divided by the fp32
+# sum at the end) and decode (plain direct path: p normalised, then rounded
+# to bf16; other matmul shapes) round differently in each of 42 layers; a
+# CPU rehearsal of the same check at 42 layers in bf16 (d_model 512 to
+# 1024) differed by 1.4% to 1.7% of the largest logit.  0.05 is 13 bf16
+# spacings at 0.5; a wrong window changes every local layer's normalised
+# mix and moves logits by their spread.
 GEMMA_TEACHER_TOL = 5e-2
 
 
@@ -1019,13 +1082,17 @@ def gemma2_serving_phase(seed: int) -> dict:
     prompts = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, P))).to(DEV)
 
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.TENSOR_CORE_LAUNCHES = fa.CUDA_CORE_LAUNCHES = 0
     res = serve.generate(params, cfg, prompts, GEMMA_DECODE + 1)
     out["flash_launches"] = fa.LAUNCHES
-    if out["flash_launches"] != cfg.n_layers:
+    out["flash_tensor_core_launches"] = fa.TENSOR_CORE_LAUNCHES
+    if out["flash_launches"] != cfg.n_layers or \
+            fa.TENSOR_CORE_LAUNCHES != cfg.n_layers:
         raise AssertionError(f"prefill and decode made {out['flash_launches']} "
-                             f"flash launches, expected {cfg.n_layers} (one "
-                             f"per layer of the prefill, none in decode)")
+                             f"flash launches ({fa.TENSOR_CORE_LAUNCHES} on "
+                             f"the tensor cores), expected {cfg.n_layers} on "
+                             f"the tensor cores (one per layer of the "
+                             f"prefill, none in decode)")
     logits = res.prefill_logits
     if tuple(logits.shape) != (B, P, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1045,7 +1112,9 @@ def gemma2_serving_phase(seed: int) -> dict:
         logits_std=float(logits[:, -64:].float().std()))
     log(f"gemma2 init {out['init_s']:.3f} s; prefill: {B} x {P} tokens in "
         f"{out['prefill_ms']:.3f} ms ({out['prefill_tokens_per_s']:.1f} tok/s), "
-        f"{out['flash_launches']} flash launches; decode: {res.decode_steps} "
+        f"{out['flash_launches']} flash launches "
+        f"({out['flash_tensor_core_launches']} on the tensor cores); decode: "
+        f"{res.decode_steps} "
         f"steps, {out['decode_ms_per_step']:.3f} ms/step "
         f"({out['decode_tokens_per_s']:.1f} tok/s); logits up to "
         f"{out['logits_abs_max']:.4f}")
@@ -1055,14 +1124,15 @@ def gemma2_serving_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     # the teacher-forced run, each half in a profiled window: the device's
     # share of the prefill and of the decode steps, and where it goes
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.TENSOR_CORE_LAUNCHES = fa.CUDA_CORE_LAUNCHES = 0
     cache = M.init_cache(cfg, B, P, device=DEV)
     (_, cache), out["prefill_profile"] = device_window(
         lambda: M.serve_step(params, cfg, {"tokens": prompts[:, :GEMMA_CUT]},
                              cache, 0))
-    if fa.LAUNCHES != cfg.n_layers:
+    if fa.LAUNCHES != cfg.n_layers or fa.TENSOR_CORE_LAUNCHES != cfg.n_layers:
         raise AssertionError(f"the {GEMMA_CUT}-token prefill made "
-                             f"{fa.LAUNCHES} flash launches")
+                             f"{fa.LAUNCHES} flash launches, "
+                             f"{fa.TENSOR_CORE_LAUNCHES} on the tensor cores")
 
     def teacher_forced():
         steps = []
@@ -1234,6 +1304,12 @@ def main() -> int:
     cross = card_vs_cpu_phase(serving.pop("restored"), args.seed)
     torch.cuda.empty_cache()
     flash = flash_kernel_phase(args.seed)
+    flash_attrs = flash_attributes()
+    for a in flash_attrs:
+        log(f"flash kernel {a['dtype']} D={a['head_dim']}"
+            f"{' softcap' if a['softcap'] else ''} ({a['route']}): "
+            f"{a['registers']} registers, {a['local_bytes']} local bytes, "
+            f"{a['shared_bytes']} shared bytes, {a['threads']} threads")
     gemma = gemma2_serving_phase(args.seed)
     gemma_cpu = gemma2_card_vs_cpu_phase(args.seed)
 
@@ -1272,6 +1348,7 @@ def main() -> int:
                       "serving": serving, "card_vs_cpu": cross,
                       "flash_shapes": flash, "gemma2_serving": gemma,
                       "gemma2_card_vs_cpu": gemma_cpu}))
+    print(json.dumps({"flash_kernel_attributes": flash_attrs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

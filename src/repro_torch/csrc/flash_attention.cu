@@ -20,44 +20,102 @@
 // D=256, causal, bf16) the function needs 4·B·H·D operations per unmasked
 // (query, key) pair — 1.1 TFLOP for a global layer, 1.1 ms on the bf16
 // tensor cores (989 TFLOP/s) — against 0.13 GB of inputs and outputs
-// (0.04 ms at 3.35 TB/s): it is bound by operations.  This first kernel does
-// its products on the CUDA cores in fp32 out of shared memory (67 TFLOP/s at
-// best), so it sits well above that bound; wgmma and TMA are the next step.
-// What the design does:
-//   * The key axis is a loop inside the block.  The TPU walked it as the
-//     innermost grid axis and kept (m, l, acc) in VMEM across grid steps;
-//     Hopper blocks run in no order, so one block takes one (b, h, 64-row
-//     query tile), keeps m and l in registers (each row's 16 owner threads
-//     hold the same copy, combined by warp shuffles) and the [64, D]
-//     accumulator in registers (4 rows × D/16 columns a thread), and walks
-//     its key tiles in order.
-//   * Tiles a mask removes entirely are never loaded: the block visits only
-//     the key tiles from (q0 - window + 1) / 64 to (q0 + 63) / 64, as the
-//     Pallas kernel skipped them with pl.when.  Inside a visited tile a row
-//     may still have no visible key (a window narrower than a tile); its
-//     scores are all -2^30, as in the plain version, and the next tile's
-//     factor exp(-2^30 - m) = 0 wipes what they added.
-//   * The ragged edge is masked here, not by the caller: the Pallas wrapper
-//     needed S % 256 == 0.  Keys past S score -inf (exactly 0 weight) and
-//     their V rows are zero in shared memory; rows past S are not written.
-//   * Strided inputs.  q, k, v and o are read and written through their
-//     batch, head and sequence strides (the head dim contiguous), so the
-//     model passes its [B,S,K,G,D] and [B,S,K,D] projections as they are,
-//     with no transpose copy; GQA reads kv head h / rep in place.
-//   * Shared memory: Q and K tiles [64][D+4] fp32 (rows padded so that a
-//     quarter-warp's float4 loads of 8 rows fall on distinct banks), V
-//     [64][D] and P [64][68]: 211 KB at D = 256, dynamic, set with
-//     cudaFuncSetAttribute.  Inputs are widened to fp32 as they are staged.
-//   * fp32 arithmetic throughout (expf and tanhf, no fast-math), so fp32
-//     inputs agree with the plain version to 2e-5; TF32 is never used.
-// Head dims up to 256, D % 4 == 0; fp32 or bf16.
+// (0.04 ms at 3.35 TB/s): it is bound by operations, so its products
+// belong on the tensor cores.
+//
+// Two kernels, chosen by dtype and head dim in `arcadia_flash_attention`
+// (never by trying one and then the other):
+//
+// 1. `flash_fwd_wgmma` — bf16 at head dims 64, 128 and 256 (pointers and
+//    strides 16-byte aligned, TMA's rule): the serving widths.
+//    * Three warpgroups.  Warpgroup 0 is the producer: after `setmaxnreg`
+//      drops it to 24 registers, one thread issues TMA copies of the Q tile
+//      and of each K and V tile into shared memory, with mbarriers counting
+//      the bytes.  Warpgroups 1 and 2 (240 registers each) are consumers,
+//      64 query rows each, so a block's 128 rows share every K/V tile.
+//    * S = Q·Kᵀ by `wgmma.mma_async m64n{Bc}k16` with Q and K read from
+//      shared memory through descriptors; S stays in fp32 registers.  The
+//      softmax runs on those registers; P is rounded to bf16 (the plain
+//      version rounds p to v's dtype) and packed in place: the
+//      accumulator's fragment layout is the A-operand layout of the next
+//      product, so O += P·V is `wgmma m64n{D}k16` with A from registers and
+//      V from shared memory.  V's tile is [keys, D] with D contiguous, the
+//      MN-major B operand (wgmma's transpose bit), so it needs no transpose.
+//    * Overlap.  K/V tiles sit in a ring of two stages with full and empty
+//      mbarriers (K and V apart, so K's slot frees as soon as Q·Kᵀ is
+//      done): the producer loads ahead while the consumers multiply.  A
+//      consumer issues Q·Kᵀ of tile j and P·V of tile j - 1 together and
+//      runs tile j's softmax while P·V is still in flight.  The two
+//      consumers take turns at issuing (named barriers), so one's softmax
+//      runs under the other's products; for that both walk all the
+//      block's tiles.  The softmax, not the products or the copies, is what
+//      the kernel waits for (tools/flash_ablate.py times it without each).
+//    * Tensor maps: one per operand over its strided 4-D view (D, S, heads,
+//      batch), built on the host per call with cuTensorMapEncodeTiled got
+//      through cudaGetDriverEntryPoint (no -lcuda), 128-byte swizzle, so a
+//      row of D bf16 is D/64 boxes of 64 columns.  The layer's [B,S,H,D]
+//      views go in as they are.  Rows past S arrive as zeros.
+//    * Tiles (227 KB of shared memory a block; Br = 128 query rows):
+//        D = 256: Bc = 64,  Q 64 KB + 2 stages × (K 32 + V 32 KB) = 192 KB
+//        D = 128: Bc = 128, Q 32 KB + 2 × (32 + 32 KB)             = 160 KB
+//        D =  64: Bc = 128, Q 16 KB + 2 × (16 + 16 KB)             =  80 KB
+//      plus 1 KB to align the ring to the swizzle's 1024 bytes and 128 B of
+//      barriers.  Registers a consumer thread: O is 64 × D fp32 over 128
+//      threads (D/2: 128 at D = 256), S is Bc/2 (32), P Bc/4 (16): 176 of
+//      its 240 at D = 256; 64 + 64 + 32 at D = 128.  No kernel spills
+//      (cudaFuncGetAttributes' local bytes are 0; `arcadia_flash_kernel_info`
+//      reports them).
+//    * Masks only where they bite.  Tiles outside the causal/window band
+//      of the block are never loaded.  Tiles wholly inside a warpgroup's
+//      band skip the per-element mask, which only the diagonal, the
+//      window's edge and the ragged end pay, as two compares against the
+//      row's visible range.  Masked scores are -2^30 and the running max
+//      starts at -2^30, so a tile that holds no visible key for a row (a
+//      window narrower than a tile, or a tile past a warpgroup's diagonal)
+//      adds weights that the row's first real score wipes with the factor
+//      exp2(-2^30 - m) = 0, or adds exp2(-2^30 - m) = 0 after it (no
+//      (-inf) - (-inf)); keys past S score -inf (exactly zero weight); rows
+//      past S are not written.  Without a softcap the scale and log2(e)
+//      go into one FMA before ex2; with one, log2(e) is folded in after
+//      tanh.  The softcap uses tanhf (not tanh.approx).
+// 2. `flash_fwd_kernel` — fp32, and bf16 at other head dims: the CUDA-core
+//    kernel of the first port, unchanged.  fp32 in, fp32 products (no TF32),
+//    so fp32 inputs agree with the plain version to 2e-5.
+//    * The key axis is a loop inside the block.  The TPU walked it as the
+//      innermost grid axis and kept (m, l, acc) in VMEM across grid steps;
+//      Hopper blocks run in no order, so one block takes one (b, h, 64-row
+//      query tile), keeps m and l in registers (each row's 16 owner threads
+//      hold the same copy, combined by warp shuffles) and the [64, D]
+//      accumulator in registers (4 rows × D/16 columns a thread), and walks
+//      its key tiles in order.
+//    * Tiles a mask removes entirely are never loaded: the block visits only
+//      the key tiles from (q0 - window + 1) / 64 to (q0 + 63) / 64, as the
+//      Pallas kernel skipped them with pl.when.  Inside a visited tile a row
+//      may still have no visible key (a window narrower than a tile); its
+//      scores are all -2^30, as in the plain version, and the next tile's
+//      factor exp(-2^30 - m) = 0 wipes what they added.
+//    * The ragged edge is masked here, not by the caller: the Pallas wrapper
+//      needed S % 256 == 0.  Keys past S score -inf (exactly 0 weight) and
+//      their V rows are zero in shared memory; rows past S are not written.
+//    * Strided inputs.  q, k, v and o are read and written through their
+//      batch, head and sequence strides (the head dim contiguous), so the
+//      model passes its [B,S,K,G,D] and [B,S,K,D] projections as they are,
+//      with no transpose copy; GQA reads kv head h / rep in place.
+//    * Shared memory: Q and K tiles [64][D+4] fp32 (rows padded so that a
+//      quarter-warp's float4 loads of 8 rows fall on distinct banks), V
+//      [64][D] and P [64][68]: 211 KB at D = 256, dynamic, set with
+//      cudaFuncSetAttribute.  Inputs are widened to fp32 as they are staged.
+//    * fp32 arithmetic throughout (expf and tanhf, no fast-math); TF32 is
+//      never used.  Head dims up to 256, D % 4 == 0.
 //
 // Built by kernels/nvcc.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through ctypes (plain C interface below).
+// and called through ctypes (plain C interface at the end).
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <cuda.h>                      // CUtensorMap and its enums only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -301,6 +359,670 @@ int dispatch(const Args& a, int batch, int heads, cudaStream_t stream) {
   return launch<T, 256>(a, batch, heads, stream);
 }
 
+
+// ------------------ tensor-core route: bf16, D in {64, 128, 256} ------------------ //
+
+constexpr int kTcRows = 128;           // query rows of a block: two consumer warpgroups
+constexpr int kTcThreads = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int kStages = 2;             // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct TcCfg {
+  static constexpr int kBc = D == 256 ? 64 : 128;       // keys of a tile
+  static constexpr int kBoxes = D / 64;                 // 128-byte boxes of a row
+  static constexpr int kQBytes = kTcRows * D * 2;
+  static constexpr int kTileBytes = kBc * D * 2;        // one K or V tile
+  static constexpr int kBarBytes = 128;                 // 1 + 4·kStages mbarriers
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+  static_assert(kSmem <= kMaxSmem, "tile plan exceeds 227 KB");
+};
+
+struct TcArgs {
+  CUtensorMap qmap, kmap, vmap;        // (D, S, heads, batch) views, 128-byte swizzle
+  void* o;
+  long long o_sb, o_sh, o_ss;
+  int S, rep, nq, causal, window;
+  float scale, cap;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// box (64 columns, rows, 1, 1) of a 4-D tensor map at (c0, c1, c2, c3)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// named barrier `id` among `count` threads: wait at it, or only arrive
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
+// keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 256] += A[64 x 16] * B[16 x 256], A in registers (bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// uint32 registers read asynchronously by wgmma (the A operand): keep them
+// live and unmoved until the product has completed
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^-22 relative
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// What a consumer thread needs to turn its scores into softmax weights.
+struct RowCtx {
+  int q_row;           // query position of fragment row 0 (row 1 is + 8)
+  int col0;            // key column of fragment column 0 within a tile
+  int S, causal, window;
+  float pre, post;     // with a cap: x = tanh(s·pre)·post, the log2 domain
+  float mul;           // weight = exp2(x·mul - m·mul): scale·log2(e), or 1
+};
+
+// Scores of one tile (fragment sc, keys k0 ..) to unnormalised weights:
+// softcap (kCap) and mask (kEdge: only tiles a mask or the end cuts), then
+// update the running max m and sum l of the thread's two rows, return each
+// row's factor exp2((m_old - m_new)·mul) for the accumulator, and leave
+// exp2((x - m)·mul) in sc.  Without a cap x is the raw product and its
+// scale goes into the one FMA before exp2; with a cap log2(e) is folded in
+// after tanh.
+template <int Bc, bool kCap, bool kEdge>
+__device__ __forceinline__ void online_softmax(float (&sc)[Bc / 2], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               const RowCtx& c, int k0) {
+  // visible keys of each row as offsets from this thread's first column:
+  // lo[r] .. hi[r], and none past `end` (the last key, S - 1)
+  int lo[2], hi[2], end = 0;
+  if constexpr (kEdge) {
+    const int base = k0 + c.col0;
+    end = c.S - 1 - base;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = c.q_row + 8 * r;
+      lo[r] = (c.window > 0 ? q - c.window + 1 : 0) - base;
+      hi[r] = (c.causal ? q : c.S - 1) - base;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < Bc / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = sc[4 * j + e];
+      if constexpr (kCap) x = tanhf(x * c.pre) * c.post;
+      if constexpr (kEdge) {
+        const int off = 8 * j + (e & 1);               // a constant
+        x = off < lo[r] || off > hi[r] ? kNegInf : x;
+        x = off > end ? -INFINITY : x;                 // past the end: no weight
+      }
+      sc[4 * j + e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {                        // a row's 4 threads
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = fast_exp2((m[r] - m_new) * c.mul);
+    m[r] = m_new;
+    mb[r] = m_new * c.mul;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < Bc / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(sc[4 * j + e], c.mul, -mb[e >> 1]));
+      l[e >> 1] += p;
+      sc[4 * j + e] = p;
+    }
+}
+
+// P rounded to bf16 and packed as the A operand of P·V: the accumulator's
+// fragment of keys 16ks .. 16ks + 15 is that operand's fragment
+template <int Bc>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[Bc / 16][4],
+                                       const float (&sc)[Bc / 2]) {
+#pragma unroll
+  for (int ks = 0; ks < Bc / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[ks][r] = pack_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+  // a warp whose rows all kept their max skips it (exact: the factor is 1)
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j + 0] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
+  using C = TcCfg<D>;
+  constexpr int Bc = C::kBc;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle repeats every 1024 bytes of shared address: align the ring
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = q_s + C::kQBytes;                    // stage st at + st·kTileBytes
+  uint8_t* v_s = k_s + kStages * C::kTileBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(v_s + kStages * C::kTileBytes);
+  uint64_t* q_full = bar;
+  uint64_t* k_full = bar + 1;
+  uint64_t* v_full = bar + 1 + kStages;
+  uint64_t* k_empty = bar + 1 + 2 * kStages;
+  uint64_t* v_empty = bar + 1 + 3 * kStages;
+
+  const int qt = a.nq - 1 - static_cast<int>(blockIdx.x);   // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / a.rep;
+  const int q0 = qt * kTcRows;
+  const int S = a.S;
+  // the key tiles some row of this block can see
+  const int k_last = a.causal ? min(S - 1, q0 + kTcRows - 1) : S - 1;
+  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt_lo = k_first / Bc;
+  const int n_tiles = k_last / Bc - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(k_empty + st, 2 * 128);                // every consumer thread
+      mbar_init(v_empty + st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------ producer ------------------------------ //
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load(q_s + c * kTcRows * 128, &a.qmap, q_full, 64 * c, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const int free_parity = ((i / kStages) & 1) ^ 1;  // the slot's last use
+        const int k0 = (kt_lo + i) * Bc;
+        uint8_t* kd = k_s + st * C::kTileBytes;
+        uint8_t* vd = v_s + st * C::kTileBytes;
+        mbar_wait(k_empty + st, free_parity);
+        mbar_expect_tx(k_full + st, C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(kd + c * Bc * 128, &a.kmap, k_full + st, 64 * c, k0, kvh, b);
+        mbar_wait(v_empty + st, free_parity);
+        mbar_expect_tx(v_full + st, C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(vd + c * Bc * 128, &a.vmap, v_full + st, 64 * c, k0, kvh, b);
+      }
+    }
+  } else {
+    // ----------------------------- consumers ------------------------------ //
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int cw = wg - 1;                             // rows 64·cw .. 64·cw + 63
+    const int t = threadIdx.x - 128 * wg;
+    const int row0 = 16 * (t / 32) + (t % 32) / 4;     // and row0 + 8
+    const int q0w = q0 + 64 * cw;
+    RowCtx ctx;
+    ctx.q_row = q0w + row0;
+    ctx.col0 = 2 * (t % 4);                            // and + 1, + 8·j
+    ctx.S = S;
+    ctx.causal = a.causal;
+    ctx.window = a.window;
+    ctx.pre = kCap ? a.scale / a.cap : 0.f;
+    ctx.post = a.cap * kLog2e;
+    ctx.mul = kCap ? 1.f : a.scale * kLog2e;
+    // a tile that needs the per-element mask for these 64 rows: the causal
+    // diagonal and the tiles past it, the window's edge and the tiles
+    // before it, the ragged end.  Both warpgroups walk all the block's
+    // tiles, so that they can take turns; a tile that is masked for all of
+    // a warpgroup's rows adds exactly nothing (see the note at the top)
+    auto edge = [&](int k0) {
+      return k0 + Bc > S || (a.causal && k0 + Bc - 1 > q0w) ||
+             (a.window > 0 && k0 <= q0w + 63 - a.window);
+    };
+    // descriptors of this warpgroup's Q rows and of the stages' K and V
+    // tiles; a step adds its byte offset / 16 to the start-address field
+    const uint64_t q_desc = smem_desc(smem_u32(q_s) + cw * 64 * 128, 16, 1024);
+    // S = Q·Kᵀ of tile i into sc: D/16 steps of k16, Q and K K-major, each
+    // 64-column box after the last, 32 bytes a step within a box
+    auto issue_qk = [&](float (&sc)[Bc / 2], int i) {
+      const uint64_t k_desc =
+          smem_desc(smem_u32(k_s + (i % kStages) * C::kTileBytes), 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int col = (kk % 4) * 2;
+        wgmma_ss(sc, q_desc + (kk / 4) * kTcRows * 8 + col,
+                 k_desc + (kk / 4) * Bc * 8 + col, kk > 0);
+      }
+    };
+    // O += P·V of tile i: Bc/16 steps of k16 (16 key rows, 2048 bytes, a
+    // step), V MN-major with its 64-column boxes Bc·128 bytes apart
+    auto issue_pv = [&](float (&o)[D / 2], uint32_t (&pa)[Bc / 16][4], int i) {
+      const uint64_t v_desc =
+          smem_desc(smem_u32(v_s + (i % kStages) * C::kTileBytes), Bc * 128, 1024);
+#pragma unroll
+      for (int ks = 0; ks < Bc / 16; ++ks) wgmma_rs(o, pa[ks], v_desc + ks * 128);
+    };
+    // The two warpgroups take turns at issuing their products (named
+    // barriers 1 and 2, 256 threads): while one runs its softmax the other's
+    // wgmmas keep the tensor cores busy.  Warpgroup 1 hands warpgroup 0 the
+    // first turn; each turn ends by handing over.
+    const int my_turn = 1 + cw, their_turn = 2 - cw;
+    if (cw == 1) bar_arrive(1, 256);
+
+    // accumulator fragment (wgmma m64nN f32): o[4j + 2r + e] is row
+    // row0 + 8r, column 8j + col0 + e; likewise the scores
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};                   // running max
+    float l[2] = {0.f, 0.f};                           // this thread's columns
+    float alpha[2];
+    float sc[Bc / 2];
+    uint32_t pa[Bc / 16][4];
+    // the softmax of tile i, on fragment sc, without the mask where it
+    // cannot bite
+    auto softmax = [&](int i) {
+      const int k0 = (kt_lo + i) * Bc;
+      if (edge(k0))
+        online_softmax<Bc, kCap, true>(sc, m, l, alpha, ctx, k0);
+      else
+        online_softmax<Bc, kCap, false>(sc, m, l, alpha, ctx, k0);
+    };
+
+    mbar_wait(q_full, 0);
+    {                                                  // the first tile
+      mbar_wait(k_full, 0);
+      bar_sync(my_turn, 256);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_qk(sc, 0);
+      wgmma_commit();
+      bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(k_empty);
+      softmax(0);
+      pack_p<Bc>(pa, sc);
+    }
+    // tile i's scores and softmax run while P·V of tile i - 1 is in flight
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % kStages, ph = (i / kStages) & 1;
+      const int sp = (i - 1) % kStages, pp = ((i - 1) / kStages) & 1;
+      mbar_wait(k_full + st, ph);
+      mbar_wait(v_full + sp, pp);
+      bar_sync(my_turn, 256);
+      fence_regs(sc);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_qk(sc, i);
+      wgmma_commit();
+      issue_pv(o, pa, i - 1);
+      wgmma_commit();
+      bar_arrive(their_turn, 256);
+      wgmma_wait<1>();                                 // Q·Kᵀ of tile i done
+      fence_regs(sc);
+      mbar_arrive(k_empty + st);
+      softmax(i);
+      wgmma_wait<0>();                                 // P·V of tile i - 1 done
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(v_empty + sp);
+      rescale(o, alpha);
+      pack_p<Bc>(pa, sc);
+    }
+    {                                                  // P·V of the last tile
+      const int st = (n_tiles - 1) % kStages, ph = ((n_tiles - 1) / kStages) & 1;
+      mbar_wait(v_full + st, ph);
+      bar_sync(my_turn, 256);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv(o, pa, n_tiles - 1);
+      wgmma_commit();
+      bar_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(v_empty + st);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = ctx.q_row + 8 * r;
+      if (qpos >= S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* row = og + static_cast<long long>(qpos) * a.o_ss + ctx.col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 view (D, S, heads, batch) with element strides (1, ss, sh, sb); the
+// box is 64 columns × `rows` rows of one head of one batch
+bool encode_view(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D, int S,
+                 int heads, int batch, long long ss, long long sh, long long sb,
+                 int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t stream) {
+  using C = TcCfg<D>;
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  TcArgs t;
+  std::memset(&t, 0, sizeof(t));
+  if (!encode_view(enc, &t.qmap, a.q, D, a.S, heads, batch, a.q_ss, a.q_sh, a.q_sb,
+                   kTcRows) ||
+      !encode_view(enc, &t.kmap, a.k, D, a.S, kv_heads, batch, a.k_ss, a.k_sh,
+                   a.k_sb, C::kBc) ||
+      !encode_view(enc, &t.vmap, a.v, D, a.S, kv_heads, batch, a.v_ss, a.v_sh,
+                   a.v_sb, C::kBc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  t.o = a.o;
+  t.o_sb = a.o_sb;
+  t.o_sh = a.o_sh;
+  t.o_ss = a.o_ss;
+  t.S = a.S;
+  t.rep = a.rep;
+  t.nq = (a.S + kTcRows - 1) / kTcRows;
+  t.causal = a.causal;
+  t.window = a.window;
+  t.scale = a.scale;
+  t.cap = a.cap;
+  auto kernel = t.cap > 0.f ? flash_fwd_wgmma<D, true> : flash_fwd_wgmma<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(t.nq), static_cast<unsigned>(heads),
+                  static_cast<unsigned>(batch));
+  kernel<<<grid, kTcThreads, C::kSmem, stream>>>(t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool tc_head_dim(int D) { return D == 64 || D == 128 || D == 256; }
+
+// TMA's rules: 16-byte aligned base addresses and strides
+bool tc_aligned(const Args& a) {
+  auto ptr_ok = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const long long strides[12] = {a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss,
+                                 a.v_sb, a.v_sh, a.v_ss, a.o_sb, a.o_sh, a.o_ss};
+  for (long long s : strides)
+    if (s % 8) return false;
+  return ptr_ok(a.q) && ptr_ok(a.k) && ptr_ok(a.v) && ptr_ok(a.o);
+}
+
+int dispatch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t stream) {
+  if (a.D == 64) return launch_tc<64>(a, batch, heads, kv_heads, stream);
+  if (a.D == 128) return launch_tc<128>(a, batch, heads, kv_heads, stream);
+  return launch_tc<256>(a, batch, heads, kv_heads, stream);
+}
+
+// attributes of a kernel into out[5..8]: registers, local (spill) bytes,
+// static shared bytes, max threads a block
+int kernel_attributes(const void* fn, int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[5] = fa.numRegs;
+  out[6] = static_cast<int>(fa.localSizeBytes);
+  out[7] = static_cast<int>(fa.sharedSizeBytes);
+  out[8] = fa.maxThreadsPerBlock;
+  return 0;
+}
+
 }  // namespace
 
 // Attention of q [batch, heads, seqlen, headdim] against k, v
@@ -308,9 +1030,11 @@ int dispatch(const Args& a, int batch, int heads, cudaStream_t stream) {
 // data pointer and its batch, head and sequence strides in elements (the
 // head dim is contiguous, and every stride and pointer a multiple of four
 // elements).  dtype: 0 for fp32, 1 for bf16, the same for all four.
-// window <= 0 means no window, cap <= 0 no softcap.  Launches one kernel on
-// `stream`, does not synchronise, and returns the cudaError_t of the launch
-// (0 on success).
+// window <= 0 means no window, cap <= 0 no softcap.  bf16 at head dims 64,
+// 128 and 256 with 16-byte aligned pointers and strides goes to the
+// tensor-core kernel, everything else to the CUDA-core kernel; *route is
+// set to 1 or 0 accordingly.  Launches one kernel on `stream`, does not
+// synchronise, and returns the cudaError_t of the launch (0 on success).
 extern "C" int arcadia_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -318,7 +1042,8 @@ extern "C" int arcadia_flash_attention(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int batch, int heads, int kv_heads, int seqlen, int headdim,
-    int causal, int window, float scale, float cap, int dtype, void* stream) {
+    int causal, int window, float scale, float cap, int dtype, void* stream,
+    int* route) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || seqlen <= 0 || headdim <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (heads % kv_heads || headdim > 256 || headdim % 4 || heads > 65535 ||
@@ -329,7 +1054,58 @@ extern "C" int arcadia_flash_attention(
          seqlen, headdim, heads / kv_heads, (seqlen + kTile - 1) / kTile,
          causal, window, scale, cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = 0;
   if (dtype == 0) return dispatch<float>(a, batch, heads, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, batch, heads, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc_head_dim(headdim) && tc_aligned(a)) {
+    *route = 1;
+    return dispatch_tc(a, batch, heads, kv_heads, s);
+  }
+  return dispatch<__nv_bfloat16>(a, batch, heads, s);
+}
+
+// The plan and attributes of the kernel that serves (dtype, headdim, with
+// or without a softcap) when the alignment allows the tensor cores: out[0]
+// route (1 tensor cores, 0 CUDA cores), out[1] query rows of a block,
+// out[2] keys of a tile, out[3] K/V stages, out[4] dynamic shared bytes of
+// a launch, out[5] registers a thread, out[6] local (spill) bytes a
+// thread, out[7] static shared bytes, out[8] max threads a block.  Returns
+// a cudaError_t (0 on success).
+extern "C" int arcadia_flash_kernel_info(int dtype, int headdim, int capped, int* out) {
+  if (headdim <= 0 || headdim > 256 || headdim % 4 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && tc_head_dim(headdim)) {
+    const void* fn =
+        headdim == 64 ? (capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<64, true>)
+                                : reinterpret_cast<const void*>(flash_fwd_wgmma<64, false>))
+        : headdim == 128 ? (capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<128, true>)
+                                   : reinterpret_cast<const void*>(flash_fwd_wgmma<128, false>))
+                         : (capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<256, true>)
+                                   : reinterpret_cast<const void*>(flash_fwd_wgmma<256, false>));
+    out[0] = 1;
+    out[1] = kTcRows;
+    out[2] = headdim == 256 ? TcCfg<256>::kBc : headdim == 128 ? TcCfg<128>::kBc : TcCfg<64>::kBc;
+    out[3] = kStages;
+    out[4] = headdim == 256 ? TcCfg<256>::kSmem : headdim == 128 ? TcCfg<128>::kSmem
+                                                                  : TcCfg<64>::kSmem;
+    return kernel_attributes(fn, out);
+  }
+  const int dm = headdim <= 32 ? 32 : headdim <= 64 ? 64 : headdim <= 128 ? 128 : 256;
+  out[0] = 0;
+  out[1] = kTile;
+  out[2] = kTile;
+  out[3] = 1;
+  out[4] = smem_floats(dm) * static_cast<int>(sizeof(float));
+  const void* fn = nullptr;
+  if (dtype == 0)
+    fn = dm == 32 ? reinterpret_cast<const void*>(flash_fwd_kernel<float, 32>)
+       : dm == 64 ? reinterpret_cast<const void*>(flash_fwd_kernel<float, 64>)
+       : dm == 128 ? reinterpret_cast<const void*>(flash_fwd_kernel<float, 128>)
+                   : reinterpret_cast<const void*>(flash_fwd_kernel<float, 256>);
+  else
+    fn = dm == 32 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 32>)
+       : dm == 64 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 64>)
+       : dm == 128 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 128>)
+                   : reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 256>);
+  return kernel_attributes(fn, out);
 }

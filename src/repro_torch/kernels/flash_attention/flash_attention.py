@@ -1,22 +1,31 @@
-"""CUDA kernel of forward flash attention: bind and launch.
+"""CUDA kernels of forward flash attention: bind and launch.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
+The kernels (``csrc/flash_attention.cu``) replace the JAX package's Pallas
 TPU kernel ``_flash_kernel`` (``repro/kernels/flash_attention/
-flash_attention.py``).  One block takes one (batch, head, 64-row query
-tile) and walks the key tiles its rows can see with an fp32 online
-softmax — see the note at the top of the source.
+flash_attention.py``).  Two routes, chosen by dtype and head dim inside
+``arcadia_flash_attention`` (see the note at the top of the source):
+
+* ``"tensor_cores"`` — bf16 at head dims 64, 128 and 256 (16-byte aligned
+  pointers and strides, TMA's rule): both products on wgmma, K/V tiles
+  brought by TMA into a two-stage ring by a producer warpgroup, 128 query
+  rows a block;
+* ``"cuda_cores"`` — fp32, and bf16 at other head dims: fp32 products out
+  of shared memory, 64 query rows a block.
 
 The source is compiled with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/nvcc.py``); nothing is compiled at import time.
 
-``LAUNCHES`` counts the kernel's launches: ``flash_attention_cuda`` adds
-one right after each successful launch and nowhere else.
+``LAUNCHES`` counts the launches of both kernels, ``TENSOR_CORE_LAUNCHES``
+and ``CUDA_CORE_LAUNCHES`` each route's: ``flash_attention_cuda`` adds one
+to ``LAUNCHES`` and to the count of the route the C side reports, right
+after each successful launch, and nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -24,18 +33,71 @@ import torch
 from .. import nvcc
 
 LAUNCHES = 0
+TENSOR_CORE_LAUNCHES = 0
+CUDA_CORE_LAUNCHES = 0
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+MAX_SMEM = 232448                          # 227 KB a block, H100
+ROUTES = ("cuda_cores", "tensor_cores")    # the C side's route numbers
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How the kernel serving a (dtype, head dim) tiles its work."""
+    route: str
+    rows: int            # query rows of a block
+    keys: int            # keys of a K/V tile
+    stages: int          # K/V tiles in flight
+    smem_bytes: int      # dynamic shared memory of a launch
+
+
+def tile_plan(dtype: torch.dtype, head_dim: int) -> TilePlan:
+    """The plan of ``csrc/flash_attention.cu`` for inputs whose pointers
+    and strides are 16-byte aligned (``arcadia_flash_kernel_info`` reports
+    the same on the card).  Tensor cores: Q [128, D] plus two stages of K
+    and V [Bc, D] in bf16, 1 KB to align them to the swizzle and 128 B of
+    mbarriers.  CUDA cores: fp32 Q and K [64][D+4], V [64][D] and P
+    [64][68] at D rounded up to 32, 64, 128 or 256."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        keys = 64 if head_dim == 256 else 128
+        smem = 1024 + 128 * head_dim * 2 + 2 * 2 * keys * head_dim * 2 + 128
+        return TilePlan("tensor_cores", 128, keys, 2, smem)
+    dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
+    smem = (2 * 64 * (dm + 4) + 64 * dm + 64 * 68) * 4
+    return TilePlan("cuda_cores", 64, 64, 1, smem)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.arcadia_flash_attention.argtypes = [p, p, p, p, *[ll] * 12,
-                                            i, i, i, i, i, i, i, f, f, i, p]
+    lib.arcadia_flash_attention.argtypes = [
+        p, p, p, p, *[ll] * 12, i, i, i, i, i, i, i, f, f, i, p,
+        ctypes.POINTER(i)]
     lib.arcadia_flash_attention.restype = ctypes.c_int
+    lib.arcadia_flash_kernel_info.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.arcadia_flash_kernel_info.restype = ctypes.c_int
+
+
+def kernel_info(dtype: torch.dtype, head_dim: int,
+                capped: bool = False) -> dict:
+    """The plan and ``cudaFuncGetAttributes`` of the kernel that serves
+    (dtype, head dim, with or without a softcap) on the card: route, rows,
+    keys, stages, smem_bytes, registers, local_bytes (spills),
+    static_smem_bytes, max_threads."""
+    lib = nvcc.load(SOURCE, _bind)
+    out = (ctypes.c_int * 9)()
+    err = lib.arcadia_flash_kernel_info(_DTYPES[dtype], int(head_dim),
+                                        int(capped), out)
+    if err != 0:
+        raise RuntimeError(f"flash kernel info failed: cudaError_t {err} "
+                           f"({dtype}, D={head_dim})")
+    return dict(route=ROUTES[out[0]], rows=out[1], keys=out[2],
+                stages=out[3], smem_bytes=out[4], registers=out[5],
+                local_bytes=out[6], static_smem_bytes=out[7],
+                max_threads=out[8])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -80,7 +142,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of CUDA tensors in ONE kernel launch: the contract of
     ``ref.attention_reference`` (q [B,H,S,D]; k, v [B,KV,S,D] -> [B,H,S,D]
     in q's dtype, with q's strides)."""
-    global LAUNCHES
+    global LAUNCHES, TENSOR_CORE_LAUNCHES, CUDA_CORE_LAUNCHES
     _check(q, k, v)
     B, H, S, D = q.shape
     if window is not None and window < 1:
@@ -92,6 +154,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = nvcc.load(SOURCE, _bind)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.arcadia_flash_attention(
@@ -99,10 +162,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], B, H, k.shape[1], S, D, int(causal),
             0 if window is None else int(window), float(scale),
-            0.0 if cap is None else float(cap), _DTYPES[q.dtype], stream)
+            0.0 if cap is None else float(cap), _DTYPES[q.dtype], stream,
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError_t {err} "
                            f"(B={B}, H={H}, KV={k.shape[1]}, S={S}, D={D}, "
-                           f"{q.dtype})")
+                           f"{q.dtype}, route {route.value})")
     LAUNCHES += 1
+    if ROUTES[route.value] == "tensor_cores":
+        TENSOR_CORE_LAUNCHES += 1
+    else:
+        CUDA_CORE_LAUNCHES += 1
     return out

@@ -125,6 +125,45 @@ def test_ops_routes_cpu_tensors_to_the_plain_version():
         fa.flash_attention_cuda(tq, tk, tv)        # the kernel takes no CPU
 
 
+def test_tile_plan_fits_a_block_for_every_input_the_kernel_takes():
+    """Every (dtype, head dim) the wrapper's check accepts (fp32 or bf16,
+    multiples of 4 up to 256) has a plan within the 232,448 bytes of
+    shared memory a Hopper block may use; bf16 at 64, 128 and 256 goes to
+    the tensor cores in 128-row blocks with a two-stage K/V ring, and fp32
+    always to the CUDA cores."""
+    assert fa.MAX_SMEM == 232448
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in range(4, fa.MAX_HEAD_DIM + 1, 4):
+            plan = fa.tile_plan(dtype, D)
+            assert 0 < plan.smem_bytes <= fa.MAX_SMEM, (dtype, D, plan)
+            tensor_cores = dtype == torch.bfloat16 and \
+                D in fa.TENSOR_CORE_HEAD_DIMS
+            assert plan.route == ("tensor_cores" if tensor_cores
+                                  else "cuda_cores"), (dtype, D)
+            if tensor_cores:
+                assert (plan.rows, plan.stages) == (128, 2)
+                assert plan.keys % 16 == 0 and plan.keys <= 256   # wgmma N
+            else:
+                assert (plan.rows, plan.keys, plan.stages) == (64, 64, 1)
+
+
+def test_serving_widths_go_to_the_tensor_cores():
+    """The dense GQA configs' head dims in bf16 (qwen2-7b, starcoder2-3b
+    and command-r-35b at 128, gemma2-9b at 256) and the kernel tests' 64
+    get the tensor-core plan; the same widths in fp32 do not."""
+    from repro_torch.configs import get_config
+
+    dims = {get_config(a).resolved_head_dim
+            for a in ("qwen2-7b", "starcoder2-3b", "command-r-35b",
+                      "gemma2-9b")}
+    assert dims == {128, 256}
+    for D in dims | {64}:
+        assert fa.tile_plan(torch.bfloat16, D).route == "tensor_cores"
+        assert fa.tile_plan(torch.float32, D).route == "cuda_cores"
+    assert fa.tile_plan(torch.bfloat16, 256).keys == 64      # 192 KB of tiles
+    assert fa.tile_plan(torch.bfloat16, 128).keys == 128     # 160 KB
+
+
 # ----------------------------- rotary tables ----------------------------- #
 
 def test_rope_matches_jax():

@@ -401,6 +401,123 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     assert fa.LAUNCHES == before
 
 
+# ------------------- flash attention on the tensor cores ------------------- #
+
+def check_route(route, q, k, v, **kw):
+    """check_flash, and the one launch went to ``route``'s kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    before = (fa.TENSOR_CORE_LAUNCHES, fa.CUDA_CORE_LAUNCHES)
+    check_flash(q, k, v, **kw)
+    moved = (fa.TENSOR_CORE_LAUNCHES - before[0],
+             fa.CUDA_CORE_LAUNCHES - before[1])
+    assert moved == ((1, 0) if route == "tensor_cores" else (0, 1)), moved
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_tensor_cores_head_dims(cuda_device, D):
+    check_route("tensor_cores", *attn_inputs(2, 4, 2, 192, D, torch.bfloat16,
+                                             D, cuda_device),
+                causal=True, cap=50.0)
+
+
+TC_MASKS = {"causal": dict(causal=True), "full": dict(causal=False),
+            "window128": dict(causal=True, window=128),
+            "window-below-a-tile": dict(causal=True, window=16),
+            "window64-cap30": dict(causal=True, window=64, cap=30.0),
+            "cap50": dict(causal=True, cap=50.0),
+            "noncausal-window": dict(causal=False, window=40, cap=20.0)}
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("kw", list(TC_MASKS.values()), ids=list(TC_MASKS))
+def test_flash_tensor_cores_mask_variants(cuda_device, D, kw):
+    """The fp32 mask variants' bf16 twins at the serving head dims: a
+    window of 16 lies below both key tiles (64 and 128), so some rows'
+    first tiles are wholly masked."""
+    check_route("tensor_cores", *attn_inputs(1, 4, 2, 256, D, torch.bfloat16,
+                                             7, cuda_device), **kw)
+
+
+@pytest.mark.parametrize("S", [1, 65, 200, 1000])
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_tensor_cores_ragged_lengths(cuda_device, S, D):
+    """Lengths that no 128-row block or 64/128-key tile divides: keys past
+    S weigh nothing and rows past S are not written."""
+    check_route("tensor_cores", *attn_inputs(1, 4, 2, S, D, torch.bfloat16,
+                                             S, cuda_device),
+                causal=True, window=100)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 4), (14, 2)],
+                         ids=["gqa1", "gqa2", "gqa7"])
+def test_flash_tensor_cores_gqa_ratios(cuda_device, H, KV):
+    check_route("tensor_cores", *attn_inputs(2, H, KV, 160, 128,
+                                             torch.bfloat16, H, cuda_device),
+                causal=True)
+
+
+def test_flash_tensor_cores_read_the_layers_strided_views(cuda_device):
+    """The layer's [B,S,H,D] projections go in as permuted views (their
+    tensor maps carry the strides), without a copy, and give the same bits
+    as contiguous inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    kw = dict(causal=True, window=100, cap=50.0)
+    q, k, v = attn_inputs(2, 16, 8, 300, 256, torch.bfloat16, 11, cuda_device)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    check_route("tensor_cores", qs, ks, vs, **kw)
+    a = fa.flash_attention_cuda(q, k, v, **kw)
+    b = fa.flash_attention_cuda(qs, ks, vs, **kw)
+    assert b.stride() == qs.stride()
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_flash_kernels_count_launches_per_route(cuda_device, fp32_exact):
+    """bf16 at 64, 128 and 256 with 16-byte aligned strides goes to the
+    tensor cores; fp32, bf16 at another head dim, and bf16 whose strides
+    are multiples of 4 elements but not of 8 go to the CUDA cores.
+    LAUNCHES counts both routes."""
+    def sliced(D, pad):
+        """q, k, v as [..., :D] slices of rows D + pad long."""
+        full = attn_inputs(1, 2, 1, 64, D + pad, torch.bfloat16, 5,
+                           cuda_device)
+        return tuple(t[..., :D] for t in full)
+
+    cases = [("tensor_cores", attn_inputs(1, 2, 1, 64, 128, torch.bfloat16,
+                                          1, cuda_device)),
+             ("tensor_cores", sliced(128, 8)),
+             ("cuda_cores", attn_inputs(1, 2, 1, 64, 128, torch.float32, 2,
+                                        cuda_device)),
+             ("cuda_cores", attn_inputs(1, 2, 1, 64, 96, torch.bfloat16, 3,
+                                        cuda_device)),
+             ("cuda_cores", sliced(128, 4))]
+    for route, (q, k, v) in cases:
+        check_route(route, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_kernel_info_matches_the_plan_and_nothing_spills(cuda_device,
+                                                               dtype):
+    """The kernel that serves each (dtype, head dim, softcap) reports the
+    host's tile plan and no local (spill) bytes."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    for D in (32, 64, 96, 128, 256):
+        plan = fa.tile_plan(dtype, D)
+        for capped in (False, True):
+            info = fa.kernel_info(dtype, D, capped)
+            assert (info["route"], info["rows"], info["keys"],
+                    info["stages"], info["smem_bytes"]) == \
+                (plan.route, plan.rows, plan.keys, plan.stages,
+                 plan.smem_bytes), (D, capped, info)
+            assert info["local_bytes"] == 0, (D, capped, info)
+            assert info["max_threads"] >= (384 if plan.route == "tensor_cores"
+                                           else 256)
+
+
 def test_gemma2_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
     """Reduced gemma2-9b (2 layers: local window 64, global; softcaps,
     post-norms), 2 x 160 tokens: prefill through the flash kernel (one
