@@ -4,34 +4,53 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
-Mamba2 SSD chunked scan and of forward flash attention from
-``src/repro_torch/csrc`` (one nvcc each, in parallel) and then, on the
-card:
+Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and of forward
+flash attention from ``src/repro_torch/csrc`` (one nvcc per source, in
+parallel) and then, on the card:
 
-  kernel        the kernel against its plain PyTorch version, bit-exact, at
-                every listed shape, with its median time, the plain
-                version's time and the HBM bound;
+  kernel        the hash against its plain PyTorch version, bit-exact, at
+                every listed shape, each on the route its row length picks
+                (one warp a row up to 4096 lanes, block chunks and atomics
+                above), with the wrapper's median time, the short-row
+                kernel's time alone (100 launches replayed from a CUDA
+                graph), the plain version's time and the HBM bound; and the
+                log's per-wave hash of a pinned (64, 259) matrix by host
+                clock, with the device operations it issues;
   main path     a replicated log (local primary + 2 backups, W = 2 of 3)
                 with a 1 GiB ring of 1 KiB records hashed by the kernel
                 (phash threshold 256 B), filled with batched appends until
                 the ring is full, reopened and replayed, then rebuilt by
                 quorum recovery from the two backups with the primary lost;
+                every hash launch of the three on the short-row kernel;
   default cfg   build_replica_set with the default 1 MiB threshold and 64
                 records of 1 MiB, reopened and verified;
   strict crash  the 16 MiB ring of 1 KiB records on a strict device,
                 crashed with keep probability 0.3 and reopened: every
                 durable-acked record must come back byte-exact;
-  ssd kernel    the SSD kernel against its plain version at every listed
-                shape (fp32 within 1e-4, bf16 within 5e-2), with its
-                median time, the plain version's time and its bound; in
-                fp32 both against a float64 recurrence, where at N = 128
-                the kernel may be no further from it than the plain one;
+  ssd kernel    the SSD kernels against their plain version at every
+                listed shape (fp32 within 1e-4, bf16 within 5e-2 and, per
+                (batch, head, chunk) block of y, within 2^-6 of the
+                block's largest value), each case on the route the table
+                names (bf16 at widths that are multiples of 16 and chunks
+                of 64·k on the tensor cores, also as the mixer's strided
+                views; the rest on the CUDA cores), with its median time,
+                the plain version's time and its bound; in fp32 both
+                against a float64 recurrence, where at N = 128 the kernel
+                may be no further from it than the plain one; at the
+                serving shape the scan of the second half alone and the
+                scan with decays twice as fast must fail the block check,
+                and the mixer's views and contiguous copies of them are
+                timed in turns on the same data: the scan alone (20
+                scans replayed from a CUDA graph), per call with the L2
+                flushed, the host's time to issue a call, and each of the
+                three launches' device time (torch.profiler);
   serving       mamba2-130m at full width from --seed, saved as a
                 checkpoint whose manifest commits through a replicated log
                 (2 backups, W = 2 of 3, phash threshold 256 B), the log
                 reopened and the params restored byte-exact, then 8
                 prompts of 4096 tokens prefilled (one SSD launch per
-                layer) and 32 greedy decode steps, with 4 teacher-forced
+                layer, on the tensor cores) and 32 greedy decode steps,
+                with 4 teacher-forced
                 decode steps held against the prefill logits;
   card vs cpu   the restored params in fp32, one 512-token prefill on the
                 card (kernel) and on the CPU (plain): logits within 2e-3
@@ -84,6 +103,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -156,8 +176,64 @@ def bound_ms(rows: int, lanes: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_alone_ms(fn, launches: int) -> float:
+    """Device time of one call of ``fn`` alone: ``launches`` back-to-back
+    calls captured in a CUDA graph (so no host time falls between them;
+    what they allocate comes from the graph's pool) and replayed between
+    CUDA events; the median of five replays, over ``launches``."""
+    fn()                                               # build, warm up
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(
+            graph, stream=side, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    torch.cuda.synchronize()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return float(np.median(times))
+
+
+def log_wave_hash(rows: int, lanes: int, calls: int = 200) -> dict:
+    """The log's per-wave hash (``core/log.py::_hash_lane_rows``) of a
+    pinned [rows, lanes] lane matrix, by host clock: the median call, and
+    the device operations one call issues (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import log as wal_mod
+
+    dev = torch.device(DEV)
+    host = wal_mod._lane_buffer(rows, lanes, dev)
+    host.numpy()[:] = np.random.default_rng(rows).integers(
+        -2 ** 31, 2 ** 31, (rows, lanes), dtype=np.int64).astype(np.int32)
+    want = wal_mod._hash_lane_rows(host, torch.device("cpu"))
+    if not np.array_equal(wal_mod._hash_lane_rows(host, dev), want):
+        raise AssertionError("the log's wave hash differs on the card")
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        wal_mod._hash_lane_rows(host, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wal_mod._hash_lane_rows(host, dev)
+    ops_ = [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+    return dict(host_ms=float(np.median(times)), device_ops=ops_)
+
+
 def kernel_phase(gen: torch.Generator, main_rows: int) -> dict:
-    from repro_torch.kernels.checksum import ops, ref
+    from repro_torch.kernels.checksum import checksum, ops, ref
 
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -176,22 +252,38 @@ def kernel_phase(gen: torch.Generator, main_rows: int) -> dict:
                   torch.full((4, 32769), -1, dtype=torch.int32, device=dev)))
     results = {}
     for name, mat in cases:
+        rows, lanes = mat.shape
+        route = checksum.route(lanes)
+        before = (checksum.SHORT_ROW_LAUNCHES, checksum.LONG_ROW_LAUNCHES)
         got = ops.tensor_checksum_batch(mat)
+        moved = (checksum.SHORT_ROW_LAUNCHES - before[0],
+                 checksum.LONG_ROW_LAUNCHES - before[1])
+        if moved != ((1, 0) if route == "short_rows" else (0, 1)):
+            raise AssertionError(f"{name}: launches {moved} (short, long "
+                                 f"rows), expected one on {route}")
         want = ref.checksum_lanes_2d(mat)
         err = int((got - want).abs().max())
         if err:
             raise AssertionError(f"{name}: kernel differs from plain version")
-        rows, lanes = mat.shape
         big = rows * lanes > (1 << 24)
         ms = timed_ms(lambda: ops.tensor_checksum_batch(mat), 20, flush)
+        alone = kernel_alone_ms(lambda: checksum.checksum_rows_cuda(mat),
+                                100) if route == "short_rows" else None
         plain = timed_ms(lambda: ref.checksum_lanes_2d(mat), 5 if big else 20,
                          flush)
         b, by = bound_ms(rows, lanes)
-        results[name] = dict(shape=[rows, lanes], max_abs_err=err, ms=ms,
-                             plain_ms=plain, bound_ms=b, bound_by=by)
-        log(f"kernel {name}: exact, {ms:.6f} ms, plain {plain:.6f} ms, "
-            f"bound {b:.6f} ms ({by})")
+        results[name] = dict(shape=[rows, lanes], route=route, max_abs_err=err,
+                             ms=ms, kernel_alone_ms=alone, plain_ms=plain,
+                             bound_ms=b, bound_by=by)
+        alone_txt = "" if alone is None else f"kernel alone {alone:.6f} ms, "
+        log(f"kernel {name} ({route}): exact, {alone_txt}wrapper {ms:.6f} ms, "
+            f"plain {plain:.6f} ms, bound {b:.6f} ms ({by})")
         del mat, got, want
+    wave = log_wave_hash(WAVE, 259)
+    results["log wave hash (64,259)"] = wave
+    log(f"kernel log wave hash (64, 259) from a pinned buffer: "
+        f"{wave['host_ms']:.6f} ms a call (host clock), device operations "
+        f"{wave['device_ops']}")
     singles = [("tensor(1GiB uint8)",
                 torch.randint(0, 256, (1 << 30,), dtype=torch.uint8,
                               device=dev, generator=gen)),
@@ -265,7 +357,8 @@ def main_path_phase(base: bytes) -> dict:
     out = {}
     try:
         wal = Log.create(primary, cfg, repl=group)
-        checksum.LAUNCHES = 0
+        checksum.LAUNCHES = checksum.SHORT_ROW_LAUNCHES = 0
+        checksum.LONG_ROW_LAUNCHES = 0
         t0 = time.perf_counter()
         acked, digest, i, n = 0, 0, 0, WAVE
         while True:
@@ -286,18 +379,20 @@ def main_path_phase(base: bytes) -> dict:
         group.drain()
         out["fill_s"] = time.perf_counter() - t0
         out["fill_launches"] = checksum.LAUNCHES
+        out["fill_short_row_launches"] = checksum.SHORT_ROW_LAUNCHES
         out["acked"] = acked
         log(f"main fill: {acked} records of {RECORD_BYTES} B acked (W=2 of 3) "
             f"in {out['fill_s']:.3f} s, {out['fill_launches']} kernel launches")
         if out["fill_launches"] < acked // WAVE:
             raise AssertionError("complete_batch did not go through the kernel")
 
-        checksum.LAUNCHES = 0
+        checksum.LAUNCHES = checksum.SHORT_ROW_LAUNCHES = 0
         t0 = time.perf_counter()
         reopened = Log.open(primary, LogConfig(capacity=RING_BYTES))
         got = replay(reopened)
         out["open_iter_s"] = time.perf_counter() - t0
         out["recovery_launches"] = checksum.LAUNCHES
+        out["recovery_short_row_launches"] = checksum.SHORT_ROW_LAUNCHES
         log(f"main reopen+replay: {got[0]} records in {out['open_iter_s']:.3f} s, "
             f"{out['recovery_launches']} kernel launches")
         if got != (acked, digest):
@@ -306,7 +401,7 @@ def main_path_phase(base: bytes) -> dict:
             raise AssertionError("recovery scan did not go through the kernel")
         del reopened
 
-        checksum.LAUNCHES = 0
+        checksum.LAUNCHES = checksum.SHORT_ROW_LAUNCHES = 0
         t0 = time.perf_counter()
         accs = [CopyAccessor.for_device(s.server_id, s.device) for s in servers]
         img, report = quorum_recover(accs, cfg, write_quorum=2,
@@ -314,6 +409,7 @@ def main_path_phase(base: bytes) -> dict:
         rebuilt = replay(Log.open(img, LogConfig(capacity=RING_BYTES)))
         out["rebuild_s"] = time.perf_counter() - t0
         out["rebuild_launches"] = checksum.LAUNCHES
+        out["rebuild_short_row_launches"] = checksum.SHORT_ROW_LAUNCHES
         log(f"main primary-lost rebuild: {rebuilt[0]} records from "
             f"{report.chosen}, epoch {report.old_epoch}->{report.new_epoch}, "
             f"repair bytes {report.repair_bytes}, in {out['rebuild_s']:.3f} s, "
@@ -322,6 +418,12 @@ def main_path_phase(base: bytes) -> dict:
             raise AssertionError(f"rebuild {rebuilt} != acked {(acked, digest)}")
         if out["rebuild_launches"] < 4:
             raise AssertionError("quorum recovery did not go through the kernel")
+        for part in ("fill", "recovery", "rebuild"):
+            if out[f"{part}_short_row_launches"] != out[f"{part}_launches"]:
+                raise AssertionError(
+                    f"{part}: {out[f'{part}_launches']} checksum launches, "
+                    f"{out[f'{part}_short_row_launches']} on the short-row "
+                    f"kernel (every 1 KiB record row must take it)")
     finally:
         group.shutdown()
     return out
@@ -404,18 +506,37 @@ def strict_crash_phase(base: bytes) -> dict:
 
 # ------------------------------ SSD kernel ------------------------------ #
 
-# (B, S, H, P, G, N, chunk): the shapes of tests/test_kernels.py, H=6 over
-# G=3 groups, one short chunk at mamba2-130m's head widths, and the
-# serving shape (8 prompts of 4096 tokens) in both dtypes
-SSD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32"),
-              ((1, 128, 2, 64, 1, 32, 32), "float32"),
-              ((2, 64, 4, 32, 4, 16, 64), "float32"),
-              ((1, 64, 2, 32, 1, 16, 16), "bfloat16"),
-              ((1, 96, 6, 16, 3, 8, 16), "float32"),
-              ((1, 100, 24, 64, 1, 128, 256), "float32"),
-              ((8, 4096, 24, 64, 1, 128, 256), "bfloat16"),
-              ((8, 4096, 24, 64, 1, 128, 256), "float32")]
+# (B, S, H, P, G, N, chunk), dtype, layout, route: the shapes of
+# tests/test_kernels.py, H=6 over G=3 groups, one short chunk at
+# mamba2-130m's head widths, and the serving shape (8 prompts of 4096
+# tokens) in both dtypes; the bf16 twins that the tensor-core kernel takes
+# (a chunk of 64, 3 groups, mamba2's widths in two chunks), and the serving
+# shape as the mixer passes it: views of one conv output (token stride
+# H·P + 2·G·N).  fp32, and bf16 at other widths, stay on the CUDA cores.
+TC, CC = "tensor_cores", "cuda_cores"
+SSD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32", "contiguous", CC),
+              ((1, 128, 2, 64, 1, 32, 32), "float32", "contiguous", CC),
+              ((2, 64, 4, 32, 4, 16, 64), "float32", "contiguous", CC),
+              ((2, 64, 4, 32, 4, 16, 64), "bfloat16", "contiguous", TC),
+              ((1, 64, 2, 32, 1, 16, 16), "bfloat16", "contiguous", CC),
+              ((1, 96, 6, 16, 3, 8, 16), "float32", "contiguous", CC),
+              ((1, 256, 6, 32, 3, 32, 64), "bfloat16", "contiguous", TC),
+              ((1, 100, 24, 64, 1, 128, 256), "float32", "contiguous", CC),
+              ((1, 100, 24, 64, 1, 128, 256), "bfloat16", "contiguous", CC),
+              ((1, 512, 24, 64, 1, 128, 256), "bfloat16", "contiguous", TC),
+              ((8, 4096, 24, 64, 1, 128, 256), "bfloat16", "contiguous", TC),
+              ((8, 4096, 24, 64, 1, 128, 256), "bfloat16", "mixer views", TC),
+              ((8, 4096, 24, 64, 1, 128, 256), "float32", "contiguous", CC)]
+SSD_SERVE = (8, 4096, 24, 64, 1, 128, 256)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
+# bf16, per (batch, head, chunk) block of y: max|kernel - plain| / max|plain|.
+# The elementwise 5e-2 is about a twentieth of a typical |y| (≈ 1), so it
+# cannot see a small error spread over a block.  The tensor-core kernel
+# rounds B·dt·decay, the score tile and h_prev to bf16 (2^-9 of each term)
+# and y itself; over up to 256 terms of either sign that reaches 2^-8 to
+# 2^-7 of a block's largest |y| (the CPU mirror of its passes,
+# tests/test_torch_ssd.py); 2^-6 leaves a factor of two.
+SSD_BLOCK_TOL = 2.0 ** -6
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 8, 4096, 32
 DEV = "cuda"
 # teacher-forced decode against prefill, bf16 logits below 1 in magnitude:
@@ -426,14 +547,16 @@ DEV = "cuda"
 TEACHER_TOL = {"init": 2e-2, "scan-dominated": 0.1}
 
 
-def ssd_inputs(shape, dtype, seed: int):
+def ssd_inputs(shape, dtype, seed: int, layout: str = "contiguous"):
     """Inputs on the card, drawn with numpy from ``seed``: those of
     tests/test_kernels.py, except that at mamba2-130m's head widths
     (N = 128) dt and A are drawn as the model initialises them (dt in
     [1e-3, 0.1], A = exp(A_log) in [1, 16]).  With the tests' dt range the
     chunk's cumulative decay nears -200 at Q = 256, where the fp32 plain
     version itself is 3e-4 to 1e-3 from a float64 recurrence (the float64
-    check is tests/test_torch_cuda.py's)."""
+    check is tests/test_torch_cuda.py's).  Layout "mixer views": xh, Bm and
+    Cm are views of one [B, S, H·P + 2·G·N] tensor, as the mixer's split of
+    its conv output gives them."""
     B, S, H, P, G, N, _ = shape
     rng = np.random.default_rng(seed)
     mixer = N == 128
@@ -444,9 +567,16 @@ def ssd_inputs(shape, dtype, seed: int):
     cast = getattr(torch, dtype)
     t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
         np.asarray(a, np.float32)).to(DEV).to(dt)
-    return (t(rng.standard_normal((B, S, H, P), np.float32), cast), t(dt),
-            t(a_log), t(rng.standard_normal((B, S, G, N), np.float32), cast),
-            t(rng.standard_normal((B, S, G, N), np.float32), cast))
+    xh, Bm, Cm = (t(rng.standard_normal((B, S, H, P), np.float32), cast),
+                  t(rng.standard_normal((B, S, G, N), np.float32), cast),
+                  t(rng.standard_normal((B, S, G, N), np.float32), cast))
+    if layout == "mixer views":
+        conv = torch.cat([xh.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
+                          Cm.reshape(B, S, G * N)], dim=-1)
+        xi, bv, cv = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+        xh, Bm, Cm = (xi.reshape(B, S, H, P), bv.reshape(B, S, G, N),
+                      cv.reshape(B, S, G, N))
+    return xh, t(dt), t(a_log), Bm, Cm
 
 
 def ssd_bound_ms(shape, dtype) -> tuple[float, str]:
@@ -467,15 +597,113 @@ def ssd_bound_ms(shape, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ssd_planted_faults(args, chunk: int, y_plain: torch.Tensor) -> dict:
+    """The per-block check must fail a wrong scan: the kernel on the second
+    half of the sequence alone (no state carried in) against the plain
+    version's second half of the whole, and the kernel given A_log + ln 2
+    (decays twice as fast).  Both run on the tensor cores."""
+    from repro_torch.kernels.ssd_scan import ops, ssd_scan
+
+    xh, dt, A_log, Bm, Cm = args
+    h = xh.shape[1] // 2
+    before = ssd_scan.TENSOR_CORE_LAUNCHES
+    half, _ = ops.ssd(xh[:, h:], dt[:, h:], A_log, Bm[:, h:], Cm[:, h:],
+                      chunk=chunk)
+    fast, _ = ops.ssd(xh, dt, A_log + float(np.log(2.0)), Bm, Cm, chunk=chunk)
+    if ssd_scan.TENSOR_CORE_LAUNCHES - before != 2:
+        raise AssertionError("the planted faults did not run on the tensor "
+                             "cores")
+    out = {"second half alone": block_err(half, y_plain[:, h:], chunk),
+           "A_log + ln 2": block_err(fast, y_plain, chunk)}
+    for name, err in out.items():
+        if not err > SSD_BLOCK_TOL:
+            raise AssertionError(f"SSD fault {name!r} passes the per-block "
+                                 f"check ({err:.3e} <= {SSD_BLOCK_TOL})")
+    return out
+
+
+def ssd_layouts(args, chunk: int, flush: torch.Tensor) -> dict:
+    """The mixer's views (``args``) against contiguous copies of them, on
+    the same data, in turns (views, contiguous, contiguous, views): the
+    scan alone (``kernel_alone_ms``, 20 scans), the wrapper per call with
+    the L2 flushed (``timed_ms``), the host's time to issue one call to an
+    idle card (median of 20), and each of the three launches' device time
+    (torch.profiler over 10 scans: each launch's mean over the launches
+    it recorded, and their counts; it can miss the first scans' launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import ops
+
+    xh, dt, A_log, Bm, Cm = args
+    layouts = {"mixer views": args,
+               "contiguous": (xh.contiguous(), dt, A_log, Bm.contiguous(),
+                              Cm.contiguous())}
+    out = {k: dict(alone_ms=[], wrapper_ms=[], issue_ms=[]) for k in layouts}
+    for name in ("mixer views", "contiguous", "contiguous", "mixer views"):
+        scan = lambda: ops.ssd(*layouts[name], chunk=chunk)  # noqa: E731
+        out[name]["alone_ms"].append(kernel_alone_ms(scan, 20))
+        out[name]["wrapper_ms"].append(timed_ms(scan, 10, flush))
+        issue = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scan()
+            issue.append((time.perf_counter() - t0) * 1e3)
+        out[name]["issue_ms"].append(float(np.median(issue)))
+    for name, a in layouts.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                ops.ssd(*a, chunk=chunk)
+            torch.cuda.synchronize()
+        launches = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+        if len(launches) != 3:
+            raise AssertionError(f"SSD {name}: the profiler saw "
+                                 f"{[e.key for e in launches]}, not the "
+                                 f"three launches")
+        kname = lambda e: re.search(  # noqa: E731
+            r"\w+_kernel(<[^>]*>)?", e.key).group(0)
+        out[name]["pass_ms"] = {kname(e): e.self_device_time_total
+                                / e.count / 1e3 for e in launches}
+        out[name]["pass_count"] = {kname(e): e.count for e in launches}
+    return out
+
+
+def block_err(got, want, chunk: int) -> float:
+    from repro_torch.kernels.ssd_scan import ref
+
+    return ref.chunk_block_rel_err(got, want, chunk)
+
+
 def ssd_kernel_phase(seed: int) -> dict:
-    from repro_torch.kernels.ssd_scan import ops, ref
+    """Each case: one scan on the route the table names (one launch count,
+    one on the route's count), held against the plain version elementwise
+    and, in bf16, per (batch, head, chunk) block; fp32 also against a
+    float64 recurrence; planted faults at the serving shape."""
+    from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     results = {}
-    for k, (shape, dtype) in enumerate(SSD_SHAPES):
-        args = ssd_inputs(shape, dtype, seed + k)
+    for k, (shape, dtype, layout, route) in enumerate(SSD_SHAPES):
+        args = ssd_inputs(shape, dtype, seed + k, layout)
         chunk = shape[-1]
+        name = f"ssd{shape} {dtype}" + ("" if layout == "contiguous"
+                                        else f" {layout}")
+        chosen = ssd_scan.route(args[0], args[3], args[4], chunk)
+        if chosen != route:
+            raise AssertionError(f"{name}: routed to {chosen}, expected "
+                                 f"{route}")
+        before = (ssd_scan.LAUNCHES, ssd_scan.TENSOR_CORE_LAUNCHES,
+                  ssd_scan.CUDA_CORE_LAUNCHES)
         y, st = ops.ssd(*args, chunk=chunk)
+        moved = (ssd_scan.LAUNCHES - before[0],
+                 ssd_scan.TENSOR_CORE_LAUNCHES - before[1],
+                 ssd_scan.CUDA_CORE_LAUNCHES - before[2])
+        if moved != ((1, 1, 0) if route == TC else (1, 0, 1)):
+            raise AssertionError(f"{name}: launches {moved} (all, tensor "
+                                 f"cores, CUDA cores), expected one on {route}")
         y_ref, st_ref = ref.ssd_reference(*args, chunk=chunk)
         torch.cuda.synchronize()
         tol = SSD_TOL[dtype]
@@ -483,12 +711,21 @@ def ssd_kernel_phase(seed: int) -> dict:
         for got, want in ((y, y_ref), (st, st_ref)):
             got, want = got.float(), want.float()
             if not torch.isfinite(got).all():
-                raise AssertionError(f"SSD {shape} {dtype}: non-finite output")
+                raise AssertionError(f"{name}: non-finite output")
             err = max(err, float((got - want).abs().max()))
             if not torch.allclose(got, want, atol=tol, rtol=tol):
                 raise AssertionError(
-                    f"SSD {shape} {dtype}: kernel differs from plain version "
+                    f"{name}: kernel differs from plain version "
                     f"by {float((got - want).abs().max())} (tolerance {tol})")
+        blk = faults = None
+        if dtype == "bfloat16":
+            blk = block_err(y, y_ref, chunk)
+            if not blk <= SSD_BLOCK_TOL:
+                raise AssertionError(f"{name}: a (batch, head, chunk) block "
+                                     f"of y is {blk:.3e} of its largest value "
+                                     f"off (tolerance {SSD_BLOCK_TOL})")
+            if shape == SSD_SERVE and layout == "contiguous":
+                faults = ssd_planted_faults(args, chunk, y_ref)
         err64 = {}
         if dtype == "float32":         # both versions against float64
             exact = ref.ssd_sequential_oracle(*(a.double() for a in args))
@@ -496,7 +733,7 @@ def ssd_kernel_phase(seed: int) -> dict:
                 err64[side] = max(float(((o.double() - e).abs()
                                          / (1 + e.abs())).max())
                                   for o, e in zip(outs, exact))
-            log(f"kernel ssd{shape} float32: max |err| / (1 + |exact|) "
+            log(f"kernel {name}: max |err| / (1 + |exact|) "
                 f"against float64, kernel {err64['kernel']:.3e}, plain "
                 f"{err64['plain']:.3e}")
             del exact
@@ -510,13 +747,26 @@ def ssd_kernel_phase(seed: int) -> dict:
         plain = timed_ms(lambda: ref.ssd_reference(*args, chunk=chunk),
                          3 if big else 20, flush)
         b, by = ssd_bound_ms(shape, dtype)
-        name = f"ssd{shape} {dtype}"
-        results[name] = dict(shape=list(shape), dtype=dtype, max_abs_err=err,
-                             tol=tol, ms=ms, plain_ms=plain, bound_ms=b,
-                             bound_by=by, err_from_float64=err64)
-        log(f"kernel {name}: max abs err {err:.3e} (within {tol} + "
-            f"{tol}·|plain|), {ms:.6f} ms, plain {plain:.6f} ms, "
-            f"bound {b:.6f} ms ({by})")
+        turns = ssd_layouts(args, chunk, flush) \
+            if layout == "mixer views" else None
+        results[name] = dict(shape=list(shape), dtype=dtype, layout=layout,
+                             route=route, max_abs_err=err, tol=tol,
+                             block_rel_err=blk, block_tol=SSD_BLOCK_TOL,
+                             planted_fault_block_rel_err=faults, ms=ms,
+                             plain_ms=plain, bound_ms=b, bound_by=by,
+                             err_from_float64=err64, layouts=turns)
+        blk_txt = "" if blk is None else f", block err {blk:.3e} (within " \
+            f"{SSD_BLOCK_TOL:.4g})"
+        fault_txt = "" if faults is None else "; planted faults: " + ", ".join(
+            f"{f} {e:.3e} of a block off" for f, e in faults.items())
+        log(f"kernel {name} ({route}): max abs err {err:.3e} (within {tol} + "
+            f"{tol}·|plain|){blk_txt}{fault_txt}; {ms:.6f} ms, plain "
+            f"{plain:.6f} ms, bound {b:.6f} ms ({by})")
+        for lay, t in (turns or {}).items():
+            log(f"kernel {name}, in turns as {lay}: alone {t['alone_ms']} "
+                f"ms, per call {t['wrapper_ms']} ms, issue {t['issue_ms']} "
+                f"ms (host), launches {t['pass_ms']} ms (device) of "
+                f"{t['pass_count']} recorded")
         del args, y, st, y_ref, st_ref
     torch.cuda.empty_cache()
     return results
@@ -553,7 +803,8 @@ def serving_phase(seed: int) -> dict:
     store = ReplicatedStore(stores, write_quorum=2)
     primary, _, group, log_cfg = replicated_deployment(1 << 20)
     checksum.LAUNCHES = 0
-    ssd_scan.LAUNCHES = 0
+    ssd_scan.LAUNCHES = ssd_scan.TENSOR_CORE_LAUNCHES = 0
+    ssd_scan.CUDA_CORE_LAUNCHES = 0
     try:
         wal = Log.create(primary, log_cfg, repl=group, device=DEV)
         t0 = time.perf_counter()
@@ -599,10 +850,14 @@ def serving_phase(seed: int) -> dict:
     served = M.cast_params(restored, cfg)
     res = serve.generate(served, cfg, prompts, SERVE_DECODE + 1)
     out["ssd_launches"] = ssd_scan.LAUNCHES
+    out["ssd_tensor_core_launches"] = ssd_scan.TENSOR_CORE_LAUNCHES
     out["checksum_launches"] = checksum.LAUNCHES
-    if out["ssd_launches"] != cfg.n_layers:
+    if out["ssd_launches"] != cfg.n_layers or \
+            ssd_scan.TENSOR_CORE_LAUNCHES != cfg.n_layers:
         raise AssertionError(f"prefill made {out['ssd_launches']} SSD "
-                             f"launches, expected {cfg.n_layers}")
+                             f"launches ({ssd_scan.TENSOR_CORE_LAUNCHES} on "
+                             f"the tensor cores), expected {cfg.n_layers} on "
+                             f"the tensor cores")
     logits = res.prefill_logits
     if tuple(logits.shape) != (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size) \
             or not torch.isfinite(logits).all():
@@ -622,7 +877,9 @@ def serving_phase(seed: int) -> dict:
         logits_abs_max=float(logits.float().abs().max()))
     log(f"serving prefill: {SERVE_BATCH} x {SERVE_PROMPT} tokens in "
         f"{out['prefill_ms']:.3f} ms ({out['prefill_tokens_per_s']:.1f} tok/s), "
-        f"{out['ssd_launches']} SSD launches; decode: {res.decode_steps} "
+        f"{out['ssd_launches']} SSD launches "
+        f"({out['ssd_tensor_core_launches']} on the tensor cores); decode: "
+        f"{res.decode_steps} "
         f"steps, {out['decode_ms_per_step']:.3f} ms/step "
         f"({out['decode_tokens_per_s']:.1f} tok/s)")
 
@@ -1277,7 +1534,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     t0 = time.perf_counter()
-    sources = [checksum.SOURCE, ssd_scan.SOURCE, flash_attention.SOURCE]
+    sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
+               flash_attention.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
@@ -1314,24 +1572,40 @@ def main() -> int:
     gemma_cpu = gemma2_card_vs_cpu_phase(args.seed)
 
     at = kern[f"batch({main_rows},259) 1GiB ring"]
+    main_launches = (main["fill_launches"] + main["recovery_launches"]
+                     + main["rebuild_launches"])
+    short = (main["fill_short_row_launches"]
+             + main["recovery_short_row_launches"]
+             + main["rebuild_short_row_launches"])
     kernels = [dict(
         name="checksum_rows", route="cuda",
         source="src/repro_torch/csrc/checksum.cu",
         replaces="src/repro/kernels/checksum/checksum.py:30",
-        launches=(main["fill_launches"] + main["recovery_launches"]
-                  + main["rebuild_launches"]),
-        max_abs_err=max(r["max_abs_err"] for r in kern.values()),
-        ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+        launches=main_launches,
+        launches_by_route={"short_rows": short,
+                           "long_rows": main_launches - short},
+        max_abs_err=max(r["max_abs_err"] for r in kern.values()
+                        if "max_abs_err" in r),
+        ms=at["kernel_alone_ms"], wrapper_ms=at["ms"],
+        plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
         bound_by=at["bound_by"], library_ms=None)]
-    serve_at = ssd[f"ssd({SERVE_BATCH}, {SERVE_PROMPT}, 24, 64, 1, 128, 256) "
-                   f"bfloat16"]
+    serve_at = ssd[f"ssd{SSD_SERVE} bfloat16 mixer views"]
+    turns = serve_at["layouts"]
     kernels.append(dict(
         name="ssd_scan", route="cuda",
-        source="src/repro_torch/csrc/ssd_scan.cu",
+        source="src/repro_torch/csrc/ssd_scan_tc.cu",
+        cuda_core_source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
         launches=serving["ssd_launches"],
+        launches_by_route={
+            "tensor_cores": serving["ssd_tensor_core_launches"],
+            "cuda_cores": (serving["ssd_launches"]
+                           - serving["ssd_tensor_core_launches"])},
         max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
-        ms=serve_at["ms"], plain_ms=serve_at["plain_ms"],
+        ms=float(np.median(turns["mixer views"]["alone_ms"])),
+        wrapper_ms=serve_at["ms"],
+        contiguous_ms=float(np.median(turns["contiguous"]["alone_ms"])),
+        plain_ms=serve_at["plain_ms"],
         bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
         library_ms=None))
     flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
@@ -1340,6 +1614,10 @@ def main() -> int:
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
         launches=gemma["flash_launches"],
+        launches_by_route={
+            "tensor_cores": gemma["flash_tensor_core_launches"],
+            "cuda_cores": (gemma["flash_launches"]
+                           - gemma["flash_tensor_core_launches"])},
         max_abs_err=max(r["max_abs_err"] for r in flash.values()),
         ms=flash_at["ms"], plain_ms=flash_at["plain_ms"],
         bound_ms=flash_at["bound_ms"], bound_by=flash_at["bound_by"],

@@ -199,8 +199,10 @@ def _lane_buffer(rows: int, lanes: int, device: torch.device) -> torch.Tensor:
 
 
 def _hash_lane_rows(host: torch.Tensor, device: torch.device) -> np.ndarray:
-    """Hash every row of a host lane matrix on ``device``: one copy and
-    one launch for the whole matrix.  Returns uint32 values."""
+    """Hash every row of a host lane matrix on ``device``: one copy in,
+    one launch and one copy out for the whole matrix (rows of 1 KiB
+    records take the short-row kernel, which writes the int64 values
+    itself).  Returns uint32 values."""
     mat = host if device.type == "cpu" else host.to(device, non_blocking=True)
     return tensor_checksum_batch(mat).cpu().numpy().astype(np.uint32)
 

@@ -11,8 +11,27 @@
 // the same value as the plain version in kernels/checksum/ref.py.
 //
 // What bounds it.  Each lane is read once and takes one multiply-add, so
-// the kernel is bound by HBM bytes: rows·lanes·4 B at 3.35 TB/s on an H100
-// SXM.  The design spends nothing else on memory:
+// the hash is bound by HBM bytes: rows·lanes·4 B (plus 8 B a row written)
+// at 3.35 TB/s on an H100 SXM.  Two kernels, chosen by the row length:
+//
+// Short rows (lanes <= kRowLanes = 4096: the log's 1 KiB records are 259
+// lanes, in every fill wave, recovery scan and rebuild):
+// `checksum_short_rows_kernel`, one warp per row, 8 rows a block.
+//   * Lane l of the warp reads lanes l, l + 32, l + 64, ... of its row:
+//     each load instruction of the warp reads 128 contiguous bytes, and 8
+//     of them are issued before the first is used.
+//   * Weights in registers: lane l starts from r^l, made by a 5-bit
+//     square-and-multiply over kRPow2[0..4] (the same table index on every
+//     lane, so each constant read is a broadcast), and steps by r^32 =
+//     kRPow2[5].
+//   * A shuffle sum ends the row and lane 0 writes out[row] as an int64 in
+//     [0, 2^32): no memset before, no atomics, no cast pass after.  One
+//     launch is the whole hash.
+//   The long-row kernel gives each such row a 256-thread block, so 253 of
+//   a block's threads would do one lane after a 32-step square-and-multiply.
+//
+// Long rows (1 MiB records, checkpoint shards, single tensors):
+// `checksum_rows_kernel`, a grid over (row, 4096-lane chunk):
 //   * one pass: the matrix is read once, coalesced (neighbouring threads
 //     read neighbouring lanes), and nothing is written but one 4-byte
 //     partial per block;
@@ -34,7 +53,7 @@
 //
 // Products and sums are uint32, which wrap mod 2^32 by definition.
 //
-// Built by kernels/checksum/checksum.py with
+// Built by kernels/nvcc.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (plain C interface below).
 
@@ -109,10 +128,53 @@ checksum_rows_kernel(const uint32_t* __restrict__ mat, uint32_t* __restrict__ ou
   }
 }
 
+// Rows of at most kRowLanes lanes: one warp a row (see the note above).
+constexpr int kRowLanes = 4096;
+static_assert(kRowLanes == kChunk, "a short row fits one long-row block chunk");
+constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kLoadsInFlight = 8;
+
+// r^l for a lane l < 32: kRPow2[k] is read at the same k on every lane.
+__device__ __forceinline__ uint32_t r_pow_lane(int l) {
+  uint32_t acc = 1u;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) acc *= ((l >> k) & 1) ? kRPow2[k] : 1u;
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+checksum_short_rows_kernel(const uint32_t* __restrict__ mat, long long* __restrict__ out,
+                           long long rows, int lanes) {
+  const long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;                   // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const uint32_t* src = mat + row * lanes;
+  const uint32_t step = kRPow2[5];           // r^32
+  uint32_t w = r_pow_lane(lane);
+  uint32_t acc = 0u;
+  int i = lane;
+  for (; i + 32 * (kLoadsInFlight - 1) < lanes; i += 32 * kLoadsInFlight) {
+    uint32_t v[kLoadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) v[u] = __ldg(src + i + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      acc += v[u] * w;
+      w *= step;
+    }
+  }
+  for (; i < lanes; i += 32) {
+    acc += __ldg(src + i) * w;
+    w *= step;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[row] = static_cast<long long>(acc);
+}
+
 }  // namespace
 
 // Hash every row of the contiguous [rows, lanes] uint32 matrix `mat` into
-// out[rows] (uint32, zeroed by the caller) on `stream`.  Launches one
+// out[rows] (uint32, zeroed by the caller) on `stream`: the long-row kernel.  Launches one
 // kernel, does not synchronise, and returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int arcadia_checksum_rows(const void* mat, void* out, long long rows,
@@ -125,3 +187,23 @@ extern "C" int arcadia_checksum_rows(const void* mat, void* out, long long rows,
       static_cast<const uint32_t*>(mat), static_cast<uint32_t*>(out), lanes, blocks_per_row);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Rows of at most kRowLanes lanes: hash every row of the contiguous [rows,
+// lanes] uint32 matrix `mat` into out[rows] (int64, written whole: the
+// caller need not initialise it) on `stream`.  Launches one kernel, does
+// not synchronise, and returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int arcadia_checksum_short_rows(const void* mat, void* out, long long rows,
+                                           int lanes, void* stream) {
+  if (rows <= 0) return 0;
+  if (lanes < 0 || lanes > kRowLanes) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  checksum_short_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(mat), static_cast<long long*>(out), rows, lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row length up to which arcadia_checksum_short_rows takes a row.
+extern "C" int arcadia_checksum_row_lanes() { return kRowLanes; }

@@ -6,7 +6,9 @@ raises.  Nothing falls back: a CUDA tensor never reaches the plain
 version, and a kernel that cannot build or launch raises.  Both routes
 are integer-identical (tests assert ==, it is an integer hash).
 
-The kernel's launch count is ``checksum.LAUNCHES``.
+The kernels' launch count is ``checksum.LAUNCHES``, and each route's
+``checksum.SHORT_ROW_LAUNCHES`` / ``checksum.LONG_ROW_LAUNCHES``
+(``checksum.route`` chooses by the row length).
 """
 
 from __future__ import annotations

@@ -1,13 +1,21 @@
 """Routing of the SSD scan by the tensors' device.
 
 CPU tensors go to the plain PyTorch version (``ref.py``), CUDA tensors to
-the hand-written kernel (``ssd_scan.py``), anything else raises.  Nothing
+the hand-written kernels (``ssd_scan.py``), anything else raises.  Nothing
 falls back: a CUDA tensor never reaches the plain version, and a kernel
 that cannot build or launch raises.
 
+On the card ``ssd_scan.route`` picks the kernel by dtype, shape and
+layout.  The tensor-core route reads xh, Bm and Cm through their strides
+(the mixer's views of its conv output go in as they are).  The CUDA-core
+route copies views to contiguous tensors for its kernel: that is the
+fp32 path, and bf16 views whose pointers or strides are not 16-byte
+aligned, which the router sends there.
+
 ``ssd_decode`` (one token) is plain PyTorch on either device: three small
-einsums, no kernel, as in the JAX package.  The kernel's launch count is
-``ssd_scan.LAUNCHES``.
+einsums, no kernel, as in the JAX package.  The kernels' launch counts
+are ``ssd_scan.LAUNCHES`` (one per scan) and each route's
+``ssd_scan.TENSOR_CORE_LAUNCHES`` / ``ssd_scan.CUDA_CORE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ from typing import Tuple
 import torch
 
 from . import ref
-from .ssd_scan import ssd_cuda
+from . import ssd_scan
 
 
 def ssd(xh, dt, A_log, Bm, Cm, chunk: int
@@ -28,9 +36,8 @@ def ssd(xh, dt, A_log, Bm, Cm, chunk: int
     if kind == "cpu":
         return ref.ssd_reference(xh, dt, A_log, Bm, Cm, chunk)
     if kind == "cuda":
-        return ssd_cuda(xh.contiguous(), dt.float().contiguous(),
-                        A_log.float().contiguous(), Bm.contiguous(),
-                        Cm.contiguous(), chunk)
+        return ssd_scan.ssd_cuda(xh, dt.float().contiguous(),
+                                 A_log.float().contiguous(), Bm, Cm, chunk)
     raise ValueError(f"no SSD route for device {xh.device}")
 
 

@@ -82,6 +82,79 @@ def ssd_reference(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return y.reshape(B_, S, H, P).to(xh.dtype), h
 
 
+def ssd_three_pass_reference(xh: torch.Tensor, dt: torch.Tensor,
+                             A_log: torch.Tensor, Bm: torch.Tensor,
+                             Cm: torch.Tensor, chunk: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernel's three passes (``csrc/ssd_scan_tc.cu``) in
+    plain PyTorch, rounding where the kernel rounds: what the tests hold
+    that design to on the CPU.  It is never on the main path.
+
+    1. chunk states: cum in fp64; B'_j = bf16(B_j · (dt_j · exp(cum_Q -
+       cum_j))) with the factor in fp32 (the fp64 difference rounded to fp32
+       once); S_c = Σ_j x_j ⊗ B'_j from bf16 values, summed in fp32;
+    2. state passing: h_prev[c] = bf16(h), h <- exp(cum_Q)·h + S_c in fp32;
+    3. chunk output: scores C_i·B_j summed in fp32, 0 where j > i (never the
+       exp), else times exp(cum_i - cum_j) and dt_j, rounded to bf16; y =
+       exp(cum_i)·(C_i·h_prev) + scores·x, rounded to xh's dtype.
+
+    Inputs are taken as bf16 values (xh, Bm, Cm are rounded to bf16 first,
+    as the kernel only takes bf16)."""
+    bf = torch.bfloat16
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc, rep = S // Q, H // G
+    x = xh.to(bf).to(F32).reshape(B_, nc, Q, H, P)
+    Bq = Bm.to(bf).to(F32).reshape(B_, nc, Q, G, N).repeat_interleave(rep, 3)
+    Cq = Cm.to(bf).to(F32).reshape(B_, nc, Q, G, N).repeat_interleave(rep, 3)
+    dt32 = dt.to(F32).reshape(B_, nc, Q, H)
+    A = -torch.exp(A_log.to(F32))
+    cum = torch.cumsum(A.double() * dt32.double(), dim=2)     # [B,nc,Q,H]
+    total = cum[:, :, -1:, :]
+
+    # 1. chunk states
+    w = dt32 * torch.exp((total - cum).to(F32))
+    Bs = (Bq * w[..., None]).to(bf).to(F32)
+    S_c = torch.einsum("bcqhn,bcqhp->bchpn", Bs, x)
+
+    # 2. state passing
+    h = torch.zeros(B_, H, P, N, dtype=F32, device=xh.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h.to(bf).to(F32))
+        h = torch.exp(total[:, c, 0].to(F32))[:, :, None, None] * h + S_c[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                       # [B,nc,H,P,N]
+
+    # 3. chunk output
+    scores = torch.einsum("bcihn,bcjhn->bchij", Cq, Bq)
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(F32)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
+                        0.0).permute(0, 1, 4, 2, 3)            # [B,nc,H,i,j]
+    dt_j = dt32.permute(0, 1, 3, 2)[:, :, :, None, :]
+    Pm = torch.where(tri, scores * decay * dt_j, 0.0).to(bf).to(F32)
+    inter = torch.einsum("bcihn,bchpn->bcihp", Cq, h_prev)
+    y = torch.exp(cum.to(F32))[..., None] * inter + \
+        torch.einsum("bchij,bcjhp->bcihp", Pm, x)
+    return y.reshape(B_, S, H, P).to(xh.dtype), h
+
+
+def chunk_block_rel_err(got: torch.Tensor, want: torch.Tensor,
+                        chunk: int) -> float:
+    """The per-block check of the bf16 scan: over each (batch, head, chunk)
+    block of y [B,S,H,P], max|got - want| / max|want|; the worst block."""
+    B_, S, H, P = want.shape
+    Q = min(chunk, S)
+    g = got.float().reshape(B_, S // Q, Q, H, P)
+    w = want.float().reshape(B_, S // Q, Q, H, P)
+    num = (g - w).abs().amax(dim=(2, 4))
+    den = w.abs().amax(dim=(2, 4)).clamp_min(torch.finfo(F32).tiny)
+    return float((num / den).max())
+
+
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     """fp32, or float64 for float64 inputs (the oracle of the kernels'
     accuracy checks)."""

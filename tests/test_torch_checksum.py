@@ -145,13 +145,74 @@ def test_routing_refuses_other_devices_and_the_kernel_refuses_cpu():
         tkernel.checksum_rows_cuda(torch.zeros((2, 2), dtype=torch.int32))
 
 
+def constant_tables(src: str) -> dict:
+    """Every ``__constant__`` array of a CUDA source: name -> values."""
+    return {name: [int(v.rstrip("u"), 16)
+                   for v in re.findall(r"0x[0-9A-Fa-f]+u", body)]
+            for name, body in re.findall(
+                r"__constant__\s+\w+\s+(\w+)\[\d+\]\s*=\s*\{([^}]*)\}",
+                src)}
+
+
 def test_kernel_weight_table_is_r_to_the_powers_of_two():
-    src = Path(tkernel.SOURCE).read_text()
-    body = re.search(r"kRPow2\[32\]\s*=\s*\{([^}]*)\}", src).group(1)
-    table = [int(v.rstrip("u"), 16) for v in re.findall(r"0x[0-9A-F]+u", body)]
+    """The constant tables of the kernels' sources: the hash's one table
+    kRPow2 holds r^(2^k), the short-row kernel's lane weights r^l (a 5-bit
+    square-and-multiply over its first five entries) and its step r^32
+    (its sixth) come out right, and the SSD sources hold no table."""
+    tables = constant_tables(Path(tkernel.SOURCE).read_text())
+    assert list(tables) == ["kRPow2"]
+    table = tables["kRPow2"]
     assert table == [pow(R, 1 << k, 1 << 32) for k in range(32)]
     # bits of a lane index above 27 multiply by 1: any index is exact
     assert all(v == 1 for v in table[28:])
+    for lane in range(32):
+        w = 1
+        for k in range(5):
+            w = w * (table[k] if (lane >> k) & 1 else 1) & 0xFFFFFFFF
+        assert w == pow(R, lane, 1 << 32)
+    assert table[5] == pow(R, 32, 1 << 32)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    for src in (ssd_scan.SOURCE, ssd_scan.TC_SOURCE):
+        assert "__constant__" not in Path(src).read_text()
+
+
+def short_row_hash(row) -> int:
+    """The short-row kernel's arithmetic in Python integers: lane l of the
+    warp takes elements l, l + 32, ... weighted from r^l by steps of r^32,
+    and the 32 lanes' sums are added."""
+    total = 0
+    r32 = pow(R, 32, 1 << 32)
+    for lane in range(32):
+        w, acc = pow(R, lane, 1 << 32), 0
+        for i in range(lane, len(row), 32):
+            acc = (acc + int(row[i]) * w) & 0xFFFFFFFF
+            w = w * r32 & 0xFFFFFFFF
+        total = (total + acc) & 0xFFFFFFFF
+    return total
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 259, 4096])
+def test_short_row_weights_give_the_hash(lanes):
+    rng = np.random.default_rng(lanes + 5)
+    row = rng.integers(0, 2 ** 32, size=lanes, dtype=np.uint32)
+    assert short_row_hash(row) == exact_hash(row) == \
+        int(tops.tensor_checksum_batch(torch.from_numpy(row[None]))[0])
+
+
+@pytest.mark.parametrize("lanes,want", [
+    (0, "short_rows"), (1, "short_rows"), (259, "short_rows"),
+    (4096, "short_rows"), (4097, "long_rows"), (32769, "long_rows"),
+    (262147, "long_rows")])
+def test_route_by_row_length(lanes, want):
+    """1 KiB records (259 lanes with the seed) take one warp a row; 1 MiB
+    records, checkpoint shards and single tensors the block-chunk kernel."""
+    assert tkernel.route(lanes) == want
+
+
+def test_short_row_limit_is_the_sources():
+    src = Path(tkernel.SOURCE).read_text()
+    assert int(re.search(r"constexpr int kRowLanes = (\d+);", src).group(1)) \
+        == tkernel.ROW_LANES >= 4096
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 10), (1, 41), (3, 48)])

@@ -551,3 +551,206 @@ def test_gemma2_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
         torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
         assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
     assert fa.LAUNCHES == before + cfg.n_layers       # decode: no kernel
+
+
+# ------------------- the hash's short rows: one warp a row ------------------ #
+
+def lane_matrix(rows, lanes, device, seed=0):
+    rng = np.random.default_rng(seed * 7919 + rows * 31 + lanes)
+    mat = rng.integers(0, 2 ** 32, size=(rows, lanes), dtype=np.uint32)
+    mat[0, lanes // 2:] = 0                       # a zero-padded row
+    return torch.from_numpy(mat.view(np.int32)).to(device)
+
+
+def hash_launches():
+    return (checksum.LAUNCHES, checksum.SHORT_ROW_LAUNCHES,
+            checksum.LONG_ROW_LAUNCHES)
+
+
+@pytest.mark.parametrize("rows,lanes", [(1, 1), (7, 31), (9, 33), (64, 259),
+                                        (1000, 259), (3, 4096)])
+def test_short_row_kernel_matches_plain_version(cuda_device, rows, lanes):
+    t = lane_matrix(rows, lanes, cuda_device)
+    before = hash_launches()
+    got = ops.tensor_checksum_batch(t)
+    assert tuple(a - b for a, b in zip(hash_launches(), before)) == (1, 1, 0)
+    assert got.dtype == torch.int64 and got.device == t.device
+    assert torch.equal(got.cpu(), ref.checksum_lanes_2d(t.cpu()))
+
+
+@pytest.mark.parametrize("lanes", [4097, 32769])
+def test_long_rows_keep_the_block_chunk_kernel(cuda_device, lanes):
+    t = lane_matrix(3, lanes, cuda_device)
+    before = hash_launches()
+    got = ops.tensor_checksum_batch(t)
+    assert tuple(a - b for a, b in zip(hash_launches(), before)) == (1, 0, 1)
+    assert torch.equal(got.cpu(), ref.checksum_lanes_2d(t.cpu()))
+
+
+def test_log_waves_and_recovery_take_the_short_row_kernel(cuda_device):
+    """1 KiB records on the card: each wave's hash and the recovery scan
+    are one short-row launch each."""
+    cap = 1 << 18
+    dev = PMEMDevice(device_size(cap), mode="fast")
+    wal = Log.create(dev, LogConfig(capacity=cap, phash_threshold=256),
+                     device=cuda_device)
+    waves = [[bytes([w + i]) * 1024 for i in range(64)] for w in range(3)]
+    before = hash_launches()
+    for wave in waves:
+        wal.append_batch(wave)
+    relog = Log.open(dev, LogConfig(capacity=cap), device=cuda_device)
+    got = [p for _, p in relog.iter_records()]
+    moved = tuple(a - b for a, b in zip(hash_launches(), before))
+    assert moved[0] == moved[1] >= 3 + 1 and moved[2] == 0, moved
+    assert got == [p for w in waves for p in w]
+
+
+# ------------------- the SSD scan on the tensor cores ------------------- #
+
+SSD_BLOCK_TOL = 2.0 ** -6       # per (batch, head, chunk) block of y, bf16
+
+
+def ssd_launches():
+    return (ssd_scan.LAUNCHES, ssd_scan.TENSOR_CORE_LAUNCHES,
+            ssd_scan.CUDA_CORE_LAUNCHES)
+
+
+# bf16 shapes the tensor-core kernel takes: a chunk of 64, H=6 over G=3
+# groups, P 96 / N 48, P 16 / N 256 (the widest state), P 128 (its widest
+# head), and mamba2-130m's widths in two chunks of 256
+TC_SHAPES = [(2, 64, 4, 32, 4, 16, 64), (1, 256, 6, 32, 3, 32, 64),
+             (1, 128, 2, 96, 1, 48, 128), (1, 128, 2, 16, 1, 256, 64),
+             (1, 256, 2, 128, 1, 64, 128), (2, 512, 24, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", TC_SHAPES)
+def test_ssd_tensor_cores_match_plain_and_the_mirror(cuda_device, fp32_exact,
+                                                     B, S, H, P, G, N, chunk):
+    """One launch on the tensor-core route.  Against the CPU mirror of its
+    three passes, which rounds at the same places and differs only in the
+    order of its sums: y within 5e-2 elementwise and 2^-7 per block, the
+    state within 2e-3 (the two fp64 decay sums can differ in their last
+    bit, which can move a B·dt·decay across a bf16 rounding: a spacing of
+    2^-8 of one term).  Against the plain version: y within 2^-6 per
+    block, the state within 5e-2, and y within 5e-2 elementwise at
+    mamba2's draw (N = 128).  With the tests' dt draw at N = 256 or P =
+    128, |y| reaches 70 to 80 and one element in 10^4 to 10^5 lies near 0,
+    where the bf16 rounding of the score tile (about 2^-8 of the block's
+    largest |y|) exceeds 5e-2 of it: the mirror misses the same element
+    by 0.25 on the CPU."""
+    args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, S + H, cuda_device,
+                      mixer=N == 128)
+    before = ssd_launches()
+    y, st = ssd_ops.ssd(*args, chunk=chunk)
+    assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (1, 1, 0)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    y_m, st_m = ssd_ref.ssd_three_pass_reference(*(a.cpu() for a in args),
+                                                 chunk=chunk)
+    torch.testing.assert_close(y.cpu().float(), y_m.float(), atol=5e-2,
+                               rtol=5e-2)
+    assert ssd_ref.chunk_block_rel_err(y.cpu(), y_m, chunk) <= 2.0 ** -7
+    torch.testing.assert_close(st.cpu(), st_m, atol=2e-3, rtol=2e-3)
+    y_ref, st_ref = ssd_ref.ssd_reference(*args, chunk=chunk)
+    assert ssd_ref.chunk_block_rel_err(y, y_ref, chunk) <= SSD_BLOCK_TOL
+    torch.testing.assert_close(st, st_ref, atol=5e-2, rtol=5e-2)
+    if N == 128:
+        torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2,
+                                   rtol=5e-2)
+
+
+def mixer_views(B, S, H, P, G, N, device, pad=0, seed=0):
+    """bf16 xh, Bm and Cm as views of one [B, S, H·P + 2·G·N + pad] conv
+    output, as models/layers.py's mixer passes them."""
+    width = H * P + 2 * G * N
+    gen = torch.Generator(device=device).manual_seed(seed)
+    conv = torch.randn(B, S, width + pad, device=device,
+                       generator=gen).to(torch.bfloat16)
+    xi, bv, cv = torch.split(conv[..., :width], [H * P, G * N, G * N], dim=-1)
+    return (xi.reshape(B, S, H, P), bv.reshape(B, S, G, N),
+            cv.reshape(B, S, G, N))
+
+
+def test_ssd_tensor_cores_read_the_mixers_views(cuda_device):
+    """The mixer's strided views go in without a copy and give the same
+    bits as contiguous copies of them."""
+    B, S, H, P, G, N = 2, 512, 24, 64, 1, 128
+    xh, Bm, Cm = mixer_views(B, S, H, P, G, N, cuda_device)
+    _, dt, A, _, _ = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, 3,
+                                cuda_device, mixer=True)
+    assert not xh.is_contiguous() and xh.stride(1) == H * P + 2 * G * N
+    before = ssd_launches()
+    a = ssd_ops.ssd(xh, dt, A, Bm, Cm, chunk=256)
+    b = ssd_ops.ssd(xh.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(),
+                    chunk=256)
+    assert tuple(x - y for x, y in zip(ssd_launches(), before)) == (2, 2, 0)
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, atol=0, rtol=0)
+
+
+def test_ssd_misaligned_views_go_to_the_cuda_cores(cuda_device, fp32_exact):
+    """A token stride that is not a multiple of 8 elements: the router
+    sends the views to the CUDA-core kernel, whose route gives it
+    contiguous copies."""
+    B, S, H, P, G, N = 1, 256, 4, 64, 1, 128
+    xh, Bm, Cm = mixer_views(B, S, H, P, G, N, cuda_device, pad=1)
+    _, dt, A, _, _ = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, 4,
+                                cuda_device, mixer=True)
+    assert ssd_scan.route(xh, Bm, Cm, 256) == "cuda_cores"
+    before = ssd_launches()
+    y, st = ssd_ops.ssd(xh, dt, A, Bm, Cm, chunk=256)
+    assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (1, 0, 1)
+    y_ref, st_ref = ssd_ref.ssd_reference(xh, dt, A, Bm, Cm, chunk=256)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
+    assert ssd_ref.chunk_block_rel_err(y, y_ref, 256) <= SSD_BLOCK_TOL
+
+
+def test_ssd_block_check_fails_planted_faults(cuda_device):
+    """On the tensor cores at mamba2's widths: the second half of the
+    sequence scanned alone, and A_log + ln 2, each miss the plain version
+    by more than 8 × 2^-6 in some (batch, head, chunk) block."""
+    B, S, H, P, G, N, Q = 1, 1024, 24, 64, 1, 128, 256
+    xh, dt, A, Bm, Cm = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, 9,
+                                   cuda_device, mixer=True)
+    y_ref, _ = ssd_ref.ssd_reference(xh, dt, A, Bm, Cm, chunk=Q)
+    h = S // 2
+    before = ssd_launches()
+    half, _ = ssd_ops.ssd(xh[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:],
+                          chunk=Q)
+    fast, _ = ssd_ops.ssd(xh, dt, A + float(np.log(2.0)), Bm, Cm, chunk=Q)
+    assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (2, 2, 0)
+    assert ssd_ref.chunk_block_rel_err(half, y_ref[:, h:], Q) > \
+        8 * SSD_BLOCK_TOL
+    assert ssd_ref.chunk_block_rel_err(fast, y_ref, Q) > 8 * SSD_BLOCK_TOL
+
+
+def test_ssd_tensor_core_plan_matches_the_host(cuda_device):
+    for P, N, Q in ((64, 128, 256), (16, 256, 64), (128, 256, 2048),
+                    (96, 48, 128), (128, 256, 256)):
+        assert ssd_scan.tc_kernel_plan(P, N, Q) == ssd_scan.tc_plan(P, N, Q)
+
+
+def test_mamba2_prefill_scans_on_the_tensor_cores(cuda_device):
+    """mamba2-130m at full width cut to 2 layers, bf16: each layer's scan
+    of a 2 x 512 prefill takes the tensor-core route, and the logits are
+    finite and agree in their greedy tokens with the fp32 prefill (CUDA
+    cores) of the same params at most positions."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = replace(get_config("mamba2-130m"), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 512))).to(cuda_device)
+    before = ssd_launches()
+    got, _ = M.serve_step(M.cast_params(params, cfg), cfg, {"tokens": toks},
+                          None, None)
+    assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (2, 2, 0)
+    assert torch.isfinite(got.float()).all()
+    f32 = replace(cfg, compute_dtype="float32")
+    want, _ = M.serve_step(params, f32, {"tokens": toks}, None, None)
+    assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (4, 2, 2)
+    agree = (got.float().argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) >= 0.9

@@ -68,7 +68,14 @@ def assert_same_log(jdev, jlog, tdev, tl):
     assert stats(tdev) == stats(jdev)
     assert rec_shape(tl) == rec_shape(jlog)
     assert tl.force_vns_total == jlog.force_vns_total
-    assert tl.stats() == jlog.stats()
+    # depth_bdp is AckRateEstimator.bdp_rounds(): a ratio of two
+    # time.monotonic() averages, so it is held to its range on each side;
+    # every other field must be equal
+    port, ref = tl.stats(), jlog.stats()
+    for side in (port, ref):
+        bdp = side.pop("depth_bdp")
+        assert bdp is None or bdp >= 1
+    assert port == ref
 
 
 @pytest.mark.parametrize("threshold", [None, 256])

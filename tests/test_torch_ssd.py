@@ -11,6 +11,8 @@ are each 3e-4 to 1e-3 (about 1e-4 of |y|) from a float64 recurrence, so
 holds the CUDA kernel to a float64 recurrence at that range.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 from repro.kernels.ssd_scan import ref as jref
 from repro.kernels.ssd_scan.ssd_scan import ssd_pallas
 from repro_torch.kernels.ssd_scan import ops, ref
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
@@ -244,3 +247,158 @@ def test_build_failure_raises(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             nvcc.build(s)
     assert not any((tmp_path / "build").glob("*.so"))
+
+
+# ------------- the tensor-core route: its design and its router ------------- #
+
+# per (batch, head, chunk) block of y: max|got - want| / max|want|.  The
+# tensor-core kernel rounds B' = B·dt·exp(cum_Q - cum), the score tile and
+# h_prev to bf16 (2^-9 of each term) besides y itself; summed over up to
+# Q = 256 terms of either sign the errors reach 2^-8 to 2^-7 of a block's
+# largest |y| (0.0056 to 0.0077 below); 2^-6 leaves a factor of two
+BLOCK_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("shape", KERNEL_SHAPES,
+                         ids=["x".join(map(str, s)) for s in KERNEL_SHAPES])
+def test_three_pass_mirror_matches_jax_and_pallas(shape):
+    """The kernel's design in plain PyTorch (three passes, rounding where
+    the kernel rounds) against the JAX package's reference and its Pallas
+    kernel in interpret mode, in bf16: within tests/test_kernels.py's 5e-2
+    and within BLOCK_TOL per block."""
+    *dims, chunk = shape
+    args = inputs(*dims, seed=dims[1] + 3 * dims[2])
+    y, st = ref.ssd_three_pass_reference(*to_torch(args, torch.bfloat16),
+                                         chunk=chunk)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    wants = (jref.ssd_reference(*to_jax(args, jnp.bfloat16), chunk=chunk),
+             ssd_pallas(*to_jax(args, jnp.bfloat16), chunk=chunk,
+                        interpret=True))
+    for y_w, st_w in wants:
+        assert_close(y, y_w, BF16_TOL)
+        assert_close(st, st_w, BF16_TOL)
+        assert ref.chunk_block_rel_err(y, torch.from_numpy(f32(y_w)),
+                                       chunk) <= BLOCK_TOL
+
+
+def test_three_pass_mirror_near_float64_at_mamba2_widths():
+    """At mamba2-130m's head widths (N = 128, Q = 256), dt and A drawn as
+    the model initialises them: the mirror, like the plain version, is
+    within BLOCK_TOL per block of the float64 recurrence on the same bf16
+    values, and within 5e-2 elementwise (y and state)."""
+    *dims, chunk = MAMBA2_SHAPE
+    args = to_torch(inputs(*dims, seed=17, mixer=True), torch.bfloat16)
+    y, st = ref.ssd_three_pass_reference(*args, chunk=chunk)
+    y_plain, _ = ref.ssd_reference(*args, chunk=chunk)
+    y_exact, st_exact = ref.ssd_sequential_oracle(*(a.double() for a in args))
+    assert ref.chunk_block_rel_err(y, y_exact, chunk) <= BLOCK_TOL
+    assert ref.chunk_block_rel_err(y_plain, y_exact, chunk) <= BLOCK_TOL
+    torch.testing.assert_close(y.double(), y_exact, **BF16_TOL)
+    torch.testing.assert_close(st.double(), st_exact, **BF16_TOL)
+
+
+def test_block_check_fails_planted_faults():
+    """The card's per-block check can fail a wrong scan: with the mirror
+    in the kernel's place at mamba2's widths, the second half of the
+    sequence scanned alone (the state not carried in) and A_log + ln 2
+    (decays twice as fast) each miss the plain version by more than
+    8 × BLOCK_TOL in some block (about 0.5 and 0.4 of a block's largest
+    |y|), while the mirror itself stays within BLOCK_TOL."""
+    B, S, H, P, G, N, Q = 1, 1024, 24, 64, 1, 128, 256
+    xh, dt, A_log, Bm, Cm = to_torch(inputs(B, S, H, P, G, N, seed=23,
+                                            mixer=True), torch.bfloat16)
+    y_plain, _ = ref.ssd_reference(xh, dt, A_log, Bm, Cm, chunk=Q)
+    y, _ = ref.ssd_three_pass_reference(xh, dt, A_log, Bm, Cm, chunk=Q)
+    assert ref.chunk_block_rel_err(y, y_plain, Q) <= BLOCK_TOL
+    h = S // 2
+    y_half, _ = ref.ssd_three_pass_reference(xh[:, h:], dt[:, h:], A_log,
+                                             Bm[:, h:], Cm[:, h:], chunk=Q)
+    assert ref.chunk_block_rel_err(y_half, y_plain[:, h:], Q) > 8 * BLOCK_TOL
+    y_fast, _ = ref.ssd_three_pass_reference(xh, dt, A_log + np.log(2.0), Bm,
+                                             Cm, chunk=Q)
+    assert ref.chunk_block_rel_err(y_fast, y_plain, Q) > 8 * BLOCK_TOL
+
+
+def mixer_views(B, S, H, P, G, N, dtype=torch.bfloat16, pad=0, skip=0):
+    """xh, Bm and Cm as models/layers.py's ssm_mixer passes them: views of
+    one [B, S, H·P + 2·G·N] conv output; ``pad`` widens its rows and
+    ``skip`` starts the views that many elements in."""
+    width = H * P + 2 * G * N
+    conv = torch.zeros(B, S, width + pad + skip, dtype=dtype)[..., skip:]
+    xi, Bm, Cm = torch.split(conv[..., :width], [H * P, G * N, G * N], dim=-1)
+    return (xi.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+            Cm.reshape(B, S, G, N))
+
+
+def contiguous(B, S, H, P, G, N, dtype=torch.bfloat16):
+    return (torch.zeros(B, S, H, P, dtype=dtype),
+            torch.zeros(B, S, G, N, dtype=dtype),
+            torch.zeros(B, S, G, N, dtype=dtype))
+
+
+ROUTE_CASES = {
+    # mamba2-130m's serving widths, contiguous and as the mixer's views
+    "mamba2 bf16": (contiguous(1, 512, 24, 64, 1, 128), 256, "tensor_cores"),
+    "mamba2 bf16 mixer views": (mixer_views(2, 512, 24, 64, 1, 128), 256,
+                                "tensor_cores"),
+    "mamba2 fp32": (contiguous(1, 512, 24, 64, 1, 128, torch.float32), 256,
+                    "cuda_cores"),
+    "mamba2 fp32 mixer views": (mixer_views(1, 512, 24, 64, 1, 128,
+                                            torch.float32), 256, "cuda_cores"),
+    # a token stride that is not a multiple of 8 elements, a view that
+    # starts 8 bytes into its storage: not 16-byte aligned for cp.async
+    "views, token stride 1793": (mixer_views(1, 512, 24, 64, 1, 128, pad=1),
+                                 256, "cuda_cores"),
+    "views, 8-byte offset": (mixer_views(1, 512, 24, 64, 1, 128, skip=4), 256,
+                             "cuda_cores"),
+    "grouped H6 G3": (contiguous(1, 256, 6, 32, 3, 32), 64, "tensor_cores"),
+    "P 96 N 48": (contiguous(1, 128, 2, 96, 1, 48), 128, "tensor_cores"),
+    "P 16 N 256": (contiguous(1, 128, 2, 16, 1, 256), 64, "tensor_cores"),
+    "P 40": (contiguous(1, 128, 2, 40, 1, 32), 64, "cuda_cores"),
+    "P 144": (contiguous(1, 128, 2, 144, 1, 32), 64, "cuda_cores"),
+    "N 8": (contiguous(1, 128, 2, 32, 1, 8), 64, "cuda_cores"),
+    "N 272": (contiguous(1, 128, 2, 32, 1, 272), 64, "cuda_cores"),
+    "chunk 32": (contiguous(1, 128, 2, 64, 1, 128), 32, "cuda_cores"),
+    "S 100 under a chunk of 256": (contiguous(1, 100, 2, 64, 1, 128), 256,
+                                   "cuda_cores"),
+    "S 128 under a chunk of 256": (contiguous(1, 128, 2, 64, 1, 128), 256,
+                                   "tensor_cores"),
+    "reduced mamba2 (P 16, N 32, chunk 32)": (contiguous(2, 64, 4, 16, 2, 32),
+                                              32, "cuda_cores"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES), ids=list(ROUTE_CASES))
+def test_route_by_dtype_shape_and_layout(case):
+    (xh, Bm, Cm), chunk, want = ROUTE_CASES[case]
+    assert ssd_kernel.route(xh, Bm, Cm, chunk) == want
+
+
+def test_route_refuses_mixed_dtypes_to_the_tensor_cores():
+    xh, Bm, Cm = contiguous(1, 256, 4, 64, 1, 128)
+    assert ssd_kernel.route(xh, Bm.float(), Cm, 256) == "cuda_cores"
+    assert ssd_kernel.route(xh, Bm, Cm.float(), 256) == "cuda_cores"
+
+
+def test_tensor_core_plan_fits_and_matches_the_source():
+    """Every (P, N) the router sends to the tensor cores fits the 227 KB a
+    block may use at chunks up to 2048, and the wrapper's constants are
+    the source's."""
+    src = ssd_kernel.TC_SOURCE.read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kTile"], consts["kPad"], consts["kMaxP"],
+            consts["kMaxN"], consts["kMaxSmem"], consts["kMaxGridYZ"]) == \
+        (ssd_kernel.ROW_TILE, ssd_kernel.PAD, ssd_kernel.MAX_P,
+         ssd_kernel.MAX_N, ssd_kernel.MAX_SMEM, ssd_kernel.MAX_GRID_YZ)
+    for P in range(16, ssd_kernel.MAX_P + 1, 16):
+        for N in range(16, ssd_kernel.MAX_N + 1, 16):
+            for Q in (64, 256, 2048):
+                state, scan, rows = ssd_kernel.tc_plan(P, N, Q)
+                assert max(state, scan) <= ssd_kernel.MAX_SMEM, (P, N, Q)
+                assert rows in (64, 128) and Q % rows == 0
+    # mamba2-130m: 56,448 and 108,544 bytes, chunk-output blocks of 128
+    # rows, two of them an SM
+    assert ssd_kernel.tc_plan(64, 128, 256) == (56448, 108544, 128)
+    # the widest head and state at a chunk of 2048: 64-row blocks fit
+    assert ssd_kernel.tc_plan(128, 256, 2048)[2] == 64
