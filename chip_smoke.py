@@ -22,6 +22,28 @@ parallel) and then, on the card:
                 the ring is full, reopened and replayed, then rebuilt by
                 quorum recovery from the two backups with the primary lost;
                 every hash launch of the three on the short-row kernel;
+  health        on the same live ring: seeded bit rot in the payloads of
+                48 records on node1 and 16 on node0 and in the LSN word of
+                8 headers on node2, then one unbudgeted scrub pass over the
+                three copies, which must find exactly the records whose
+                bytes changed, repair every one from a clean copy and
+                validate on the short-row kernel only (one launch a copy,
+                one a repair); a second pass must be clean and the primary
+                must replay every acked record;
+  trim+resync   trim through LogLifecycle to the newest eighth, node2
+                killed mid-wire, an eighth of the ring (128 MiB) appended
+                at W = 2, node2 rejoined by the online resync: its image
+                must equal the primary's byte for byte, and quorum
+                recovery from node1 + node2 must replay every live acked
+                record;
+  router+kv     MultiTenantKV over a LogRouter of 4 shards on a 4-node
+                placement (local+remote, 2 backups, W = 2, 64 MiB rings,
+                group-commit engines): 8 producers put 1 KiB values until
+                the rings are about half full, plus 4 values of 1 MiB a
+                shard; a snapshot cut must show every acked put, and after
+                one shard's primary is lost the router's recovery must
+                rebuild tables equal to the acked puts, hashing the 1 MiB
+                records on the long-row kernel;
   default cfg   build_replica_set with the default 1 MiB threshold and 64
                 records of 1 MiB, reopened and verified;
   strict crash  the 16 MiB ring of 1 KiB records on a strict device,
@@ -65,14 +87,15 @@ parallel) and then, on the card:
                 narrower than a tile, ragged lengths, the bf16 twins of the
                 mask variants at head dims 128 and 256, and the serving
                 shapes of gemma2-9b (global and local layers, bf16 and
-                fp32, and scores in the softcap's range) and qwen2-7b,
-                the bf16 ones as the layer's permuted views; each bf16
+                fp32, and scores in the softcap's range) and qwen2-7b
+                (bf16 and fp32), the bf16 ones as the layer's permuted
+                views; each bf16
                 case at head dim 64, 128 or 256 must launch the
                 tensor-core kernel, every other case the CUDA-core one; a
                 dropped window and a dropped softcap must fail the row
                 check; with its median time, the plain version's, its
                 bound and, where one PyTorch call computes the same
-                function (SDPA, or compiled flex_attention at gemma2's bf16
+                function (SDPA, or compiled flex_attention at gemma2's
                 shapes), that call's; then each flash kernel's registers,
                 local (spill) bytes and shared bytes (a tensor-core kernel
                 that spills fails);
@@ -348,15 +371,36 @@ def replicated_deployment(capacity: int):
     return primary, servers, group, cfg
 
 
-def main_path_phase(base: bytes) -> dict:
+def zero_hash_counts() -> None:
+    from repro_torch.kernels.checksum import checksum
+    checksum.LAUNCHES = checksum.SHORT_ROW_LAUNCHES = 0
+    checksum.LONG_ROW_LAUNCHES = 0
+
+
+def hash_counts() -> dict:
+    """The hash kernel's launches since the counts were last zeroed."""
+    from repro_torch.kernels.checksum import checksum
+    return dict(launches=checksum.LAUNCHES,
+                short_rows=checksum.SHORT_ROW_LAUNCHES,
+                long_rows=checksum.LONG_ROW_LAUNCHES)
+
+
+def main_path_phase(base: bytes):
+    """Fill, reopen and rebuild the 1 GiB ring; returns the phase's numbers
+    and the live deployment (a ReplicaSet over the filled ring), which the
+    health phases go on with and the caller shuts down."""
     from repro_torch.core import (CopyAccessor, Log, LogConfig, LogFullError,
-                                  quorum_recover)
+                                  ReplicaSet, quorum_recover)
     from repro_torch.kernels.checksum import checksum
 
     primary, servers, group, cfg = replicated_deployment(RING_BYTES)
     out = {}
     try:
         wal = Log.create(primary, cfg, repl=group)
+        rs = ReplicaSet(mode="local+remote", cfg=cfg, primary_id="node0",
+                        primary_dev=primary, servers=servers,
+                        transports=list(group.transports), group=group,
+                        log=wal)
         checksum.LAUNCHES = checksum.SHORT_ROW_LAUNCHES = 0
         checksum.LONG_ROW_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -381,6 +425,7 @@ def main_path_phase(base: bytes) -> dict:
         out["fill_launches"] = checksum.LAUNCHES
         out["fill_short_row_launches"] = checksum.SHORT_ROW_LAUNCHES
         out["acked"] = acked
+        out["digest"] = digest
         log(f"main fill: {acked} records of {RECORD_BYTES} B acked (W=2 of 3) "
             f"in {out['fill_s']:.3f} s, {out['fill_launches']} kernel launches")
         if out["fill_launches"] < acked // WAVE:
@@ -424,8 +469,302 @@ def main_path_phase(base: bytes) -> dict:
                     f"{part}: {out[f'{part}_launches']} checksum launches, "
                     f"{out[f'{part}_short_row_launches']} on the short-row "
                     f"kernel (every 1 KiB record row must take it)")
-    finally:
+    except BaseException:
         group.shutdown()
+        raise
+    return out, rs
+
+
+# ------------------------- health on the 1 GiB ring ------------------------ #
+
+def health_phase(rs, acked: int, digest: int, seed: int) -> dict:
+    """Seeded media damage on the main path's three copies (payload bit rot
+    in 48 records on node1 and 16 on node0, the LSN word of 8 headers on
+    node2, all different records), then one unbudgeted scrub pass over the
+    three copies: it must find exactly the records whose bytes changed,
+    repair each from a clean copy, validate on the short-row kernel (one
+    launch a copy, one a repaired record), leave a clean second pass and a
+    primary that replays every acked record."""
+    from repro_torch.core import ScrubConfig, Scrubber
+    from repro_torch.core.log import REC_HDR_SIZE
+
+    wal = rs.log
+    copies = {rs.primary_id: rs.primary_dev}
+    copies.update({s.server_id: s.device for s in rs.servers})
+    rng = np.random.default_rng(seed + 16)
+    lsns = rng.choice(np.arange(1, acked + 1), 72, replace=False).tolist()
+    plan = [("node1", l, "payload") for l in lsns[:48]] + \
+        [("node0", l, "payload") for l in lsns[48:64]] + \
+        [("node2", l, "header") for l in lsns[64:]]
+    changed = set()
+    for name, lsn, part in plan:
+        rec, dev = wal._recs[lsn], copies[name]
+        before = dev.read_tensor(rec.off, rec.extent)
+        if part == "payload":
+            dev.corrupt(rec.off + REC_HDR_SIZE, rec.size, rng, nbits=4)
+        else:
+            dev.corrupt(rec.off, 8, rng, nbits=3)
+        if not torch.equal(before, dev.read_tensor(rec.off, rec.extent)):
+            changed.add((name, lsn))
+    scrubber = Scrubber(wal, copies=copies,
+                        cfg=ScrubConfig(defer_when_busy=False))
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    first = scrubber.scrub_once(force=True)
+    scrub_s = time.perf_counter() - t0
+    launches = hash_counts()
+    zero_hash_counts()
+    second = scrubber.scrub_once(force=True)
+    second_launches = hash_counts()
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    got = replay(wal)
+    replay_s = time.perf_counter() - t0
+    replay_launches = hash_counts()
+    out = dict(planted=len(plan), changed=len(changed),
+               corrupt=first.corrupt, repaired=first.repaired,
+               unrepairable=first.unrepairable,
+               scanned_records=first.scanned_records,
+               scanned_bytes=first.scanned_bytes,
+               repair_bytes=first.repair_bytes,
+               repair_ranges=first.repair_ranges, scrub_s=scrub_s,
+               scrub_launches=launches, second_pass_corrupt=second.corrupt,
+               second_pass_launches=second_launches, replay_s=replay_s,
+               replay_launches=replay_launches)
+    log(f"health scrub: {len(plan)} records damaged ({len(changed)} changed), "
+        f"{first.corrupt} found, {first.repaired} repaired, "
+        f"{first.unrepairable} unrepairable, {first.scanned_bytes} bytes "
+        f"scanned on {len(copies)} copies, {first.repair_bytes} repair bytes "
+        f"in {first.repair_ranges} ranges, {scrub_s:.3f} s, hash launches "
+        f"{launches}; second pass {second.corrupt} corrupt, "
+        f"{second_launches}; primary replay {got[0]} records in "
+        f"{replay_s:.3f} s")
+    if set(map(tuple, first.corrupt_records)) != changed:
+        raise AssertionError("scrub found other records than the damaged ones")
+    if not (first.repaired == first.corrupt == len(changed)
+            and first.unrepairable == 0):
+        raise AssertionError(f"scrub repaired {first.repaired} of "
+                             f"{first.corrupt}, {first.unrepairable} left")
+    if second.corrupt or not second.complete:
+        raise AssertionError("the second scrub pass was not clean")
+    if got != (acked, digest):
+        raise AssertionError(f"primary replays {got} after the scrub, "
+                             f"acked {(acked, digest)}")
+    want = dict(launches=len(copies) + first.repaired,
+                short_rows=len(copies) + first.repaired, long_rows=0)
+    if launches != want or second_launches != dict(
+            launches=len(copies), short_rows=len(copies), long_rows=0):
+        raise AssertionError(f"scrub hash launches {launches} then "
+                             f"{second_launches}, expected {want} then "
+                             f"one short-row launch a copy")
+    return out
+
+
+class TailSnapshot:
+    """The checkpoint side of ``LogLifecycle`` for an application whose
+    snapshot covers every record but the newest ``keep``: ``save`` names
+    the last LSN it covers, ``gc`` trims the log up to it."""
+
+    def __init__(self, log_obj, keep: int):
+        self.log, self.keep, self.covered = log_obj, keep, 0
+
+    def save(self, step, state, extra=None, sync=True) -> int:
+        self.covered = self.log.durable_lsn - self.keep
+        return self.covered
+
+    def gc(self) -> int:
+        self.log.trim(self.covered)
+        return 0
+
+
+def trim_resync_phase(rs, base: bytes, acked: int) -> dict:
+    """On the same ring: trim through ``LogLifecycle`` to the newest eighth,
+    kill node2 mid-wire, append an eighth of the ring (128 MiB) at W = 2
+    (node0 + node1), rejoin
+    node2 with the online resync; node2's image must equal the primary's,
+    and quorum recovery from node1 + node2 alone must replay every live
+    acked record."""
+    from repro_torch.core import (CopyAccessor, Log, LogConfig,
+                                  LogLifecycle, quorum_recover)
+    from repro_torch.core.log import REC_HDR_SIZE
+
+    wal = rs.log
+    size = rs.primary_dev.size
+    t0 = time.perf_counter()
+    lc = LogLifecycle(TailSnapshot(wal, acked // 8), state_fn=lambda: None)
+    trim = lc.checkpoint_and_trim()
+    trim_s = time.perf_counter() - t0
+    covered = lc.manager.covered
+    rs.kill_backup_midwire("node2")
+    extent = (REC_HDR_SIZE + RECORD_BYTES + 7) & ~7
+    n_gap = (rs.cfg.capacity // 8) // extent         # 128 MiB of 1 GiB
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    for w in range(0, n_gap, WAVE):
+        wal.append_batch([payload(acked + w + k, base)
+                          for k in range(min(WAVE, n_gap - w))])
+    gap_s = time.perf_counter() - t0
+    gap_launches = hash_counts()
+    t0 = time.perf_counter()
+    resync = rs.recover_backup("node2")
+    resync_s = time.perf_counter() - t0
+    wal.drain()
+    rs.group.drain()
+    node2 = next(s for s in rs.servers if s.server_id == "node2")
+    identical = torch.equal(rs.primary_dev.read_tensor(0, size),
+                            node2.device.read_tensor(0, size))
+    want_n, want_digest = 0, 0
+    for i in list(range(covered, acked)) + list(range(acked, acked + n_gap)):
+        want_digest = zlib.crc32(payload(i, base), want_digest)
+        want_n += 1
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    accs = [CopyAccessor.for_device(s.server_id, s.device)
+            for s in rs.servers]
+    img, report = quorum_recover(accs, rs.cfg, write_quorum=2,
+                                 local_name="rebuilt")
+    got = replay(Log.open(img, LogConfig(capacity=rs.cfg.capacity)))
+    rebuild_s = time.perf_counter() - t0
+    rebuild_launches = hash_counts()
+    out = dict(trimmed_upto=trim.trimmed_upto, head_lsn=trim.head_lsn,
+               reclaimed_records=trim.reclaimed_records,
+               reclaimed_bytes=trim.reclaimed_bytes, trim_s=trim_s,
+               gap_records=n_gap, gap_s=gap_s, gap_launches=gap_launches,
+               sealed_bytes=resync.sealed_bytes,
+               catchup_bytes=resync.catchup_bytes,
+               cutover_bytes=resync.cutover_bytes,
+               repair_bytes=resync.repair_bytes,
+               repair_fraction=resync.repair_bytes / size, resync_s=resync_s,
+               image_identical=identical, live_records=want_n,
+               rebuild_s=rebuild_s, rebuild_launches=rebuild_launches)
+    log(f"trim+resync: trimmed to lsn {trim.trimmed_upto} ({trim.reclaimed_records} "
+        f"records, {trim.reclaimed_bytes} bytes reclaimed) in {trim_s:.3f} s; "
+        f"node2 killed, {n_gap} records ({n_gap * extent} bytes) appended at "
+        f"W=2 in {gap_s:.3f} s ({gap_launches}); resync shipped "
+        f"{resync.repair_bytes} bytes ({resync.repair_bytes / size:.4f} of "
+        f"the {size}-byte image; sealed region {resync.sealed_bytes} bytes) "
+        f"in {resync_s:.3f} s, image identical: {identical}; node1+node2 "
+        f"rebuild replayed {got[0]} records in {rebuild_s:.3f} s "
+        f"({rebuild_launches})")
+    if not identical:
+        raise AssertionError("the resynced node2 differs from the primary")
+    if got != (want_n, want_digest):
+        raise AssertionError(f"node1+node2 rebuild replayed {got}, live "
+                             f"acked records {(want_n, want_digest)}")
+    if trim.trimmed_upto != covered or gap_launches["long_rows"] \
+            or rebuild_launches["long_rows"] \
+            or gap_launches["launches"] < n_gap // WAVE:
+        raise AssertionError("trim or hash routes off in the resync phase")
+    return out
+
+
+# ------------------------------ router + KV ------------------------------ #
+
+ROUTER_SHARDS = 4
+ROUTER_RING = 64 << 20
+ROUTER_PRODUCERS = 8
+ROUTER_WINDOW = 32
+BIG_VALUE = 1 << 20
+
+
+def router_kv_phase(base: bytes) -> dict:
+    """A tenant of 4 shards on a 4-node placement (each local+remote, 2
+    backups, W = 2, 64 MiB rings, group-commit engines): 8 producers put
+    1 KiB values (YCSB's 10 x 100 B record) until the rings are about half
+    full, plus 4 values of 1 MiB a shard (hashed on the long-row kernel);
+    a snapshot cut must show every acked put; then one shard's primary is
+    lost and the router's recovery from the survivors must rebuild tables
+    equal to the acked puts."""
+    import threading
+    from collections import deque
+
+    from repro_torch.apps.kvstore import MultiTenantKV
+    from repro_torch.core import IngestConfig, ShardPlacement
+
+    mkv = MultiTenantKV(ShardPlacement(nodes=("node0", "node1", "node2",
+                                              "node3")))
+    sids = mkv.add_tenant("ycsb", n_shards=ROUTER_SHARDS,
+                          mode="local+remote", n_backups=2, write_quorum=2,
+                          capacity=ROUTER_RING, ingest=IngestConfig())
+    per_producer = ROUTER_SHARDS * (ROUTER_RING // 2) // (
+        RECORD_BYTES + 64) // ROUTER_PRODUCERS
+    acked: dict = {}
+    lock = threading.Lock()
+
+    def producer(t: int) -> None:
+        mine, pend = {}, deque()
+        for i in range(per_producer):
+            key = f"user{t:02d}{i:08d}".encode()
+            off = ((t * per_producer + i) * 4099) % (len(base) - RECORD_BYTES)
+            val = base[off:off + RECORD_BYTES]
+            pend.append(mkv.put_async("ycsb", key, val))
+            mine[key] = val
+            if len(pend) >= ROUTER_WINDOW:
+                pend.popleft().wait(timeout=60)
+        while pend:
+            pend.popleft().wait(timeout=60)
+        with lock:
+            acked.update(mine)
+
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=producer, args=(t,))
+               for t in range(ROUTER_PRODUCERS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    put_s = time.perf_counter() - t0
+    big = {sid: [] for sid in sids}
+    j = 0
+    while any(len(v) < 4 for v in big.values()):
+        key = f"big{j:06d}".encode()
+        sid = mkv._shard_for(b"ycsb", key)
+        if len(big[sid]) < 4:
+            big[sid].append(key)
+            val = bytes([j & 0xFF]) + base[:BIG_VALUE - 1]
+            mkv.put("ycsb", key, val)
+            acked[key] = val
+        j += 1
+    fill_launches = hash_counts()
+    n_puts = ROUTER_PRODUCERS * per_producer
+    used = {sid: mkv.router.shard(sid).log.stats()["used"] / ROUTER_RING
+            for sid in sids}
+    t0 = time.perf_counter()
+    cut, view = mkv.snapshot_view()
+    cut_s = time.perf_counter() - t0
+    if view.get(b"ycsb") != acked:
+        raise AssertionError("the snapshot view differs from the acked puts")
+    mkv.close()
+    lost = f"node0/{sids[0]}"
+    devices = {sid: {n: d for n, d in
+                     mkv.router.shard(sid).rs.server_devices().items()
+                     if n != lost} for sid in sids}
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    rec = mkv.router.recover(devices=devices)
+    tables = mkv.recover_tables(rec.logs)
+    recover_s = time.perf_counter() - t0
+    rec_launches = hash_counts()
+    out = dict(shards=ROUTER_SHARDS, puts=n_puts, put_s=put_s,
+               records_per_s=n_puts / put_s, ring_used=used,
+               fill_launches=fill_launches, cut_lsns=dict(cut.lsns),
+               cut_s=cut_s, lost=lost, recovered=rec.records,
+               recover_s=recover_s, recover_launches=rec_launches)
+    log(f"router+kv: {n_puts} puts of {RECORD_BYTES} B from "
+        f"{ROUTER_PRODUCERS} producers over {ROUTER_SHARDS} shards in "
+        f"{put_s:.3f} s ({n_puts / put_s:.1f} records/s), rings used "
+        f"{min(used.values()):.3f}-{max(used.values()):.3f}, plus 4 x 1 MiB a "
+        f"shard ({fill_launches}); cut of {sum(cut.lsns.values())} records "
+        f"in {cut_s:.3f} s; primary {lost} lost, {rec.records} records "
+        f"recovered and replayed in {recover_s:.3f} s ({rec_launches})")
+    if tables.get(b"ycsb") != acked:
+        raise AssertionError("router recovery rebuilt other tables than the "
+                             "acked puts")
+    if fill_launches["short_rows"] or rec_launches["short_rows"] \
+            or rec_launches["long_rows"] < 2 * ROUTER_SHARDS \
+            or fill_launches["long_rows"] < 4 * ROUTER_SHARDS:
+        raise AssertionError("1 MiB records must take the long-row kernel")
     return out
 
 
@@ -532,10 +871,12 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
 # bf16, per (batch, head, chunk) block of y: max|kernel - plain| / max|plain|.
 # The elementwise 5e-2 is about a twentieth of a typical |y| (≈ 1), so it
 # cannot see a small error spread over a block.  The tensor-core kernel
-# rounds B·dt·decay, the score tile and h_prev to bf16 (2^-9 of each term)
-# and y itself; over up to 256 terms of either sign that reaches 2^-8 to
-# 2^-7 of a block's largest |y| (the CPU mirror of its passes,
-# tests/test_torch_ssd.py); 2^-6 leaves a factor of two.
+# rounds B·dt·decay and h_prev to bf16 (2^-9 of each term) and y itself,
+# and splits the score tile into bf16 hi and lo parts (about 2^-17 of each
+# term; one bf16 rounding of the tile missed the elementwise 5e-2 near y =
+# 0 at the tests' draws by up to 1.53x); over up to 256 terms of either
+# sign that reaches 2^-8 to 2^-7 of a block's largest |y| (the CPU mirror
+# of its passes, tests/test_torch_ssd.py); 2^-6 leaves a factor of two.
 SSD_BLOCK_TOL = 2.0 ** -6
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 8, 4096, 32
 DEV = "cuda"
@@ -994,7 +1335,8 @@ def flash_case(name, shape, dtype, *, layout="bhsd", q_mul=1.0, fault=None,
 # the serving shapes at 2 x 8192 tokens: gemma2-9b's global and local
 # layers and qwen2-7b's width (28 heads over 4) in bf16 as the layer lays
 # them out, gemma2's global layer with scores in the softcap's range, and
-# both gemma2 layers in fp32
+# both gemma2 layers and qwen2's width in fp32 (the CUDA-core route's
+# yardsticks: compiled flex_attention and SDPA)
 G2 = (2, 16, 8, 8192, 256)
 FLASH_CASES = [
     flash_case("causal (2, 4, 2, 256, 64)", (2, 4, 2, 256, 64), "float32", causal=True),
@@ -1026,6 +1368,8 @@ FLASH_CASES = [
     flash_case(f"gemma2 global {G2}", G2, "float32", causal=True, cap=50.0),
     flash_case(f"gemma2 local {G2}", G2, "float32", causal=True, window=4096,
                cap=50.0),
+    flash_case("qwen2 width (2, 28, 4, 8192, 128)", (2, 28, 4, 8192, 128),
+               "float32", causal=True),
 ]
 # the fp32 mask variants' bf16 twins at the serving head dims, which the
 # tensor-core kernel serves (key tiles of 128 at D 128, 64 at D 256), and a
@@ -1191,7 +1535,7 @@ def flash_kernel_phase(seed: int) -> dict:
         library = library_err = library_error = call = None
         if kw.get("cap") is None and kw.get("window") is None:
             call = "scaled_dot_product_attention"
-        elif big and dtype == "bfloat16" and case["q_mul"] == 1.0:
+        elif big and case["q_mul"] == 1.0:
             call = "flex_attention (compiled)"
         if call is not None:
             try:
@@ -1551,10 +1895,23 @@ def main() -> int:
     extent = (REC_HDR_SIZE + RECORD_BYTES + 7) & ~7
     main_rows = RING_BYTES // extent
     kern = kernel_phase(gen, main_rows)
-    main = main_path_phase(base)
-    if main["acked"] != main_rows:
-        raise AssertionError(f"ring held {main['acked']} records, "
-                             f"expected {main_rows}")
+    main, rs = main_path_phase(base)
+    try:
+        if main["acked"] != main_rows:
+            raise AssertionError(f"ring held {main['acked']} records, "
+                                 f"expected {main_rows}")
+        t0 = time.perf_counter()
+        health = health_phase(rs, main["acked"], main["digest"], args.seed)
+        log(f"phase health: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        resync = trim_resync_phase(rs, base, main["acked"])
+        log(f"phase trim+resync: {time.perf_counter() - t0:.3f} s")
+    finally:
+        rs.shutdown()
+    del rs
+    t0 = time.perf_counter()
+    router = router_kv_phase(base)
+    log(f"phase router+kv: {time.perf_counter() - t0:.3f} s")
     default_config_phase(base)
     strict_crash_phase(base)
     ssd = ssd_kernel_phase(args.seed)
@@ -1572,11 +1929,17 @@ def main() -> int:
     gemma_cpu = gemma2_card_vs_cpu_phase(args.seed)
 
     at = kern[f"batch({main_rows},259) 1GiB ring"]
+    new_paths = [health["scrub_launches"], health["second_pass_launches"],
+                 health["replay_launches"], resync["gap_launches"],
+                 resync["rebuild_launches"], router["fill_launches"],
+                 router["recover_launches"]]
     main_launches = (main["fill_launches"] + main["recovery_launches"]
-                     + main["rebuild_launches"])
+                     + main["rebuild_launches"]
+                     + sum(c["launches"] for c in new_paths))
     short = (main["fill_short_row_launches"]
              + main["recovery_short_row_launches"]
-             + main["rebuild_short_row_launches"])
+             + main["rebuild_short_row_launches"]
+             + sum(c["short_rows"] for c in new_paths))
     kernels = [dict(
         name="checksum_rows", route="cuda",
         source="src/repro_torch/csrc/checksum.cu",
@@ -1622,7 +1985,9 @@ def main() -> int:
         ms=flash_at["ms"], plain_ms=flash_at["plain_ms"],
         bound_ms=flash_at["bound_ms"], bound_by=flash_at["bound_by"],
         library_ms=flash_at["library_ms"]))
-    print(json.dumps({"shapes": kern, "main_path": main, "ssd_shapes": ssd,
+    print(json.dumps({"shapes": kern, "main_path": main, "health": health,
+                      "trim_resync": resync, "router_kv": router,
+                      "ssd_shapes": ssd,
                       "serving": serving, "card_vs_cpu": cross,
                       "flash_shapes": flash, "gemma2_serving": gemma,
                       "gemma2_card_vs_cpu": gemma_cpu}))

@@ -380,34 +380,44 @@ def _first_bad_payload(raw: torch.Tensor, items,
         # records BEFORE it could move the truncation point earlier
         ph_items = [it for it in ph_items if it[0] < bad]
     if ph_items:
-        cap = snap.size
-        sizes = np.array([min(it[3], max(cap - it[1] - REC_HDR_SIZE, 0))
-                          for it in ph_items], dtype=np.int64)
-        starts = np.array([it[1] for it in ph_items],
-                          dtype=np.int64) + REC_HDR_SIZE
-        lanes = _SEED_LANES + (int(sizes.max()) + 3) // 4
-        host = _lane_buffer(len(ph_items), lanes, device)
-        mat = host.numpy().view(np.uint32)
-        rows_u8 = mat.view(np.uint8)
-        # gather the payload rows of each distinct length in one strided
-        # fancy-index (a window view of the snapshot per length)
-        for n in np.unique(sizes).tolist():
-            if n == 0:
-                continue
-            sel = np.flatnonzero(sizes == n)
-            windows = np.lib.stride_tricks.sliding_window_view(snap, n)
-            rows_u8[sel, _SEED.size:_SEED.size + n] = windows[starts[sel]]
-        # hash covers the *claimed* size (clamped rows fail the compare)
-        _seed_lanes(mat, [it[2] for it in ph_items],
-                    [it[3] for it in ph_items])
-        vals = _hash_lane_rows(host, device)
-        crcs = np.array([it[4] & 0xFFFFFFFF for it in ph_items],
-                        dtype=np.uint32)
-        fails = np.flatnonzero(vals != crcs)
+        fails = np.flatnonzero(_phash_mismatch(
+            snap, [it[1] for it in ph_items], [it[2] for it in ph_items],
+            [it[3] for it in ph_items], [it[4] for it in ph_items], device))
         if fails.size:
             b = ph_items[int(fails[0])][0]
             bad = b if bad is None else min(bad, b)
     return bad
+
+
+def _phash_mismatch(snap: np.ndarray, pos, lsns, sizes, crcs,
+                    device: torch.device) -> np.ndarray:
+    """One bool per FLAG_PHASH record: does the hash of its payload differ
+    from its header's?  ``snap`` is the uint8 image the records lie in,
+    ``pos`` each header's offset in it, ``lsns``/``sizes``/``crcs`` the
+    header fields.  All rows go to ``device`` in one lane matrix (one
+    copy) and are hashed in one launch."""
+    cap = snap.size
+    pos = np.asarray(pos, dtype=np.int64)
+    claimed = np.asarray(sizes, dtype=np.int64)
+    sizes = np.minimum(claimed, np.maximum(cap - pos - REC_HDR_SIZE, 0))
+    starts = pos + REC_HDR_SIZE
+    lanes = _SEED_LANES + (int(sizes.max()) + 3) // 4
+    host = _lane_buffer(pos.size, lanes, device)
+    mat = host.numpy().view(np.uint32)
+    rows_u8 = mat.view(np.uint8)
+    # gather the payload rows of each distinct length in one strided
+    # fancy-index (a window view of the snapshot per length)
+    for n in np.unique(sizes).tolist():
+        if n == 0:
+            continue
+        sel = np.flatnonzero(sizes == n)
+        windows = np.lib.stride_tricks.sliding_window_view(snap, n)
+        rows_u8[sel, _SEED.size:_SEED.size + n] = windows[starts[sel]]
+    # hash covers the *claimed* size (clamped rows fail the compare)
+    _seed_lanes(mat, lsns, claimed)
+    vals = _hash_lane_rows(host, device)
+    return vals != (np.asarray(crcs, dtype=np.int64)
+                    & 0xFFFFFFFF).astype(np.uint32)
 
 
 def _first_true(mask: torch.Tensor, default: int) -> int:

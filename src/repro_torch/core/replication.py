@@ -88,17 +88,10 @@ class ReplicaSet:
 
         ``resync=False`` is the legacy rejoin: settle the lanes, reopen,
         unfence — the backup's device keeps whatever it had, and the
-        salvage path (DESIGN.md §9) or quorum repair closes the gap.
-
-        The online resync lives in the health module, which this package
-        does not have yet (it comes with the slice that ports health,
-        cluster, lifecycle and router): ``resync=True`` raises
-        NotImplementedError until then."""
+        salvage path (DESIGN.md §9) or quorum repair closes the gap."""
         if resync and self.log is not None:
-            raise NotImplementedError(
-                "online resync needs the health module, which arrives with "
-                "the port slice of health/cluster/lifecycle/router; use "
-                "recover_backup(server_id, resync=False)")
+            from .health import resync_backup
+            return resync_backup(self, server_id)
         if self.group is not None:
             self.group.drain(surface_errors=False)
         for t in self.transports:
@@ -123,13 +116,14 @@ class ReplicaSet:
         """Build (once) the self-healing lifecycle bundle (DESIGN.md
         §11): background scrubber over every durable copy, heartbeat
         failure detector over the backup lanes, automatic resync +
-        quorum restore on rejoin.  ``shutdown()`` stops it.
-
-        Not in this package yet: the health module arrives with the port
-        slice of health/cluster/lifecycle/router."""
-        raise NotImplementedError(
-            "attach_health needs the health module, which arrives with the "
-            "port slice of health/cluster/lifecycle/router")
+        quorum restore on rejoin.  ``shutdown()`` stops it."""
+        if self.health is None:
+            from .health import HealthMonitor
+            self.health = HealthMonitor(
+                self, cluster=cluster, scrub=scrub, heartbeat=heartbeat,
+                allow_degraded=allow_degraded,
+                min_write_quorum=min_write_quorum)
+        return self.health
 
     def attach_ingest(self, cfg: Optional[IngestConfig] = None,
                       policy: Optional[ForcePolicy] = None) -> IngestEngine:

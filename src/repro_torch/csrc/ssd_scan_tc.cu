@@ -49,11 +49,13 @@
 //      the score tile C_i·B_jᵀ on the tensor cores, masked to 0 where
 //      j > i BEFORE the exp (an overflowing exp times a 0 mask is NaN), times
 //      exp(cum_i - cum_j) and dt_j (dt folds into the scores, so x is
-//      rounded nowhere), rounded to bf16 in registers as the A operand of
-//      y_i += scores · x_j, as the flash kernel does with P.  C·Bᵀ is
+//      rounded nowhere), split in registers into bf16 hi = bf16(v) and lo =
+//      bf16(v - hi), the A operands of y_i += hi · x_j + lo · x_j into one
+//      fp32 sum (one bf16 rounding of the tile, 2^-9 of each term, missed
+//      the reference's bf16 tolerance near y = 0).  C·Bᵀ is
 //      computed once per head: at G = 1 the 24 heads of mamba2-130m each
-//      redo it (about 32 of the 74 GFLOP of tensor-core work at the serving
-//      shape), where sharing it would write [B, S/Q, Q, Q] fp32 scores to
+//      redo it (about 32 of the 88 GFLOP of tensor-core work at the serving
+//      shape, 14 of which are the lo product), where sharing it would write [B, S/Q, Q, Q] fp32 scores to
 //      memory (34 MB) and read them back per head.
 //
 // Inputs as they come: xh, Bm and Cm are read through their strides
@@ -162,6 +164,15 @@ __device__ __forceinline__ float exp_diff(double cum_i, double cum_j) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
+}
+// The score tile as two bf16 operands: hi = bf16(v), lo = bf16(v - hi).
+// hi + lo carries about 16 bits of v's mantissa (one bf16 rounding of v
+// alone lost 2^-9 of it, which near y = 0 exceeded the reference's bf16
+// tolerance).
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
 }
 
 // Fragment addresses (lane's row pointer) for ldmatrix.x4, ld = the
@@ -471,9 +482,10 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ xh, const float* __restrict__ dt,
           mma16816(s[2 * np + 1], a, f[2], f[3]);
         }
       }
-      // mask (j > i selects 0, the exp is not taken), decay, dt; bf16 A operand
+      // mask (j > i selects 0, the exp is not taken), decay, dt; the A
+      // operand split into bf16 hi and lo parts
       const bool mask = j0 + kTile - 1 > i0 + m0;   // some j lies past some row
-      uint32_t pa[4][4];
+      uint32_t pa[4][4], pl[4][4];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int ja = j0 + nt * 8 + 2 * tq, jb = ja + 1;
@@ -483,10 +495,10 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ xh, const float* __restrict__ dt,
         const float v1 = (!mask || jb <= ia) ? s[nt][1] * exp_diff(cum_a, cjb) * djb : 0.f;
         const float v2 = (!mask || ja <= ib) ? s[nt][2] * exp_diff(cum_b, cja) * dja : 0.f;
         const float v3 = (!mask || jb <= ib) ? s[nt][3] * exp_diff(cum_b, cjb) * djb : 0.f;
-        pa[nt >> 1][(nt & 1) * 2] = pack_bf16(v0, v1);
-        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(v2, v3);
+        split_bf16(v0, v1, pa[nt >> 1][(nt & 1) * 2], pl[nt >> 1][(nt & 1) * 2]);
+        split_bf16(v2, v3, pa[nt >> 1][(nt & 1) * 2 + 1], pl[nt >> 1][(nt & 1) * 2 + 1]);
       }
-      // y_i += scores · x_j (x stored [j][p])
+      // y_i += scores_hi · x_j + scores_lo · x_j (x stored [j][p])
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
 #pragma unroll
@@ -496,6 +508,8 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ xh, const float* __restrict__ dt,
             ldsm_x4_t(f, b_cols(xj, ldx, kk * 16, np * 16, lane));
             mma16816(acc[2 * np], pa[kk], f[0], f[1]);
             mma16816(acc[2 * np + 1], pa[kk], f[2], f[3]);
+            mma16816(acc[2 * np], pl[kk], f[0], f[1]);
+            mma16816(acc[2 * np + 1], pl[kk], f[2], f[3]);
           }
         }
       }

@@ -95,8 +95,9 @@ def ssd_three_pass_reference(xh: torch.Tensor, dt: torch.Tensor,
        once); S_c = Σ_j x_j ⊗ B'_j from bf16 values, summed in fp32;
     2. state passing: h_prev[c] = bf16(h), h <- exp(cum_Q)·h + S_c in fp32;
     3. chunk output: scores C_i·B_j summed in fp32, 0 where j > i (never the
-       exp), else times exp(cum_i - cum_j) and dt_j, rounded to bf16; y =
-       exp(cum_i)·(C_i·h_prev) + scores·x, rounded to xh's dtype.
+       exp), else times exp(cum_i - cum_j) and dt_j, split into bf16 hi =
+       bf16(v) and lo = bf16(v - hi); y = exp(cum_i)·(C_i·h_prev) + hi·x +
+       lo·x, rounded to xh's dtype.
 
     Inputs are taken as bf16 values (xh, Bm, Cm are rounded to bf16 first,
     as the kernel only takes bf16)."""
@@ -135,10 +136,13 @@ def ssd_three_pass_reference(xh: torch.Tensor, dt: torch.Tensor,
     decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
                         0.0).permute(0, 1, 4, 2, 3)            # [B,nc,H,i,j]
     dt_j = dt32.permute(0, 1, 3, 2)[:, :, :, None, :]
-    Pm = torch.where(tri, scores * decay * dt_j, 0.0).to(bf).to(F32)
+    Pm = torch.where(tri, scores * decay * dt_j, 0.0)
+    P_hi = Pm.to(bf).to(F32)
+    P_lo = (Pm - P_hi).to(bf).to(F32)
     inter = torch.einsum("bcihn,bchpn->bcihp", Cq, h_prev)
     y = torch.exp(cum.to(F32))[..., None] * inter + \
-        torch.einsum("bchij,bcjhp->bcihp", Pm, x)
+        (torch.einsum("bchij,bcjhp->bcihp", P_hi, x)
+         + torch.einsum("bchij,bcjhp->bcihp", P_lo, x))
     return y.reshape(B_, S, H, P).to(xh.dtype), h
 
 

@@ -172,13 +172,17 @@ def test_diff_ranges_match_jax(seed):
 
 
 def test_health_paths_name_the_slice_that_brings_them():
+    """The health slice brought both paths: ``attach_health`` builds the
+    health module's monitor (once), and ``recover_backup`` resyncs online
+    unless asked not to."""
+    from repro_torch.core.health import HealthMonitor, ResyncReport
     trs = build_replica_set(mode="local+remote", capacity=CAP, n_backups=1,
                             device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="health"):
-            trs.attach_health()
-        with pytest.raises(NotImplementedError, match="health"):
-            trs.recover_backup("node1")
+        mon = trs.attach_health()
+        assert isinstance(mon, HealthMonitor) and trs.attach_health() is mon
+        rep = trs.recover_backup("node1")
+        assert isinstance(rep, ResyncReport) and rep.server_id == "node1"
         assert trs.recover_backup("node1", resync=False) is None
     finally:
         trs.shutdown()

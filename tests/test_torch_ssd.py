@@ -297,6 +297,36 @@ def test_three_pass_mirror_near_float64_at_mamba2_widths():
     torch.testing.assert_close(st.double(), st_exact, **BF16_TOL)
 
 
+def card_tests_draw(B, S, H, P, G, N, seed):
+    """tests/test_torch_cuda.py::ssd_inputs's draw (tests/test_kernels.py's
+    dt and A ranges, drawn before xh), in bf16 on the CPU."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.05, 0.9, size=(B, S, H)).astype(np.float32)
+    A_log = rng.uniform(-1.0, 0.5, size=(H,)).astype(np.float32)
+    xh = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    Bm = rng.normal(size=(B, S, G, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, S, G, N)).astype(np.float32)
+    return to_torch((xh, dt, A_log, Bm, Cm), torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 2, 16, 1, 256, 64),
+                                   (1, 256, 2, 128, 1, 64, 128),
+                                   (2, 512, 24, 64, 1, 128, 256)],
+                         ids=["N256", "P128", "mamba2-widths"])
+def test_three_pass_mirror_within_bf16_tolerance_at_the_card_tests_draw(
+        shape):
+    """At the card tests' draw |y| reaches 70 to 80 and some elements lie
+    near 0.  One bf16 rounding of the score tile (2^-9 of each term)
+    missed 5e-2 + 5e-2·|plain| there by 1.04x, 1.53x and 1.53x at these
+    shapes; the tile split into bf16 hi and lo operands keeps the mirror,
+    and the kernel it mirrors, within the reference's bf16 tolerance."""
+    *dims, chunk = shape
+    args = card_tests_draw(*dims, seed=dims[1] + dims[2])
+    y, _ = ref.ssd_three_pass_reference(*args, chunk=chunk)
+    y_plain, _ = ref.ssd_reference(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), y_plain.float(), **BF16_TOL)
+
+
 def test_block_check_fails_planted_faults():
     """The card's per-block check can fail a wrong scan: with the mirror
     in the kernel's place at mamba2's widths, the second half of the
