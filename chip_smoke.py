@@ -89,11 +89,18 @@ parallel) and then, on the card:
                 shapes of gemma2-9b (global and local layers, bf16 and
                 fp32, and scores in the softcap's range) and qwen2-7b
                 (bf16 and fp32), the bf16 ones as the layer's permuted
-                views; each bf16
-                case at head dim 64, 128 or 256 must launch the
-                tensor-core kernel, every other case the CUDA-core one; a
-                dropped window and a dropped softcap must fail the row
-                check; with its median time, the plain version's, its
+                views, deepseek-v3's MLA prefill (2 x 4096, 128 heads, q/k
+                head dim 192, v head dim 128, v the strided half of its
+                expansion; bf16 and fp32), hubert-xlarge's non-causal
+                encoder (8 x 1500, 16 heads of 80) and llava-next-34b's
+                prefill (2 x 4096, 56 heads over 8 of 128); each bf16
+                case at head dim 64, 128 or 256 with Dv = D must launch
+                the tensor-core kernel, every other case the CUDA-core one;
+                a dropped window, a dropped softcap, at MLA's shape a
+                dropped causal mask and v read from k_nope, at hubert's a
+                causal mask, at llava's a dropped causal mask must fail
+                the row check; with its median
+                time, the plain version's, its
                 bound and, where one PyTorch call computes the same
                 function (SDPA, or compiled flex_attention at gemma2's
                 shapes), that call's; then each flash kernel's registers,
@@ -111,7 +118,43 @@ parallel) and then, on the card:
                 the same next greedy token, at init and with a 128-token
                 window and scores in the softcap's range, where a dropped
                 window, softcap or causal mask must each move the logits
-                by more than 2e-3.
+                by more than 2e-3;
+  deepseek-v3   deepseek-v3-671b at its published widths cut to 4 layers
+                (the 3 dense-prologue layers and 1 MoE layer; MLA with its
+                latent cache, 256 routed experts + 1 shared, top-8), bf16,
+                from --seed: 2 prompts of 4096 tokens prefilled (one flash
+                launch a layer, on the CUDA cores at D 192 / Dv 128) and
+                32 greedy decode steps (absorbed MLA), the prefill run
+                again and required bitwise equal, then a prefill of 512
+                tokens and 4 teacher-forced decode steps held against a
+                516-token prefill in a copy of the config that drops no
+                token (capacity factor 32), with the latent cache's bytes
+                beside the per-head K/V it replaces and the peak device
+                memory; then its MoE layer's ``moe_ffn`` on 256 tokens at
+                the served capacity factor 1.25 (pairs dropped) on the
+                card and on the CPU, each token's output within 2^-5 of
+                its largest value, where dropping nothing must move it
+                past that;
+  deepseek cpu  deepseek-v3 at full width cut to one dense layer, fp32: a
+                512-token prefill and one absorbed decode step on the card
+                and on the CPU, logits within 2e-3 and the same next
+                greedy token; a dropped causal mask and v read from k_nope
+                must each move the logits by more than 2e-3;
+  hubert        hubert-xlarge at full width and depth (48 layers, bf16):
+                one forward of 8 x 1500 frame embeddings (48 flash
+                launches, CUDA cores, D 80, non-causal); cut to 2 layers
+                in fp32, 256 frames on the card and on the CPU within
+                2e-3, where a causal mask must move the logits past that;
+  llava         llava-next-34b at full width cut to 2 of its 60 layers,
+                bf16: 2 prompts of 2880 patch embeddings + 1216 tokens
+                prefilled (2 flash launches, tensor cores) and 8 decode
+                steps; finite logits, and other patches must move the
+                token positions' logits by more than 0.05.
+
+Each model path prints its configuration, a ``reduced`` list of every cut
+from the published config, the card's name and power limit, and its peak
+device memory; the flash kernel's launches are counted per path (set to 0
+just before each path runs and read just after).
 
 Every failure exits non-zero.  Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
@@ -125,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import struct
@@ -133,6 +177,7 @@ import sys
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1319,14 +1364,17 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
 
 # ---------------------------- flash attention ---------------------------- #
 
-def flash_case(name, shape, dtype, *, layout="bhsd", q_mul=1.0, fault=None,
-               **kw) -> dict:
+def flash_case(name, shape, dtype, *, layout="bhsd", q_mul=1.0, faults=(),
+               dv=None, **kw) -> dict:
     """One shape of the flash phase.  ``layout`` "bshd" makes q, k, v
-    permuted [B,S,H,D] views, as the layer passes them; ``q_mul`` scales q
-    (16 puts the scores in the softcap's range); ``fault`` names mask
-    options of a wrong function the check must be able to tell apart."""
+    permuted [B,S,H,D] views, as the layer passes them, and "mla" makes v
+    the [..., Dv:] view of a [B,S,H,2·Dv] expansion, as MLA's prefill
+    passes it; ``dv`` is v's head dim (D unless given); ``q_mul`` scales q
+    (16 puts the scores in the softcap's range); each of ``faults`` names
+    options of a wrong function the check must be able to tell apart
+    (``v_from="k_nope"``: v read from k's first Dv columns)."""
     return dict(name=name, shape=shape, dtype=dtype, layout=layout,
-                q_mul=q_mul, fault=fault, kw=kw)
+                q_mul=q_mul, faults=list(faults), dv=dv, kw=kw)
 
 
 # the shapes of tests/test_kernels.py (four causal, four mask variants,
@@ -1360,9 +1408,9 @@ FLASH_CASES = [
     flash_case(f"gemma2 global {G2}", G2, "bfloat16", layout="bshd",
                causal=True, cap=50.0),
     flash_case(f"gemma2 local {G2}", G2, "bfloat16", layout="bshd",
-               fault=dict(window=None), causal=True, window=4096, cap=50.0),
+               faults=[dict(window=None)], causal=True, window=4096, cap=50.0),
     flash_case(f"gemma2 global {G2} scores x16", G2, "bfloat16", layout="bshd",
-               q_mul=16.0, fault=dict(cap=None), causal=True, cap=50.0),
+               q_mul=16.0, faults=[dict(cap=None)], causal=True, cap=50.0),
     flash_case("qwen2 width (2, 28, 4, 8192, 128)", (2, 28, 4, 8192, 128),
                "bfloat16", layout="bshd", causal=True),
     flash_case(f"gemma2 global {G2}", G2, "float32", causal=True, cap=50.0),
@@ -1389,6 +1437,30 @@ for _D in (128, 256):
 FLASH_CASES.append(flash_case("ragged (1, 4, 2, 1000, 128)",
                               (1, 4, 2, 1000, 128), "bfloat16", causal=True,
                               window=100))
+# the prefill shapes of this slice's model paths: deepseek-v3's MLA (2 x
+# 4096 tokens, 128 heads, q/k head dim 192 = qk_nope 128 + qk_rope 64, v
+# head dim 128, scale 1/sqrt(192)) in bf16 and fp32 as the layer lays
+# them out (the CUDA-core kernel: no tensor-core kernel takes Dv < D), where
+# a dropped causal mask and v read from k_nope must fail the row check; and
+# hubert-xlarge's non-causal encoder (8 x 1500 frames, 16 heads of 80),
+# where a causal mask must fail it; and llava-next-34b's prefill (2 x
+# (2880 patches + 1216 tokens), 56 heads over 8 of 128, the tensor-core
+# kernel) as the layer lays it out, where a dropped causal mask must fail it
+MLA = (2, 128, 128, 4096, 192)
+MLA_DV = 128
+HUBERT = (8, 16, 16, 1500, 80)
+LLAVA = (2, 56, 8, 4096, 128)
+for _dt in ("bfloat16", "float32"):
+    FLASH_CASES.append(flash_case(
+        f"mla {MLA} dv {MLA_DV}", MLA, _dt, layout="mla", dv=MLA_DV,
+        faults=[dict(causal=False), dict(v_from="k_nope")], causal=True,
+        scale=1.0 / float(np.sqrt(MLA[4]))))
+FLASH_CASES.append(flash_case(f"hubert {HUBERT}", HUBERT, "bfloat16",
+                              layout="bshd", faults=[dict(causal=True)],
+                              causal=False))
+FLASH_CASES.append(flash_case(f"llava {LLAVA}", LLAVA, "bfloat16",
+                              layout="bshd", faults=[dict(causal=False)],
+                              causal=True))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 # the same check scaled to each output row: max over the row of
 # |kernel - plain| / max over the row of |plain|.  q, k, v from randn
@@ -1410,20 +1482,26 @@ def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def flash_inputs(case: dict, seed: int):
-    """q [B,H,S,D], k and v [B,KV,S,D] from the seed, in the case's dtype;
-    for layout "bshd" views of [B,S,H,D] storage."""
+    """q [B,H,S,D], k [B,KV,S,D] and v [B,KV,S,Dv] from the seed, in the
+    case's dtype; for layouts "bshd" and "mla" views of [B,S,H,·] storage,
+    for "mla" v the [..., Dv:] half of a [B,S,KV,2·Dv] tensor."""
     B, H, KV, S, D = case["shape"]
+    dv = case["dv"] or D
     gen = torch.Generator(device=DEV).manual_seed(seed)
     dt = getattr(torch, case["dtype"])
     out = []
-    for n, heads in enumerate((H, KV, KV)):
-        shape = (B, S, heads, D) if case["layout"] == "bshd" else \
-            (B, heads, S, D)
+    for n, (heads, width) in enumerate(((H, D), (KV, D), (KV, dv))):
+        if case["layout"] == "mla" and n == 2:
+            width = 2 * dv
+        shape = (B, heads, S, width) if case["layout"] == "bhsd" else \
+            (B, S, heads, width)
         t = torch.randn(shape, device=DEV, generator=gen)
         if n == 0:
             t *= case["q_mul"]
         t = t.to(dt)
-        out.append(t.transpose(1, 2) if case["layout"] == "bshd" else t)
+        if case["layout"] == "mla" and n == 2:
+            t = t[..., dv:]
+        out.append(t if case["layout"] == "bhsd" else t.transpose(1, 2))
     return out
 
 
@@ -1462,26 +1540,39 @@ def attended_pairs(S: int, causal: bool, window) -> int:
     return int((hi - lo + 1).sum())
 
 
-def flash_bound_ms(shape, kw, dtype) -> tuple[float, str]:
-    """Least time for the attention: q, k, v read and o written once at the
-    HBM rate, against 4·B·H·D operations per unmasked pair (the two
-    products) at the peak rate for the dtype (bf16 tensor cores; fp32 CUDA
-    cores)."""
+def flash_bound_ms(shape, kw, dtype, dv=None) -> tuple[float, str]:
+    """Least time for the attention: q, k [.., D] and v [.., Dv] read and
+    o [.., Dv] written once at the HBM rate, against 2·B·H·(D + Dv)
+    operations per unmasked pair (the two products) at the peak rate for
+    the dtype (bf16 tensor cores; fp32 CUDA cores)."""
     B, H, KV, S, D = shape
+    dv = dv or D
     el = 2 if dtype == "bfloat16" else 4
-    n_bytes = (2 * B * H * S * D + 2 * B * KV * S * D) * el
-    ops = 4 * B * H * D * attended_pairs(S, kw.get("causal", True),
-                                         kw.get("window"))
+    n_bytes = (B * H * S * (D + dv) + B * KV * S * (D + dv)) * el
+    ops = 2 * B * H * (D + dv) * attended_pairs(S, kw.get("causal", True),
+                                                 kw.get("window"))
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def plain_with_fault(q, k, v, kw: dict, fault: dict):
+    """The plain version of a wrong function: the case's options changed
+    by ``fault``, or (``v_from="k_nope"``) v read from k's first Dv
+    columns."""
+    from repro_torch.kernels.flash_attention import ref
+
+    fault = dict(fault)
+    if fault.pop("v_from", None) == "k_nope":
+        v = k[..., :v.shape[-1]]
+    return ref.attention_reference(q, k, v, **{**kw, **fault})
+
+
 def flash_kernel_phase(seed: int) -> dict:
     """Each case: one launch, held against the plain version elementwise
-    (FLASH_TOL) and row by row (FLASH_ROW_TOL); where the case names a
-    fault, the plain version of that wrong function must fail the row
+    (FLASH_TOL) and row by row (FLASH_ROW_TOL); for each fault the case
+    names, the plain version of that wrong function must fail the row
     check.  Times of the kernel, the plain version and, where one PyTorch
     call computes the same function (SDPA without a softcap or a window,
     else flex_attention at the bf16 serving shapes), that call."""
@@ -1495,7 +1586,7 @@ def flash_kernel_phase(seed: int) -> dict:
                                                      "dtype"))
         S = shape[3]
         q, k, v = flash_inputs(case, seed + n)
-        route = fa.tile_plan(q.dtype, shape[4]).route
+        route = fa.tile_plan(q.dtype, shape[4], case["dv"]).route
         before = (fa.LAUNCHES, fa.TENSOR_CORE_LAUNCHES, fa.CUDA_CORE_LAUNCHES)
         got = ops.flash_attention(q, k, v, **kw)
         moved = (fa.LAUNCHES - before[0], fa.TENSOR_CORE_LAUNCHES - before[1],
@@ -1517,17 +1608,18 @@ def flash_kernel_phase(seed: int) -> dict:
                 f"flash {name} {dtype}: kernel differs from plain version by "
                 f"{err} (tolerance {tol}), by {row_err} of a row's largest "
                 f"value (tolerance {row_tol})")
-        fault_err = None
-        if case["fault"] is not None:
-            wrong = ref.attention_reference(q, k, v, **{**kw, **case["fault"]})
-            fault_err = row_rel_err(got, wrong)
+        fault_errs = {}
+        for fault in case["faults"]:
+            wrong = plain_with_fault(q, k, v, kw, fault)
+            fault_errs[str(fault)] = row_rel_err(got, wrong)
             del wrong
-            if not fault_err > row_tol:
+            if not fault_errs[str(fault)] > row_tol:
                 raise AssertionError(
                     f"flash {name}: the row check cannot tell the kernel from "
-                    f"the plain version with {case['fault']} ({fault_err})")
+                    f"the plain version with {fault} "
+                    f"({fault_errs[str(fault)]})")
         del got
-        big = S >= 8192
+        big = shape[0] * shape[1] * S * S >= 2 * 16 * 8192 * 8192
         ms = timed_ms(lambda: ops.flash_attention(q, k, v, **kw),
                       5 if big else 20, flush)
         plain = timed_ms(lambda: ref.attention_reference(q, k, v, **kw),
@@ -1543,19 +1635,21 @@ def flash_kernel_phase(seed: int) -> dict:
                     lib = flex_library(q, k, v, kw)
                 else:
                     lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                        q, k, v, is_causal=kw["causal"], enable_gqa=True)
+                        q, k, v, is_causal=kw["causal"], scale=kw.get("scale"),
+                        enable_gqa=True)
                 library_err = row_rel_err(lib(), want)
                 library = timed_ms(lib, 5 if big else 20, flush)
             except Exception as e:       # the yardstick only: recorded
                 library_error = f"{type(e).__name__}: {e}"[:300]
-        b, by = flash_bound_ms(shape, kw, dtype)
+        b, by = flash_bound_ms(shape, kw, dtype, case["dv"])
         key = f"{name} {dtype}"
-        results[key] = dict(shape=list(shape), options=kw, dtype=dtype,
+        results[key] = dict(shape=list(shape), dv=case["dv"] or shape[4],
+                            options=kw, dtype=dtype,
                             route=route, layout=case["layout"],
                             q_mul=case["q_mul"],
                             max_abs_err=err, tol=tol, row_rel_err=row_err,
-                            row_tol=row_tol, fault=case["fault"],
-                            fault_row_rel_err=fault_err, ms=ms,
+                            row_tol=row_tol,
+                            fault_row_rel_err=fault_errs, ms=ms,
                             plain_ms=plain, bound_ms=b, bound_by=by,
                             library=call, library_ms=library,
                             library_row_rel_err=library_err,
@@ -1566,11 +1660,11 @@ def flash_kernel_phase(seed: int) -> dict:
             lib_txt = f"{call} raised {library_error}"
         else:
             lib_txt = (f"{call} {library:.6f} ms (row err {library_err:.3e})")
-        fault_txt = "" if fault_err is None else (
-            f"; with {case['fault']} the plain version is {fault_err:.3e} "
-            f"of a row off")
+        fault_txt = "".join(f"; with {f} the plain version is {e:.3e} of a "
+                            f"row off" for f, e in fault_errs.items())
         q_txt = "" if case["q_mul"] == 1.0 else f" q x{case['q_mul']:g}"
-        log(f"kernel flash {key} {kw} {case['layout']}{q_txt} ({route}): "
+        dv_txt = "" if case["dv"] is None else f" Dv {case['dv']}"
+        log(f"kernel flash {key} {kw} {case['layout']}{dv_txt}{q_txt} ({route}): "
             f"max abs err {err:.3e} (within {tol} + {tol}·|plain|), row err "
             f"{row_err:.3e} (within {row_tol:.4g}){fault_txt}; {ms:.6f} ms, "
             f"plain {plain:.6f} ms, bound {b:.6f} ms ({by}), library "
@@ -1683,7 +1777,7 @@ def gemma2_serving_phase(seed: int) -> dict:
     prompts = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, P))).to(DEV)
 
-    fa.LAUNCHES = fa.TENSOR_CORE_LAUNCHES = fa.CUDA_CORE_LAUNCHES = 0
+    zero_flash_counts()
     res = serve.generate(params, cfg, prompts, GEMMA_DECODE + 1)
     out["flash_launches"] = fa.LAUNCHES
     out["flash_tensor_core_launches"] = fa.TENSOR_CORE_LAUNCHES
@@ -1725,7 +1819,7 @@ def gemma2_serving_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     # the teacher-forced run, each half in a profiled window: the device's
     # share of the prefill and of the decode steps, and where it goes
-    fa.LAUNCHES = fa.TENSOR_CORE_LAUNCHES = fa.CUDA_CORE_LAUNCHES = 0
+    zero_flash_counts()
     cache = M.init_cache(cfg, B, P, device=DEV)
     (_, cache), out["prefill_profile"] = device_window(
         lambda: M.serve_step(params, cfg, {"tokens": prompts[:, :GEMMA_CUT]},
@@ -1748,11 +1842,7 @@ def gemma2_serving_phase(seed: int) -> dict:
     diffs = [float((s - want[:, j]).abs().max()) for j, s in enumerate(steps)]
     out["teacher_forced_max_abs_diff"] = max(diffs)
     for name in ("prefill", "decode"):
-        w = out[f"{name}_profile"]
-        log(f"gemma2 {name} under the profiler: wall {w['wall_ms']:.3f} ms, "
-            f"device {w['device_ms']:.3f} ms (busy {w['busy_share']:.4f}); "
-            f"top: " + "; ".join(f"{k['name'][:48]} {k['ms']:.3f} ms x"
-                                 f"{k['count']}" for k in w["top_kernels"]))
+        log_profile(f"gemma2 {name}", out[f"{name}_profile"])
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"gemma2 teacher-forced decode at {GEMMA_CUT}..{GEMMA_CUT + 3} (window "
         f"{cfg.sliding_window} active): max abs diff {max(diffs):.4e} against "
@@ -1858,6 +1948,514 @@ def gemma2_card_vs_cpu_phase(seed: int) -> dict:
     return out
 
 
+# ------------- deepseek-v3, hubert-xlarge and llava-next-34b -------------- #
+
+def flash_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    return dict(all=fa.LAUNCHES, tensor_cores=fa.TENSOR_CORE_LAUNCHES,
+                cuda_cores=fa.CUDA_CORE_LAUNCHES)
+
+
+def zero_flash_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    fa.LAUNCHES = fa.TENSOR_CORE_LAUNCHES = fa.CUDA_CORE_LAUNCHES = 0
+
+
+def expect_flash(counts: dict, n: int, route: str, what: str) -> None:
+    other = "cuda_cores" if route == "tensor_cores" else "tensor_cores"
+    if counts["all"] != n or counts[route] != n or counts[other]:
+        raise AssertionError(f"{what}: flash launches {counts}, expected {n} "
+                             f"on the {route} kernel")
+
+
+def log_profile(what: str, w: dict) -> None:
+    log(f"{what} under the profiler: wall {w['wall_ms']:.3f} ms, device "
+        f"{w['device_ms']:.3f} ms (busy {w['busy_share']:.4f}); top: "
+        + "; ".join(f"{k['name'][:48]} {k['ms']:.3f} ms x{k['count']}"
+                    for k in w["top_kernels"]))
+
+
+def describe(cfg, reduced: list, card: str) -> dict:
+    """The configuration a path ran and every cut from the published one,
+    printed beside the card line."""
+    keys = ("n_layers", "d_model", "n_heads", "n_kv_heads",
+            "resolved_head_dim", "d_ff", "vocab_size", "q_lora_rank",
+            "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
+            "n_experts", "n_shared_experts", "experts_per_token", "moe_d_ff",
+            "first_dense_layers", "capacity_factor", "causal", "input_kind",
+            "frontend_dim", "n_patches", "param_dtype", "compute_dtype")
+    conf = {k: getattr(cfg, k) for k in keys}
+    log(f"{cfg.name} config: {json.dumps(conf)}")
+    log(f"{cfg.name} reduced: {json.dumps(reduced)}")
+    log(f"{cfg.name} card: {card}")
+    return dict(config=conf, reduced=reduced, card=card)
+
+
+DS_BATCH, DS_PROMPT, DS_DECODE = 2, 4096, 32
+DS_LAYERS = 4                      # the 3 dense-prologue layers + 1 MoE layer
+DS_CUT = 512                       # teacher-forced: prefill 512, decode 4
+# teacher-forced decode against a 516-token prefill, bf16, as a share of
+# the largest |logit| at the four positions: the prefill attends per head
+# through the flash kernel (fp32 P), the absorbed decode in the latent
+# space (wkv_b folded into q and o, p rounded to bf16), so every layer
+# rounds at other places.  A CPU rehearsal of this check in bf16 (4 layers:
+# 3 dense + 1 MoE, d_model 1024 and 2048) differed by 1.2% of the largest
+# logit (0.031-0.047 at logits up to 2.7-3.8, ≈ 3 bf16 spacings); 3% leaves
+# a factor of 2.5, and a wrong decode moves logits by their spread (std
+# ≈ 0.25 of the largest).
+DS_TEACHER_REL_TOL = 3e-2
+
+
+def deepseek_serving_phase(seed: int, card: str) -> dict:
+    """deepseek-v3-671b at its published widths cut to 4 layers (the 3
+    dense-prologue layers and 1 MoE layer), bf16, weights from --seed:
+    prefill 2 x 4096 (one flash launch a layer, CUDA cores, D 192 / Dv 128)
+    and 32 greedy decode steps (absorbed MLA on the latent cache); the
+    prefill again, bitwise equal; then a 512-token prefill and 4
+    teacher-forced decode steps held against a 516-token prefill, in a
+    copy of the config that drops no token."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    published = get_config("deepseek-v3-671b")
+    cfg = replace(published, n_layers=DS_LAYERS)
+    dropless = published.n_experts / published.experts_per_token
+    out = describe(cfg, [
+        f"n_layers {published.n_layers} -> {cfg.n_layers}: the "
+        f"{cfg.first_dense_layers} dense-prologue layers and 1 MoE layer (5 "
+        f"layers' stacked expert leaf is 60.1 GB in fp32 at init)",
+        "weights random from --seed (init_params), no checkpoint",
+        f"teacher-forced check only: capacity_factor "
+        f"{published.capacity_factor} -> {dropless:g} (= n_experts / "
+        f"experts_per_token: C = T, no token dropped, so a decode step "
+        f"routes as the prefill does)"], card)
+    B, P = DS_BATCH, DS_PROMPT
+    T = P + DS_DECODE + 1
+    width = cfg.kv_lora_rank + cfg.qk_rope_dim
+    dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    out.update(
+        param_count=cfg.param_count(),
+        params_gb=cfg.param_count() * 2 / 1e9,
+        latent_cache_bytes_per_layer=B * T * width * 2,
+        per_head_kv_bytes_per_layer=B * T * cfg.n_heads
+        * (dqk + cfg.v_head_dim) * 2)
+    log(f"deepseek-v3 memory reckoned: params {out['params_gb']:.3f} GB "
+        f"(bf16); latent cache {out['latent_cache_bytes_per_layer']} bytes a "
+        f"layer ({B} x {T} x {width} bf16) in place of "
+        f"{out['per_head_kv_bytes_per_layer']} bytes of per-head K/V ({B} x "
+        f"{T} x {cfg.n_heads} x ({dqk} + {cfg.v_head_dim}) bf16)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.cast_params(M.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed), device=DEV), cfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, P))).to(DEV)
+
+    zero_flash_counts()
+    res = serve.generate(params, cfg, prompts, DS_DECODE + 1)
+    out["flash"] = flash_counts()
+    expect_flash(out["flash"], cfg.n_layers, "cuda_cores",
+                 "deepseek-v3 prefill + decode")
+    logits = res.prefill_logits
+    if tuple(logits.shape) != (B, P, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"deepseek-v3 prefill logits "
+                             f"{tuple(logits.shape)} not finite or not [B,S,V]")
+    toks = res.tokens
+    if tuple(toks.shape) != (B, DS_DECODE + 1) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"decoded tokens {tuple(toks.shape)} out of range")
+    # the same prefill again, under the profiler: the MoE combine adds in a
+    # fixed order, so the logits must repeat bit for bit
+    cache = M.init_cache(cfg, B, T, device=DEV)
+    (again, _), out["prefill_profile"] = device_window(
+        lambda: M.serve_step(params, cfg, {"tokens": prompts}, cache, 0))
+    out["prefill_ms_warm"] = out["prefill_profile"]["wall_ms"]
+    out["prefill_bitwise_repeat"] = bitwise_equal(again, logits)
+    del again, cache
+    out.update(
+        prefill_ms=res.prefill_s * 1e3,
+        prefill_tokens_per_s=B * P / res.prefill_s,
+        decode_ms_per_step=res.decode_s * 1e3 / res.decode_steps,
+        decode_tokens_per_s=B * res.decode_steps / res.decode_s,
+        decode_steps=res.decode_steps,
+        logits_abs_max=float(logits.abs().max().float()))
+    log(f"deepseek-v3 init {out['init_s']:.3f} s (peak "
+        f"{out['init_peak_gb']:.3f} GB); prefill {B} x {P} in "
+        f"{out['prefill_ms']:.3f} ms cold, {out['prefill_ms_warm']:.3f} ms "
+        f"warm; {out['flash']['all']} flash launches "
+        f"({out['flash']['cuda_cores']} on the CUDA cores, D {dqk} / Dv "
+        f"{cfg.v_head_dim}); decode {res.decode_steps} steps, "
+        f"{out['decode_ms_per_step']:.3f} ms/step "
+        f"({out['decode_tokens_per_s']:.1f} tok/s); prefill repeated "
+        f"bitwise: {out['prefill_bitwise_repeat']}")
+    log_profile("deepseek-v3 warm prefill", out["prefill_profile"])
+    if not out["prefill_bitwise_repeat"]:
+        raise AssertionError("deepseek-v3: a second prefill of the same "
+                             "prompts gave other logits")
+    del logits, res
+    torch.cuda.empty_cache()
+
+    tf = replace(cfg, capacity_factor=dropless)
+    one = prompts[:1, :DS_CUT + 4]
+    zero_flash_counts()
+    full, _ = M.serve_step(params, tf, {"tokens": one}, None, None)
+    want = full[:, DS_CUT:DS_CUT + 4].float().clone()
+    del full
+    cache = M.init_cache(tf, 1, DS_CUT + 4, device=DEV)
+    _, cache = M.serve_step(params, tf, {"tokens": one[:, :DS_CUT]}, cache, 0)
+    expect_flash(flash_counts(), 2 * cfg.n_layers, "cuda_cores",
+                 "deepseek-v3 teacher-forced prefills")
+    diffs = []
+    for j in range(4):
+        step, cache = M.serve_step(
+            params, tf, {"tokens": one[:, DS_CUT + j:DS_CUT + j + 1]}, cache,
+            DS_CUT + j)
+        diffs.append(float((step[:, 0].float() - want[:, j]).abs().max()))
+    scale = float(want.abs().max())
+    out.update(teacher_forced_max_abs_diff=max(diffs),
+               teacher_forced_logit_abs_max=scale,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"deepseek-v3 teacher-forced decode at {DS_CUT}..{DS_CUT + 3} "
+        f"(capacity factor {dropless:g}): max abs diff {max(diffs):.4e} "
+        f"against the {DS_CUT + 4}-token prefill's logits (tolerance "
+        f"{DS_TEACHER_REL_TOL} of the largest, {scale:.4f}); peak device "
+        f"memory {out['peak_memory_gb']:.3f} GB")
+    if not max(diffs) <= DS_TEACHER_REL_TOL * scale:
+        raise AssertionError(f"deepseek-v3 teacher-forced decode diverges: "
+                             f"{diffs}")
+    del cache, prompts
+    torch.cuda.empty_cache()
+    out["moe_card_vs_cpu"] = moe_card_vs_cpu(params, cfg, seed)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+MOE_TOKENS = 256
+# one full-width MoE FFN call, bf16, card against CPU, per token: max over
+# the token's output of |card - cpu| / max |cpu|.  Both round h, the
+# activation, the expert outputs and each of the K adds to bf16, in other
+# accumulation orders; a CPU rehearsal (d_model 7168, 32 experts, top-8,
+# 32 and 64 tokens, capacity 1.25 so that pairs drop) gave 5.3e-3 to 5.8e-3
+# between bf16 products and fp32 products rounded to bf16 (2^-8 to 2^-7:
+# one or two spacings of a row's largest value), and 0.38 to 1.15 for the
+# same call at a capacity that drops nothing.  2^-5 leaves a factor of 5.
+MOE_ROW_TOL = 2.0 ** -5
+
+
+def moe_card_vs_cpu(params, cfg, seed: int) -> dict:
+    """The served 4-layer model's MoE layer at full width (256 experts,
+    top-8, 1 shared, capacity factor 1.25), bf16: ``moe_ffn`` on 256
+    tokens of random hidden states on the card and on the CPU, held per
+    token within MOE_ROW_TOL; some (token, expert) pairs must be dropped,
+    and the same call at a capacity that drops none must move the output
+    past the tolerance."""
+    from dataclasses import replace
+
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_map
+
+    ffn = tree_map(lambda t: t[0], params["blocks"]["l0"]["ffn"])
+    if "router" not in ffn:
+        raise AssertionError("deepseek-v3's block l0 is not the MoE layer")
+    T, D, E, K = MOE_TOKENS, cfg.d_model, cfg.n_experts, \
+        cfg.experts_per_token
+    x = torch.from_numpy(np.random.default_rng(seed + 23).standard_normal(
+        (1, T, D), dtype=np.float32)).to(torch.bfloat16)
+    C = max(1, math.ceil(T * K / E * cfg.capacity_factor))
+    card, card_aux = L.moe_ffn(x.to(DEV), ffn, cfg)
+    card, card_aux = card.cpu(), float(card_aux)
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: t.cpu(), ffn)
+    plain, plain_aux = L.moe_ffn(x, host, cfg)
+    cpu_s = time.perf_counter() - t0
+    _, gidx = L.top_k(torch.softmax(
+        x.reshape(T, D).float() @ host["router"].float(), -1), K)
+    dropped = int((torch.bincount(gidx.reshape(-1), minlength=E) - C)
+                  .clamp_min(0).sum())
+    undropped, _ = L.moe_ffn(x, host, replace(cfg, capacity_factor=E / K))
+    err = row_rel_err(card, plain)
+    fault = row_rel_err(undropped, plain)
+    out = dict(tokens=T, capacity=C, dropped_pairs=dropped,
+               max_abs_diff=float((card.float() - plain.float()).abs().max()),
+               row_rel_err=err, row_tol=MOE_ROW_TOL, aux_card=card_aux,
+               aux_cpu=float(plain_aux), no_drop_row_rel_err=fault,
+               cpu_s=cpu_s)
+    log(f"deepseek-v3 moe_ffn card vs cpu (bf16, {T} tokens, {E} experts "
+        f"top-{K}, capacity {C}, {dropped} of {T * K} pairs dropped; CPU "
+        f"{cpu_s:.3f} s with the weights' copy): max abs diff "
+        f"{out['max_abs_diff']:.3e}, row err {err:.3e} (tolerance "
+        f"{MOE_ROW_TOL:.4g}), aux {card_aux:.6e} vs {out['aux_cpu']:.6e}; "
+        f"with no drops the plain output is {fault:.3e} of a row off")
+    del host
+    if not dropped:
+        raise AssertionError("moe_ffn card vs cpu: no pair was dropped")
+    if not err <= MOE_ROW_TOL or not math.isclose(card_aux, out["aux_cpu"],
+                                                  rel_tol=1e-5):
+        raise AssertionError("deepseek-v3 moe_ffn: card and CPU disagree")
+    if not fault > MOE_ROW_TOL:
+        raise AssertionError(f"moe_ffn card vs cpu: dropping nothing stays "
+                             f"within the tolerance ({fault})")
+    return out
+
+
+@contextmanager
+def value_read_from_keys():
+    """A planted fault: MLA's prefill attention reads k_nope (the first Dv
+    columns of its keys) in place of its values."""
+    from repro_torch.models import layers as L
+
+    real = L.attention
+
+    def wrong(q, k, v, **kw):
+        if q.shape[1] > 1 and v.shape[-1] < k.shape[-1]:
+            v = k[..., :v.shape[-1]]
+        return real(q, k, v, **kw)
+    L.attention = wrong
+    try:
+        yield
+    finally:
+        L.attention = real
+
+
+def prefill_and_step(params, cfg, toks, device):
+    """A prefill of all but the last token into a cache on ``device`` and
+    one decode step: (prefill logits, step logits), moved to the host."""
+    from repro_torch.models import model as M
+
+    S = toks.shape[1] - 1
+    cache = M.init_cache(cfg, toks.shape[0], S + 1, device=device)
+    pre, cache = M.serve_step(params, cfg, {"tokens": toks[:, :S]}, cache, 0)
+    step, _ = M.serve_step(params, cfg, {"tokens": toks[:, S:]}, cache, S)
+    return pre.cpu(), step.cpu()
+
+
+def hold_card_to_cpu(what: str, card, plain, faults: dict, greedy=True):
+    """logits of the card within 2e-3 of the CPU's (tests/test_arch_smoke.py's
+    decode tolerance) and, for a decoder, the same next greedy token; each
+    planted fault must move the CPU's logits by more than 2e-3."""
+    diff = float((card - plain).abs().max())
+    same = bool(torch.equal(card[:, -1].argmax(-1), plain[:, -1].argmax(-1)))
+    moved = {f: float((w - plain).abs().max()) for f, w in faults.items()}
+    log(f"{what}: max abs logit diff {diff:.3e} (tolerance 2e-3; logits up "
+        f"to {float(plain.abs().max()):.4f})"
+        + (f", next greedy token equal: {same}" if greedy else "")
+        + "".join(f"; {f} moves the plain logits by {d:.3e}"
+                  for f, d in moved.items()))
+    if not torch.allclose(card, plain, atol=2e-3, rtol=2e-3) or \
+            (greedy and not same):
+        raise AssertionError(f"{what}: card and CPU disagree")
+    if not all(d > 2e-3 for d in moved.values()):
+        raise AssertionError(f"{what}: a planted fault stays within the "
+                             f"tolerance: {moved}")
+    return dict(max_abs_diff=diff, next_token_equal=same,
+                planted_fault_max_abs_diff=moved)
+
+
+def deepseek_card_vs_cpu_phase(seed: int) -> dict:
+    """deepseek-v3 at full width cut to one dense layer, fp32 compute: a
+    512-token prefill and one absorbed decode step on the card (kernel)
+    and on the CPU (plain), logits within 2e-3 and the same next greedy
+    token; a dropped causal mask and v read from k_nope (on the CPU) must
+    each move the prefill's logits by more than 2e-3."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = replace(get_config("deepseek-v3-671b"), n_layers=1,
+                  first_dense_layers=1, compute_dtype="float32")
+    params = M.cast_params(M.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed + 5), device=DEV),
+        cfg)
+    toks = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (1, DS_CUT + 1)))
+    zero_flash_counts()
+    card = prefill_and_step(params, cfg, toks.to(DEV), DEV)
+    expect_flash(flash_counts(), 1, "cuda_cores", "deepseek-v3 fp32 prefill")
+    host = tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain = prefill_and_step(host, cfg, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    one = {"tokens": toks[:, :DS_CUT]}
+    faults = {"causality dropped": M.serve_step(
+        host, replace(cfg, causal=False), one, None, None)[0]}
+    with value_read_from_keys():
+        faults["v read from k_nope"] = M.serve_step(host, cfg, one, None,
+                                                    None)[0]
+    if flash_counts()["all"] != 1:
+        raise AssertionError("the CPU prefill launched the kernel")
+    out = dict(cpu_s=cpu_s)
+    out["prefill"] = hold_card_to_cpu(
+        f"deepseek-v3 card vs cpu (fp32, 1 dense layer, 1 x {DS_CUT} "
+        f"prefill; CPU {cpu_s:.3f} s with the step)", card[0], plain[0],
+        faults)
+    out["decode"] = hold_card_to_cpu(
+        "deepseek-v3 card vs cpu (fp32, absorbed decode step)", card[1],
+        plain[1], {})
+    del host
+    return out
+
+
+HUBERT_BATCH, HUBERT_FRAMES = 8, 1500     # 30 s of audio at 50 frames/s
+
+
+def hubert_phase(seed: int, card: str) -> dict:
+    """hubert-xlarge at full width and depth (48 layers, bf16, weights from
+    --seed): one whole-sequence forward of 8 x 1500 frame embeddings (one
+    flash launch a layer, CUDA cores, D 80, non-causal); then cut to 2
+    layers in fp32, 256 frames on the card and on the CPU, logits within
+    2e-3, where a causal mask must move them by more than 2e-3."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("hubert-xlarge")
+    out = describe(cfg, ["weights random from --seed (init_params)"], card)
+    out["params_gb"] = cfg.param_count() * 2 / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params = M.cast_params(M.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed + 13), device=DEV),
+        cfg)
+    rng = np.random.default_rng(seed + 13)
+    frames = torch.from_numpy(rng.normal(
+        size=(HUBERT_BATCH, HUBERT_FRAMES, cfg.frontend_dim)).astype(
+            np.float32)).to(DEV)
+    zero_flash_counts()
+    fwd = serve.forward(params, cfg, {"frames": frames})
+    out["flash"] = flash_counts()
+    expect_flash(out["flash"], cfg.n_layers, "cuda_cores", "hubert forward")
+    if tuple(fwd.logits.shape) != (HUBERT_BATCH, HUBERT_FRAMES,
+                                   cfg.vocab_size) or \
+            not bool(torch.isfinite(fwd.logits).all()):
+        raise AssertionError(f"hubert logits {tuple(fwd.logits.shape)} not "
+                             f"finite or not [B,S,V]")
+    warm, out["forward_profile"] = device_window(
+        lambda: serve.forward(params, cfg, {"frames": frames}))
+    log_profile("hubert warm forward", out["forward_profile"])
+    out.update(forward_ms=fwd.seconds * 1e3, forward_ms_warm=warm.seconds * 1e3,
+               frames_per_s=HUBERT_BATCH * HUBERT_FRAMES / warm.seconds,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"hubert forward {HUBERT_BATCH} x {HUBERT_FRAMES} frames: "
+        f"{out['forward_ms']:.3f} ms cold, {out['forward_ms_warm']:.3f} ms "
+        f"warm ({out['frames_per_s']:.1f} frames/s), {out['flash']['all']} "
+        f"flash launches ({out['flash']['cuda_cores']} on the CUDA cores, D "
+        f"{cfg.resolved_head_dim}); params {out['params_gb']:.3f} GB; peak "
+        f"device memory {out['peak_memory_gb']:.3f} GB")
+    del params, fwd, warm, frames
+    torch.cuda.empty_cache()
+
+    small = replace(cfg, n_layers=2, compute_dtype="float32")
+    params = M.cast_params(M.init_params(
+        small, torch.Generator(device=DEV).manual_seed(seed + 17),
+        device=DEV), small)
+    frames = torch.from_numpy(rng.normal(size=(1, 256, cfg.frontend_dim))
+                              .astype(np.float32))
+    zero_flash_counts()
+    got, _ = M.serve_step(params, small, {"frames": frames.to(DEV)}, None,
+                          None)
+    expect_flash(flash_counts(), 2, "cuda_cores", "hubert fp32 forward")
+    host = tree_map(lambda t: t.cpu(), params)
+    del params
+    plain, _ = M.serve_step(host, small, {"frames": frames}, None, None)
+    causal, _ = M.serve_step(host, replace(small, causal=True),
+                             {"frames": frames}, None, None)
+    out["card_vs_cpu"] = hold_card_to_cpu(
+        "hubert card vs cpu (fp32, 2 layers, 1 x 256 frames)", got.cpu(),
+        plain, {"a causal mask": causal}, greedy=False)
+    torch.cuda.empty_cache()
+    return out
+
+
+LLAVA_LAYERS, LLAVA_BATCH, LLAVA_TOKENS, LLAVA_DECODE = 2, 2, 1216, 8
+# changing the patch embeddings must move the token positions' logits by
+# more than bf16 noise: 0.05 is the gemma2 teacher-forced tolerance (13 bf16
+# spacings at 0.5)
+LLAVA_PATCH_MOVE = 5e-2
+
+
+def llava_phase(seed: int, card: str) -> dict:
+    """llava-next-34b at its published widths cut to 2 of its 60 layers,
+    bf16, weights from --seed: 2 prompts of 2880 patch embeddings of 1024
+    and 1216 tokens (4096 positions) prefilled (one flash launch a layer,
+    tensor cores, D 128, 56 heads over 8) and 8 greedy decode steps; the
+    logits finite, and other patches must move the token positions'
+    logits."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    published = get_config("llava-next-34b")
+    cfg = replace(published, n_layers=LLAVA_LAYERS)
+    out = describe(cfg, [
+        f"n_layers {published.n_layers} -> {cfg.n_layers}",
+        "weights random from --seed (init_params)"], card)
+    out["params_gb"] = cfg.param_count() * 2 / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params = M.cast_params(M.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(seed + 19), device=DEV),
+        cfg)
+    rng = np.random.default_rng(seed + 19)
+    B, Np, P = LLAVA_BATCH, cfg.n_patches, LLAVA_TOKENS
+
+    def patches():
+        return torch.from_numpy(rng.normal(size=(B, Np, cfg.frontend_dim))
+                                .astype(np.float32)).to(DEV)
+    first = patches()
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))
+                               ).to(DEV)
+    zero_flash_counts()
+    res = serve.generate(params, cfg, prompts, LLAVA_DECODE + 1,
+                         patches=first)
+    out["flash"] = flash_counts()
+    expect_flash(out["flash"], cfg.n_layers, "tensor_cores",
+                 "llava prefill + decode")
+    logits = res.prefill_logits
+    if tuple(logits.shape) != (B, Np + P, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"llava logits {tuple(logits.shape)} not finite "
+                             f"or not [B,S,V]")
+    other, _ = M.serve_step(params, cfg, {"patches": patches(),
+                                          "tokens": prompts}, None, None)
+    moved = float((other[:, Np:].float() - logits[:, Np:].float()).abs()
+                  .max())
+    out.update(prefill_ms=res.prefill_s * 1e3,
+               prefill_positions_per_s=B * (Np + P) / res.prefill_s,
+               decode_ms_per_step=res.decode_s * 1e3 / res.decode_steps,
+               decode_steps=res.decode_steps, patches_move_tokens=moved,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"llava prefill {B} x ({Np} patches + {P} tokens) in "
+        f"{out['prefill_ms']:.3f} ms, {out['flash']['all']} flash launches "
+        f"({out['flash']['tensor_cores']} on the tensor cores); decode "
+        f"{res.decode_steps} steps, {out['decode_ms_per_step']:.3f} ms/step; "
+        f"other patches move the token positions' logits by {moved:.4e} "
+        f"(must exceed {LLAVA_PATCH_MOVE}); params {out['params_gb']:.3f} "
+        f"GB; peak device memory {out['peak_memory_gb']:.3f} GB")
+    if not moved > LLAVA_PATCH_MOVE:
+        raise AssertionError("llava: the token positions do not see the "
+                             "patches")
+    del params, logits, res, other
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1927,6 +2525,18 @@ def main() -> int:
             f"{a['shared_bytes']} shared bytes, {a['threads']} threads")
     gemma = gemma2_serving_phase(args.seed)
     gemma_cpu = gemma2_card_vs_cpu_phase(args.seed)
+    t0 = time.perf_counter()
+    deepseek = deepseek_serving_phase(args.seed, card)
+    log(f"phase deepseek-v3: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    deepseek_cpu = deepseek_card_vs_cpu_phase(args.seed)
+    log(f"phase deepseek-v3 card vs cpu: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    hubert = hubert_phase(args.seed, card)
+    log(f"phase hubert-xlarge: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    llava = llava_phase(args.seed, card)
+    log(f"phase llava-next-34b: {time.perf_counter() - t0:.3f} s")
 
     at = kern[f"batch({main_rows},259) 1GiB ring"]
     new_paths = [health["scrub_launches"], health["second_pass_launches"],
@@ -1972,25 +2582,42 @@ def main() -> int:
         bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
         library_ms=None))
     flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
+    by_path = {"gemma2-9b": dict(
+        all=gemma["flash_launches"],
+        tensor_cores=gemma["flash_tensor_core_launches"],
+        cuda_cores=gemma["flash_launches"]
+        - gemma["flash_tensor_core_launches"]),
+        "deepseek-v3-671b": deepseek["flash"],
+        "hubert-xlarge": hubert["flash"], "llava-next-34b": llava["flash"]}
+
+    def shape_times(key):
+        r = flash[key]
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
-        launches=gemma["flash_launches"],
-        launches_by_route={
-            "tensor_cores": gemma["flash_tensor_core_launches"],
-            "cuda_cores": (gemma["flash_launches"]
-                           - gemma["flash_tensor_core_launches"])},
+        launches=sum(c["all"] for c in by_path.values()),
+        launches_by_route={r: sum(c[r] for c in by_path.values())
+                           for r in ("tensor_cores", "cuda_cores")},
+        launches_by_path=by_path,
         max_abs_err=max(r["max_abs_err"] for r in flash.values()),
         ms=flash_at["ms"], plain_ms=flash_at["plain_ms"],
         bound_ms=flash_at["bound_ms"], bound_by=flash_at["bound_by"],
-        library_ms=flash_at["library_ms"]))
+        library_ms=flash_at["library_ms"],
+        mla_shape=shape_times(f"mla {MLA} dv {MLA_DV} bfloat16"),
+        hubert_shape=shape_times(f"hubert {HUBERT} bfloat16"),
+        llava_shape=shape_times(f"llava {LLAVA} bfloat16")))
     print(json.dumps({"shapes": kern, "main_path": main, "health": health,
                       "trim_resync": resync, "router_kv": router,
                       "ssd_shapes": ssd,
                       "serving": serving, "card_vs_cpu": cross,
                       "flash_shapes": flash, "gemma2_serving": gemma,
-                      "gemma2_card_vs_cpu": gemma_cpu}))
+                      "gemma2_card_vs_cpu": gemma_cpu,
+                      "deepseek_serving": deepseek,
+                      "deepseek_card_vs_cpu": deepseek_cpu,
+                      "hubert": hubert, "llava": llava}))
     print(json.dumps({"flash_kernel_attributes": flash_attrs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@
 // with the softmax taken online over key tiles: running max m, running sum
 // l and an unnormalised accumulator, all fp32, rescaled by exp(m_old - m_new)
 // as each tile arrives; o is written in the inputs' dtype.  The same
-// function as the plain version in kernels/flash_attention/ref.py.
+// function as the plain version in kernels/flash_attention/ref.py.  q and k
+// have head dim D, v and o head dim Dv <= D (MLA's prefill: D = 192 =
+// qk_nope 128 + qk_rope 64, Dv = 128).
 //
 // What bounds it.  At gemma2-9b's prefill (B=2, H=16 over KV=8, S=8192,
 // D=256, causal, bf16) the function needs 4·B·H·D operations per unmasked
@@ -78,9 +80,17 @@
 //      past S are not written.  Without a softcap the scale and log2(e)
 //      go into one FMA before ex2; with one, log2(e) is folded in after
 //      tanh.  The softcap uses tanhf (not tanh.approx).
-// 2. `flash_fwd_kernel` — fp32, and bf16 at other head dims: the CUDA-core
-//    kernel of the first port, unchanged.  fp32 in, fp32 products (no TF32),
-//    so fp32 inputs agree with the plain version to 2e-5.
+// 2. `flash_fwd_kernel` — fp32, bf16 at other head dims, and every Dv < D:
+//    the CUDA-core kernel of the first port.  fp32 in, fp32 products (no
+//    TF32), so fp32 inputs agree with the plain version to 2e-5.
+//    * Dv < D.  The template width DM bounds max(D, Dv) = D; Q and K are
+//      staged over D columns and V over Dv (the rest of the tile is zero);
+//      Q·Kᵀ runs over the D columns (a run-time bound), P·V over all DM
+//      columns of the tile, and Dv columns of O are written.  At MLA's
+//      D = 192 it is the DM = 256 instantiation (211 KB).  A test inside
+//      the unrolled P·V loop that skips the column groups past Dv keeps
+//      the compiler from hoisting the loop's shared loads, and slowed the
+//      Dv = D route (PERF.md §6).
 //    * The key axis is a loop inside the block.  The TPU walked it as the
 //      innermost grid axis and kept (m, l, acc) in VMEM across grid steps;
 //      Hopper blocks run in no order, so one block takes one (b, h, 64-row
@@ -136,7 +146,7 @@ struct Args {
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
-  int S, D, rep, nq;
+  int S, D, Dv, rep, nq;               // Dv <= D: v's and o's head dim
   int causal, window;                  // window <= 0: none
   float scale, cap;                    // cap <= 0: none
 };
@@ -226,7 +236,7 @@ flash_fwd_kernel(const Args a) {
     const int k0 = kt * kTile;
     __syncthreads();                          // the previous tile is done with Ks, Vs, Ps
     load_tile<T, DM>(Ks, kLdQ, kg, a.k_ss, k0, S, a.D);
-    load_tile<T, DM>(Vs, DM, vg, a.v_ss, k0, S, a.D);
+    load_tile<T, DM>(Vs, DM, vg, a.v_ss, k0, S, a.Dv);
     __syncthreads();
 
     // scores of rows ty + 16 i against keys tx + 16 j
@@ -236,7 +246,7 @@ flash_fwd_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DM; d += 4) {
+    for (int d = 0; d < a.D; d += 4) {         // D, not DM: no zero columns
       float4 qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -332,7 +342,7 @@ flash_fwd_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < kVw; ++e) {
         const int col = kVw * tx + 16 * kVw * c + e;
-        if (col < a.D) store(row + col, acc[i][c * kVw + e] / den);
+        if (col < a.Dv) store(row + col, acc[i][c * kVw + e] / den);
       }
   }
 }
@@ -1025,39 +1035,42 @@ int kernel_attributes(const void* fn, int* out) {
 
 }  // namespace
 
-// Attention of q [batch, heads, seqlen, headdim] against k, v
-// [batch, kv_heads, seqlen, headdim] into o (q's shape), each given by its
+// Attention of q [batch, heads, seqlen, headdim] against k [batch,
+// kv_heads, seqlen, headdim] and v [batch, kv_heads, seqlen, vdim] into o
+// [batch, heads, seqlen, vdim] (vdim <= headdim), each given by its
 // data pointer and its batch, head and sequence strides in elements (the
 // head dim is contiguous, and every stride and pointer a multiple of four
 // elements).  dtype: 0 for fp32, 1 for bf16, the same for all four.
 // window <= 0 means no window, cap <= 0 no softcap.  bf16 at head dims 64,
-// 128 and 256 with 16-byte aligned pointers and strides goes to the
-// tensor-core kernel, everything else to the CUDA-core kernel; *route is
-// set to 1 or 0 accordingly.  Launches one kernel on `stream`, does not
-// synchronise, and returns the cudaError_t of the launch (0 on success).
+// 128 and 256 with vdim == headdim and 16-byte aligned pointers and
+// strides goes to the tensor-core kernel, everything else to the CUDA-core
+// kernel; *route is set to 1 or 0 accordingly.  Launches one kernel on
+// `stream`, does not synchronise, and returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int arcadia_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    int batch, int heads, int kv_heads, int seqlen, int headdim,
+    int batch, int heads, int kv_heads, int seqlen, int headdim, int vdim,
     int causal, int window, float scale, float cap, int dtype, void* stream,
     int* route) {
-  if (batch <= 0 || heads <= 0 || kv_heads <= 0 || seqlen <= 0 || headdim <= 0)
+  if (batch <= 0 || heads <= 0 || kv_heads <= 0 || seqlen <= 0 || headdim <= 0 ||
+      vdim <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (heads % kv_heads || headdim > 256 || headdim % 4 || heads > 65535 ||
-      batch > 65535)
+  if (heads % kv_heads || headdim > 256 || headdim % 4 || vdim > headdim ||
+      vdim % 4 || heads > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-         seqlen, headdim, heads / kv_heads, (seqlen + kTile - 1) / kTile,
+         seqlen, headdim, vdim, heads / kv_heads, (seqlen + kTile - 1) / kTile,
          causal, window, scale, cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *route = 0;
   if (dtype == 0) return dispatch<float>(a, batch, heads, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (tc_head_dim(headdim) && tc_aligned(a)) {
+  if (tc_head_dim(headdim) && vdim == headdim && tc_aligned(a)) {
     *route = 1;
     return dispatch_tc(a, batch, heads, kv_heads, s);
   }

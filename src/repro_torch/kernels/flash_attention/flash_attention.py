@@ -5,12 +5,13 @@ TPU kernel ``_flash_kernel`` (``repro/kernels/flash_attention/
 flash_attention.py``).  Two routes, chosen by dtype and head dim inside
 ``arcadia_flash_attention`` (see the note at the top of the source):
 
-* ``"tensor_cores"`` — bf16 at head dims 64, 128 and 256 (16-byte aligned
-  pointers and strides, TMA's rule): both products on wgmma, K/V tiles
-  brought by TMA into a two-stage ring by a producer warpgroup, 128 query
-  rows a block;
-* ``"cuda_cores"`` — fp32, and bf16 at other head dims: fp32 products out
-  of shared memory, 64 query rows a block.
+* ``"tensor_cores"`` — bf16 at head dims 64, 128 and 256 with v's head
+  dim equal to q's (16-byte aligned pointers and strides, TMA's rule):
+  both products on wgmma, K/V tiles brought by TMA into a two-stage ring
+  by a producer warpgroup, 128 query rows a block;
+* ``"cuda_cores"`` — fp32, bf16 at other head dims, and a value head dim
+  Dv below D (MLA's prefill: D 192, Dv 128): fp32 products out of shared
+  memory, 64 query rows a block.
 
 The source is compiled with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/nvcc.py``); nothing is compiled at import time.
@@ -54,14 +55,18 @@ class TilePlan:
     smem_bytes: int      # dynamic shared memory of a launch
 
 
-def tile_plan(dtype: torch.dtype, head_dim: int) -> TilePlan:
+def tile_plan(dtype: torch.dtype, head_dim: int,
+              v_head_dim: Optional[int] = None) -> TilePlan:
     """The plan of ``csrc/flash_attention.cu`` for inputs whose pointers
     and strides are 16-byte aligned (``arcadia_flash_kernel_info`` reports
-    the same on the card).  Tensor cores: Q [128, D] plus two stages of K
-    and V [Bc, D] in bf16, 1 KB to align them to the swizzle and 128 B of
+    the same on the card), v's head dim ``v_head_dim`` (D unless given).
+    Tensor cores (bf16, Dv == D): Q [128, D] plus two stages of K and V
+    [Bc, D] in bf16, 1 KB to align them to the swizzle and 128 B of
     mbarriers.  CUDA cores: fp32 Q and K [64][D+4], V [64][D] and P
     [64][68] at D rounded up to 32, 64, 128 or 256."""
-    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+    dv = head_dim if v_head_dim is None else v_head_dim
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS and \
+            dv == head_dim:
         keys = 64 if head_dim == 256 else 128
         smem = 1024 + 128 * head_dim * 2 + 2 * 2 * keys * head_dim * 2 + 128
         return TilePlan("tensor_cores", 128, keys, 2, smem)
@@ -74,7 +79,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lib.arcadia_flash_attention.argtypes = [
-        p, p, p, p, *[ll] * 12, i, i, i, i, i, i, i, f, f, i, p,
+        p, p, p, p, *[ll] * 12, i, i, i, i, i, i, i, i, f, f, i, p,
         ctypes.POINTER(i)]
     lib.arcadia_flash_attention.restype = ctypes.c_int
     lib.arcadia_flash_kernel_info.argtypes = [i, i, i, ctypes.POINTER(i)]
@@ -101,10 +106,11 @@ def kernel_info(dtype: torch.dtype, head_dim: int,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise unless the kernel takes q [B,H,S,D], k and v [B,KV,S,D] as
-    they are: CUDA tensors of one dtype (fp32 or bf16), KV dividing H,
-    D <= 256 and a multiple of 4, the head dim contiguous, and every
-    stride and data pointer a multiple of four elements."""
+    """Raise unless the kernel takes q [B,H,S,D], k [B,KV,S,D] and v
+    [B,KV,S,Dv] as they are: CUDA tensors of one dtype (fp32 or bf16), KV
+    dividing H, D <= 256 and Dv <= D, both multiples of 4, the head dim
+    contiguous, and every stride and data pointer a multiple of four
+    elements."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash kernel needs CUDA tensors, {name} is on "
@@ -124,8 +130,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"head dim and strides and data aligned to 4 "
                              f"elements, got strides {t.stride()}")
     B, H, S, D = q.shape
-    KV = k.shape[1]
-    if tuple(k.shape) != (B, KV, S, D) or v.shape != k.shape:
+    KV, Dv = k.shape[1], v.shape[-1]
+    if tuple(k.shape) != (B, KV, S, D) or tuple(v.shape) != (B, KV, S, Dv):
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if KV < 1 or H % KV:
@@ -133,6 +139,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if D > MAX_HEAD_DIM or D % 4:
         raise ValueError(f"head dim {D}: the kernel takes multiples of 4 up "
                          f"to {MAX_HEAD_DIM}")
+    if Dv > D or Dv < 1 or Dv % 4:
+        raise ValueError(f"v head dim {Dv}: the kernel takes multiples of 4 "
+                         f"up to q's head dim {D}")
+
+
+def _empty_like_q(q: torch.Tensor, Dv: int) -> torch.Tensor:
+    """An uninitialised [B,H,S,Dv] tensor whose batch, head and sequence
+    dims are laid out in q's order (a layer's [B,S,H,D] view gives a
+    [B,S,H,Dv] buffer seen as [B,H,S,Dv]), dense, head dim contiguous."""
+    order = sorted(range(3), key=lambda d: -q.stride(d))   # outermost first
+    shape = [q.shape[d] for d in order] + [Dv]
+    buf = torch.empty(shape, dtype=q.dtype, device=q.device)
+    return buf.permute(*[order.index(d) for d in range(3)], 3)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,17 +159,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cap: Optional[float] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Attention of CUDA tensors in ONE kernel launch: the contract of
-    ``ref.attention_reference`` (q [B,H,S,D]; k, v [B,KV,S,D] -> [B,H,S,D]
-    in q's dtype, with q's strides)."""
+    ``ref.attention_reference`` (q [B,H,S,D]; k [B,KV,S,D], v [B,KV,S,Dv]
+    -> [B,H,S,Dv] in q's dtype, its first three dims laid out as q's)."""
     global LAUNCHES, TENSOR_CORE_LAUNCHES, CUDA_CORE_LAUNCHES
     _check(q, k, v)
     B, H, S, D = q.shape
+    Dv = v.shape[-1]
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     if cap is not None and not cap > 0:
         raise ValueError(f"softcap must be positive, got {cap}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)             # q's strides (it is dense)
+    out = _empty_like_q(q, Dv)
     if out.numel() == 0:
         return out
     lib = nvcc.load(SOURCE, _bind)
@@ -160,13 +180,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.arcadia_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], B, H, k.shape[1], S, D, int(causal),
+            *out.stride()[:3], B, H, k.shape[1], S, D, Dv, int(causal),
             0 if window is None else int(window), float(scale),
             0.0 if cap is None else float(cap), _DTYPES[q.dtype], stream,
             ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError_t {err} "
                            f"(B={B}, H={H}, KV={k.shape[1]}, S={S}, D={D}, "
+                         f"Dv={Dv}, "
                            f"{q.dtype}, route {route.value})")
     LAUNCHES += 1
     if ROUTES[route.value] == "tensor_cores":

@@ -5,8 +5,8 @@ the hand-written kernels (``flash_attention.py``: bf16 at head dims 64,
 128 and 256 on the tensor cores, the rest on the CUDA cores), anything
 else raises.  Nothing falls back: a CUDA tensor never reaches the plain
 version, and a kernel that cannot build or launch, or an input it does
-not take (a dtype other than fp32 or bf16, a head dim above 256, a head
-dim that is not contiguous), raises.  The kernels' launch count is
+not take (a dtype other than fp32 or bf16, a head dim above 256, a value
+head dim above q's, a head dim that is not contiguous), raises.  The kernels' launch count is
 ``flash_attention.LAUNCHES``, each route's ``TENSOR_CORE_LAUNCHES`` and
 ``CUDA_CORE_LAUNCHES``.
 """
@@ -25,8 +25,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     cap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q [B,H,S,D]; k, v [B,KV,S,D] -> [B,H,S,D]; query head h reads kv
-    head h // (H // KV)."""
+    """q [B,H,S,D]; k [B,KV,S,D], v [B,KV,S,Dv] with Dv <= D ->
+    [B,H,S,Dv]; query head h reads kv head h // (H // KV)."""
     kind = q.device.type
     if kind == "cpu":
         return ref.attention_reference(q, k, v, causal=causal, window=window,

@@ -3,7 +3,8 @@ masks, a tanh logit softcap and GQA head grouping.
 
 Materialised fp32 scores, as the JAX package's
 ``kernels/flash_attention/ref.py::attention_reference``: q [B,H,S,D];
-k, v [B,KV,S,D], query head h reading kv head h // (H // KV); a key at
+k [B,KV,S,D] and v [B,KV,S,Dv] (Dv may differ from D, as MLA's prefill
+has it), query head h reading kv head h // (H // KV); a key at
 position t is seen by the query at position s when t <= s (causal) and
 t > s - window (window).  Masked scores are set to NEG_INF = -2^30, the
 softmax is taken in fp32, and p is cast to v's dtype before the PV
@@ -25,7 +26,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         cap: Optional[float] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q [B,H,S,D]; k, v [B,KV,S,D] -> [B,H,S,D] in v's dtype."""
+    """q [B,H,S,D]; k [B,KV,S,D], v [B,KV,S,Dv] -> [B,H,S,Dv] in v's
+    dtype."""
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

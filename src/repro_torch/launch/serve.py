@@ -1,18 +1,19 @@
-"""Serving launcher: batched prefill + greedy decode with the KV / SSM
-state cache, on the card unless ``--device cpu`` is given.
+"""Serving launcher: batched prefill + greedy decode with the KV / latent
+/ SSM state cache, on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --batch 2 --prompt-len 8192 --gen 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \\
       --reduced --device cpu --batch 4 --prompt-len 64 --gen 32
 
 Parameters are initialised from ``--seed`` (no weights are downloaded).
-The port serves causal token models built of GQA attention, dense MLP
-and SSM layers (qwen2-7b, starcoder2-3b, gemma2-9b, command-r-35b,
-mamba2-130m); an MLA, MoE or frontend config raises
-``NotImplementedError`` naming its ROADMAP item.  With SSM layers the
-prompt length must be at most ``ssm_chunk`` or a multiple of it (the
-chunked scan's condition).
+Every causal config decodes (``generate``): the dense GQA family, MLA
+with MoE (deepseek-v3), MoE (moonshot), the hybrid (jamba) and the VLM
+(llava-next, whose prompt is ``min(n_patches, prompt_len - 1)`` patch
+embeddings followed by tokens).  An encoder (hubert) has no decode: its
+whole-sequence forward over frame embeddings is ``forward``.  With SSM
+layers the prompt length must be at most ``ssm_chunk`` or a multiple of
+it (the chunked scan's condition).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -29,23 +30,14 @@ from ..configs import ARCH_NAMES, get_config, reduced_config
 from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
-from ..models.layers import NOT_PORTED
 
 
 def check_servable(cfg: ModelConfig, prompt_len: int) -> None:
-    """Raise unless the port can serve ``cfg`` at ``prompt_len``: a causal
-    token model whose layers are GQA attention, SSM or dense MLP."""
+    """Raise unless the port can decode ``cfg`` after a prompt of
+    ``prompt_len`` positions: any causal config (an encoder has only the
+    whole-sequence ``forward``)."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode serving")
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: {cfg.input_kind} inputs are "
-                                  f"{NOT_PORTED}, the frame/patch frontends")
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is "
-                                  f"{NOT_PORTED}, the MLA layer")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are {NOT_PORTED}, "
-                                  f"the MoE layer")
     q = cfg.ssm_chunk
     has_ssm = any(k.mixer == "ssm" for k in cfg.block_pattern())
     if has_ssm and prompt_len > q and prompt_len % q:
@@ -67,18 +59,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int
-             ) -> Generation:
+def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int,
+             patches: Optional[torch.Tensor] = None) -> Generation:
     """Prefill ``prompts`` [B, P] (one SSD scan or flash attention launch
     per layer on the card), then ``gen - 1`` greedy decode steps: ``gen``
-    new tokens in all."""
+    new tokens in all.  A VLM's ``patches`` [B, Np, frontend_dim] come
+    before the tokens: the prompt is Np + P positions."""
     B, P = prompts.shape
+    batch: Dict[str, torch.Tensor] = {"tokens": prompts}
+    if patches is not None:
+        batch = {"patches": patches, "tokens": prompts}
+        P += patches.shape[1]
     check_servable(cfg, P)
     device = prompts.device
     cache = M.init_cache(cfg, B, P + gen, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = M.serve_step(params, cfg, {"tokens": prompts}, cache, 0)
+    logits, cache = M.serve_step(params, cfg, batch, cache, 0)
     tok = logits[:, -1:].argmax(-1)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -94,6 +91,25 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int
                       time.perf_counter() - t0, gen - 1)
 
 
+@dataclass
+class Forward:
+    logits: torch.Tensor                  # [B, S, V]
+    seconds: float                        # wall time, synchronised
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Forward:
+    """One whole-sequence forward with no cache (``serve_step(params, cfg,
+    batch, None, None)``): an encoder's serving step (hubert over its
+    frame embeddings), and the reference a decode is held against."""
+    device = next(iter(batch.values())).device
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, _ = M.serve_step(params, cfg, batch, None, None)
+    _sync(device)
+    return Forward(logits, time.perf_counter() - t0)
+
+
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_NAMES)
@@ -107,15 +123,31 @@ def main(argv: Optional[list] = None) -> None:
 
     cfg = reduced_config(args.arch) if args.reduced else \
         get_config(args.arch)
-    check_servable(cfg, args.prompt_len)
+    B, P = args.batch, args.prompt_len
+    if cfg.causal:
+        check_servable(cfg, P)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.cast_params(M.init_params(cfg, gen, device=device), cfg)
     rng = np.random.default_rng(args.seed)
+
+    def embeddings(n):
+        return torch.from_numpy(rng.normal(size=(B, n, cfg.frontend_dim))
+                                .astype(np.float32)).to(device)
+
+    if not cfg.causal:                    # encoder: frames, one forward
+        fwd = forward(params, cfg, {"frames": embeddings(P)})
+        print(f"[serve] {cfg.name} on {device}: forward {B}x{P} frames in "
+              f"{fwd.seconds * 1e3:.1f}ms; logits "
+              f"{tuple(fwd.logits.shape)}")
+        return
+    patches = None
+    if cfg.input_kind == "tokens+patches":
+        patches = embeddings(min(cfg.n_patches, P - 1))
+        P -= patches.shape[1]
     prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
-    out = generate(params, cfg, prompts, args.gen)
-    B = args.batch
+        0, cfg.vocab_size, (B, P))).to(device)
+    out = generate(params, cfg, prompts, args.gen, patches=patches)
     print(f"[serve] {cfg.name} on {device}: prefill {B}x{args.prompt_len} in "
           f"{out.prefill_s * 1e3:.1f}ms; decoded {out.decode_steps} steps in "
           f"{out.decode_s * 1e3:.1f}ms "

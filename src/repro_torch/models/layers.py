@@ -1,7 +1,7 @@
 """Neural layers of the port, in PyTorch: the numerics helpers, rotary
-embeddings, the attention strategies and the GQA attention layer, the
-dense MLP and the Mamba2 (SSD) mixer of the JAX package's
-``models/layers.py``.
+embeddings, the attention strategies, the GQA and MLA attention layers,
+the dense MLP, the mixture of experts and the Mamba2 (SSD) mixer of the
+JAX package's ``models/layers.py``.
 
 Two kernels sit under these layers.  The mixer's chunked scan goes
 through ``kernels/ssd_scan/ops.ssd``; the prefill attention of a CUDA
@@ -11,9 +11,10 @@ its plain version.  On the CPU, ``attention`` picks the JAX package's
 strategy by shape (direct, blockwise or sliding), so that each strategy
 can be held against its counterpart.  Decode attention (one query
 against the cache) is the plain direct path on both devices, as in the
-JAX package.  The parameter shapes of the MLA and MoE layers are here
-too, so that ``param_specs`` and ``param_count`` cover every config, but
-their forward passes are not ported yet (ROADMAP Queue 1).
+JAX package (MLA's absorbed decode attends in its latent space there).
+The MoE layer's expert products are batched matmuls, as the JAX package
+leaves them to XLA; its expert-parallel path (``set_moe_ep``) is not
+ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
 
-NOT_PORTED = "not ported yet: ROADMAP.md Queue 1"
 NEG_INF = -2.0 ** 30
 
 
@@ -184,18 +184,19 @@ def _sliding_attention(q, k, v, *, scale, window, cap, chunk_q):
 def _flash_attention(q, k, v, *, scale, causal, window, cap):
     """Prefill through ``kernels/flash_attention``: q [B,S,K,G,D] read as
     [B,H,S,D] with H = K·G (query head k·G + g reads kv head k, the
-    kernel's h // G), k and v as [B,K,S,D] — permuted views, no copy."""
+    kernel's h // G), k [B,K,S,D] and v [B,K,S,Dv] — permuted views, no
+    copy.  Returns [B,S,K,G,Dv]."""
     B, S, K, G, D = q.shape
     o = flash_ops.flash_attention(
         q.reshape(B, S, K * G, D).transpose(1, 2), k.transpose(1, 2),
         v.transpose(1, 2), causal=causal, window=window, cap=cap,
         scale=scale)
-    return o.transpose(1, 2).reshape(B, S, K, G, D)
+    return o.transpose(1, 2).reshape(B, S, K, G, v.shape[-1])
 
 
 def attention(q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
               kv_len=None, chunk_q=512, scale=None):
-    """q [B,Sq,K,G,D]; k,v [B,Sk,K,D] -> [B,Sq,K,G,D].
+    """q [B,Sq,K,G,D]; k [B,Sk,K,D], v [B,Sk,K,Dv] -> [B,Sq,K,G,Dv].
 
     A prefill of CUDA tensors (Sq == Sk, no ``kv_len``, no offset) goes to
     the flash kernel, whatever the shape.  Everything else chooses as the
@@ -332,7 +333,7 @@ def mlp(x, p, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------- #
-# parameter shapes of the layers whose forward is not ported yet
+# MLA attention (deepseek-v3): low-rank Q/KV with a compressed cache
 # ---------------------------------------------------------------------- #
 
 def mla_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -348,6 +349,103 @@ def mla_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
+def _heads_mm(x, w):
+    """x [..., H, a] against w [a, H, b] -> [..., H, b]: one product per
+    head (the JAX package's ``einsum("...ha,ahb->...hb")``)."""
+    lead, (H, a) = x.shape[:-2], x.shape[-2:]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    xh = x.to(dt).reshape(-1, H, a).transpose(0, 1)           # [H, N, a]
+    out = torch.bmm(xh, w.to(dt).permute(1, 0, 2))            # [H, N, b]
+    return out.transpose(0, 1).reshape(*lead, H, w.shape[-1])
+
+
+def mla_attention(x, p, cfg: ModelConfig, *,
+                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  index: Optional[int] = None):
+    """DeepSeek-V3 multi-head latent attention.  x [B,S,D]; cache =
+    {"latent" [B,T,kv_lora + qk_rope]}: the serving cache holds only the
+    compressed latent of each token.  Returns (y, new_cache).
+
+    Prefill expands the fresh span's latent to per-head keys [B,S,H,
+    qk_nope + qk_rope] and values [B,S,H,v] and attends through
+    ``attention`` (the flash kernel on the card, Dv < D; the values are a
+    strided view of the expansion, no copy).  Decode with ``mla_absorb``
+    folds ``wkv_b`` into the query and the output and attends in the
+    latent space (KV = 1, G = H), on the direct path; without it, the
+    whole cache is expanded every step.  As in ``gqa_attention`` the
+    latent is written into ``cache`` in place and the same tensor
+    returned."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kr = cfg.kv_lora_rank
+    pos0 = 0 if index is None else int(index)
+    positions = (pos0 + torch.arange(S, device=x.device))[None, :]
+
+    cq = rms_norm(_mm(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    qr = cq.shape[-1]
+    q = _mm(cq, p["wq_b"].reshape(qr, H * (dn + dr))).view(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+
+    ckv_full = _mm(x, p["wkv_a"])                            # [B,S,kr+dr]
+    ckv, k_rope = ckv_full[..., :kr], ckv_full[..., kr:]
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    latent = torch.cat([rms_norm(ckv, p["kv_norm"], cfg.norm_eps), k_rope],
+                       dim=-1)
+
+    new_cache = None
+    lat, kv_len, q_offset, causal = latent, None, 0, cfg.causal
+    if cache is not None:
+        lat_buf = cache["latent"]
+        lat_buf[:, pos0:pos0 + S] = latent.to(lat_buf.dtype)
+        new_cache = {"latent": lat_buf}
+        if S == 1:                  # decode; prefill attends the fresh span
+            lat, kv_len, q_offset, causal = lat_buf, pos0 + S, pos0, False
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    if cache is not None and S == 1 and cfg.mla_absorb:
+        # absorbed decode: wkv_b folded into the query and the output, so
+        # attention runs in the latent space without expanding the cache
+        wkb, wvb = p["wkv_b"][..., :dn], p["wkv_b"][..., dn:]  # [kr,H,dn|dv]
+        q_eff = torch.cat([_heads_mm(q_nope, wkb.transpose(0, 2)), q_rope],
+                          dim=-1)                            # [B,1,H,kr+dr]
+        o_lat = attention(q_eff.reshape(B, S, 1, H, kr + dr),
+                          lat[:, :, None, :], lat[:, :, None, :kr],
+                          causal=False, q_offset=q_offset, kv_len=kv_len,
+                          scale=scale)
+        o = _heads_mm(o_lat.reshape(B, S, H, kr), wvb)         # [B,S,H,dv]
+        y = _mm(o.reshape(B, S, H * dv), p["wo_mla"].reshape(H * dv, D))
+        return y, new_cache
+
+    ckv_t, krope_t = lat[..., :kr], lat[..., kr:]
+    T = lat.shape[1]
+    kv = _mm(ckv_t, p["wkv_b"].reshape(kr, H * (dn + dv))
+             ).view(B, T, H, dn + dv)
+    k_nope, vv = kv[..., :dn], kv[..., dn:]
+    # per-head keys [B,T,H,dn+dr]; heads as KV groups of one (G = 1)
+    k_full = torch.cat([k_nope, krope_t[:, :, None, :].expand(B, T, H, dr)],
+                       dim=-1)
+    o = attention(q_full.reshape(B, S, H, 1, dn + dr), k_full, vv,
+                  causal=causal, q_offset=q_offset, kv_len=kv_len,
+                  scale=scale)
+    y = _mm(o.reshape(B, S, H * dv), p["wo_mla"].reshape(H * dv, D))
+    return y, new_cache
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int
+                   ) -> Dict[str, TensorSpec]:
+    width = cfg.kv_lora_rank + cfg.qk_rope_dim
+    return {"latent": TensorSpec((batch, max_len, width),
+                                 torch_dtype(cfg.compute_dtype))}
+
+
+# ---------------------------------------------------------------------- #
+# mixture of experts
+# ---------------------------------------------------------------------- #
+
 def moe_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
     D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     shapes = {
@@ -358,6 +456,75 @@ def moe_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
         shapes["shared"] = mlp_params_shapes(
             cfg, cfg.moe_d_ff * cfg.n_shared_experts)
     return shapes
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row and their indices, lower index first on
+    ties (``lax.top_k``'s order; ``torch.topk`` leaves it unspecified)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """Sort-based dropped-token MoE (the JAX package's ``moe_ffn`` without
+    its expert-parallel path).  Returns (y, aux_loss).
+
+    Router logits in fp32, softmax, top-k with renormalised gates; the
+    T·K (token, expert) pairs sorted by expert (stably) fill per-expert
+    buckets of capacity C = max(1, ceil(T·K/E·capacity_factor)), a pair
+    whose slot is C or more dropped; batched expert SwiGLU over [E,C,D];
+    each kept output times its gate goes back to its token.  The combine
+    adds a token's K contributions (zero where dropped) one by one in
+    ascending expert order, in x's dtype — the order of the JAX package's
+    scatter-add, and the same on every run (no atomics); plus the shared
+    experts and the switch-style load-balance loss."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, D)
+    logits = torch.matmul(xt.float(), p["router"].float())   # [T,E] fp32
+    probs = torch.softmax(logits, dim=-1)
+    gate, gidx = top_k(probs, K)                             # [T,K]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = gidx.reshape(-1)                                # [T*K]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    tok = order // K
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
+    pos = torch.arange(T * K, device=x.device) - starts[sorted_e]
+    C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    keep = pos < C
+
+    buf = x.new_zeros((E, C, D))
+    buf[sorted_e[keep], pos[keep]] = xt[tok[keep]]           # unique slots
+    F_ = p["experts"]["wo"].shape[1]
+    h = torch.bmm(buf, p["experts"]["wi"].reshape(E, D, 2 * F_).to(x.dtype)
+                  ).view(E, C, 2, F_)
+    act = F.silu(h[..., 0, :].float()).to(x.dtype) * h[..., 1, :]
+    out_buf = torch.bmm(act, p["experts"]["wo"].to(x.dtype))  # [E,C,D]
+
+    contrib = x.new_zeros((T * K, D))
+    contrib[keep] = out_buf[sorted_e[keep], pos[keep]]
+    contrib = contrib * gate.reshape(-1)[order][:, None].to(x.dtype)
+    # each token's K rows of contrib, in ascending expert order
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=x.device)
+    rows = inv.view(T, K).gather(1, torch.argsort(gidx, dim=-1, stable=True))
+    per_tok = contrib[rows]                                  # [T,K,D]
+    y = per_tok[:, 0]
+    for j in range(1, K):
+        y = y + per_tok[:, j]
+    y = y.reshape(B, S, D)
+
+    if cfg.n_shared_experts:
+        y = y + mlp(x, p["shared"], cfg)
+
+    # switch-style load-balance auxiliary
+    me = probs.mean(dim=0)                                   # [E]
+    ce = torch.bincount(flat_e, minlength=E).float() / (T * K)
+    aux = cfg.router_aux_weight * E * torch.sum(me * ce)
+    return y, aux
 
 
 # ---------------------------------------------------------------------- #

@@ -14,12 +14,13 @@ Public entry points:
   cache_specs(cfg, batch, max_len) / init_cache(...)
   serve_step(params, cfg, batch, cache, index) — prefill & decode
 
-GQA attention (with gemma2's local/global alternation, softcaps and
-post-norms, and command-r's parallel block), dense MLP and SSM layers run
-here: qwen2-7b, starcoder2-3b, gemma2-9b, command-r-35b and mamba2-130m.
-An MLA or MoE layer raises ``NotImplementedError`` naming its ROADMAP
-item.  Training (``forward_train``, the loss, multi-token prediction)
-waits for the training slice.
+Every layer of the ten configs runs here: GQA attention (with gemma2's
+local/global alternation, softcaps and post-norms, and command-r's
+parallel block), MLA attention with its latent cache and deepseek's dense
+prologue, dense MLP, MoE and SSM layers, and the frame (hubert) and patch
+(llava-next) frontends.  Training (``forward_train``, the loss,
+multi-token prediction) waits for the training slice; the MTP params
+exist in ``param_specs`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ..device import resolve_device
 from ..tree import leaf_paths, map_with_path, tree_map
 from . import layers as L
 from .config import LayerKind, ModelConfig
-from .layers import NOT_PORTED, TensorSpec, torch_dtype
+from .layers import TensorSpec, torch_dtype
 
 Params = Dict[str, Any]
 
@@ -139,8 +140,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.zeros(shape, dtype=dtype, device=device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = 0.02 if fan_in <= 0 else min(0.02, fan_in ** -0.5)
-        return (torch.randn(shape, generator=generator, **f32) * scale
-                ).to(dtype)
+        # scaled in place: deepseek-v3's stacked expert leaf is 30 GB in fp32
+        return torch.randn(shape, generator=generator, **f32).mul_(scale
+                                                                   ).to(dtype)
 
     specs = param_specs(cfg)
     values = {name: init(name, spec) for name, spec in leaf_paths(specs)}
@@ -180,16 +182,13 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
 
 def _apply_layer(h, p, cfg: ModelConfig, kind: LayerKind, cache, index):
     """One residual layer.  Returns (h, new_cache, aux)."""
-    if kind.mixer == "attn" and cfg.use_mla:
-        raise NotImplementedError(f"MLA attention is {NOT_PORTED}, the MLA "
-                                  f"layer")
-    if kind.moe:
-        raise NotImplementedError(f"MoE layers are {NOT_PORTED}, the MoE "
-                                  f"layer")
     p = _cast_compute(p, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     u = L.rms_norm(h, p["ln1"]["w"], cfg.norm_eps)
-    if kind.mixer == "attn":
+    if kind.mixer == "attn" and cfg.use_mla:
+        mix, new_cache = L.mla_attention(u, p["attn"], cfg, cache=cache,
+                                         index=index)
+    elif kind.mixer == "attn":
         mix, new_cache = L.gqa_attention(u, p["attn"], cfg, local=kind.local,
                                          cache=cache, index=index)
     else:
@@ -203,7 +202,10 @@ def _apply_layer(h, p, cfg: ModelConfig, kind: LayerKind, cache, index):
         mix = L.rms_norm(mix, p["post_ln1"]["w"], cfg.norm_eps)
     h = h + mix
     u2 = L.rms_norm(h, p["ln2"]["w"], cfg.norm_eps)
-    ff = L.mlp(u2, p["ffn"], cfg)
+    if kind.moe:
+        ff, aux = L.moe_ffn(u2, p["ffn"], cfg)
+    else:
+        ff = L.mlp(u2, p["ffn"], cfg)
     if cfg.use_post_norm:
         ff = L.rms_norm(ff, p["post_ln2"]["w"], cfg.norm_eps)
     return h + ff, new_cache, aux
@@ -214,8 +216,7 @@ def _layer_cache_spec(cfg: ModelConfig, kind: LayerKind, batch: int,
     if kind.mixer == "ssm":
         return L.ssm_cache_spec(cfg, batch)
     if cfg.use_mla:
-        raise NotImplementedError(f"MLA caches are {NOT_PORTED}, the MLA "
-                                  f"layer")
+        return L.mla_cache_spec(cfg, batch, max_len)
     return L.gqa_cache_spec(cfg, batch, max_len)
 
 
@@ -286,16 +287,26 @@ def _run_stack(params: Params, cfg: ModelConfig, h, cache, index):
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
-    """Token inputs -> [B,S,D] activations in the compute dtype."""
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.input_kind} inputs are not ported yet: ROADMAP.md Queue 1, "
-            f"the frame/patch frontends")
+    """Token / frame / patch inputs -> [B,S,D] activations in the compute
+    dtype.  The frontends are stubs, as in the JAX package: frames and
+    patches arrive as precomputed embeddings and go through one learned
+    projection each; a VLM's patches come before its tokens."""
     dt = torch_dtype(cfg.compute_dtype)
-    h = params["embed"]["w"].to(dt)[batch["tokens"]]
-    if cfg.scale_embeddings:              # gemma-style embed scaling
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
-    return h
+
+    def project(x, proj):
+        return torch.matmul(x.to(dt), proj["w"].to(dt)) + proj["b"].to(dt)
+
+    if cfg.input_kind == "frames":
+        return project(batch["frames"], params["frame_proj"])
+    parts = []
+    if cfg.input_kind == "tokens+patches" and "patches" in batch:
+        parts.append(project(batch["patches"], params["patch_proj"]))
+    if "tokens" in batch:
+        ht = params["embed"]["w"].to(dt)[batch["tokens"]]
+        if cfg.scale_embeddings:              # gemma-style embed scaling
+            ht = ht * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+        parts.append(ht)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def _logits(params: Params, cfg: ModelConfig, h):
@@ -310,7 +321,9 @@ def _logits(params: Params, cfg: ModelConfig, h):
 def serve_step(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                cache, index) -> Tuple[torch.Tensor, Any]:
     """Prefill (S>1, index=0) or decode (S=1) against a persistent cache
-    (or a whole-sequence forward with ``cache=None``).
+    (or a whole-sequence forward with ``cache=None``, an encoder's only
+    mode).  ``batch`` holds "tokens", "frames" or "patches" + "tokens" as
+    the config's ``input_kind`` says.
     Returns (logits [B,S,V], new_cache).
 
     The JAX package returns a new cache and leaves the old one as it was;

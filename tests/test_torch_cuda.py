@@ -303,7 +303,7 @@ def check_flash(q, k, v, **kw):
     got = fa_ops.flash_attention(q, k, v, **kw)
     assert fa.LAUNCHES == before + 1
     want = fa_ref.attention_reference(q, k, v, **kw)
-    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.dtype == q.dtype and got.shape == (*q.shape[:3], v.shape[-1])
     tol = FLASH_TOL[q.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     row_err = ((got.float() - want.float()).abs().amax(-1)
@@ -551,6 +551,188 @@ def test_gemma2_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
         torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
         assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
     assert fa.LAUNCHES == before + cfg.n_layers       # decode: no kernel
+
+
+# --------------- a value head dim below the key head dim (MLA) --------------- #
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,KV,S,D,Dv", [(1, 4, 4, 200, 192, 128),
+                                           (2, 8, 4, 130, 128, 64),
+                                           (1, 2, 1, 70, 48, 32)],
+                         ids=["mla", "gqa-128-64", "reduced-mla"])
+def test_flash_kernel_with_a_narrower_value_head(cuda_device, fp32_exact,
+                                                 dtype, B, H, KV, S, D, Dv):
+    """v [B,KV,S,Dv] with Dv < D: the CUDA-core kernel (a bf16 head dim of
+    128 too: the tensor-core kernel needs Dv == D), causal, within the
+    elementwise and row tolerances of the plain version."""
+    q, k, _ = attn_inputs(B, H, KV, S, D, dtype, S + Dv, cuda_device)
+    v = attn_inputs(B, KV, KV, S, Dv, dtype, S + D, cuda_device)[2]
+    check_route("cuda_cores", q, k, v, causal=True,
+                scale=1.0 / float(np.sqrt(D)))
+
+
+def test_flash_kernel_reads_mlas_value_view(cuda_device):
+    """MLA's prefill passes v as the strided [..., qk_nope:] view of the
+    expanded [B,S,H,qk_nope + v] projection (a 256-byte offset) and q, k
+    as permuted [B,S,H,D] views: no copy, the same bits as contiguous
+    inputs, and a [B,S,H,Dv]-laid-out output."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    B, S, H, dn, dr, dv = 2, 150, 4, 128, 64, 128
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)  # noqa: E731
+                                    ).to(cuda_device, torch.bfloat16)
+    q, k, kv = t(B, S, H, dn + dr), t(B, S, H, dn + dr), t(B, S, H, dn + dv)
+    qv, kvw, vv = q.transpose(1, 2), k.transpose(1, 2), \
+        kv[..., dn:].transpose(1, 2)
+    check_route("cuda_cores", qv, kvw, vv, causal=True)
+    a = fa.flash_attention_cuda(qv, kvw, vv, causal=True)
+    b = fa.flash_attention_cuda(qv.contiguous(), kvw.contiguous(),
+                                vv.contiguous(), causal=True)
+    assert a.shape == (B, H, S, dv) and a.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_flash_kernel_refuses_a_value_head_wider_than_the_key_head(
+        cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, _ = attn_inputs(1, 2, 2, 64, 64, torch.float32, 0, cuda_device)
+    before = fa.LAUNCHES
+    wide = attn_inputs(1, 2, 2, 64, 68, torch.float32, 1, cuda_device)[2]
+    for v in (wide, wide[..., :62]):                 # above D; not 4·k
+        with pytest.raises(ValueError, match="v head dim"):
+            fa_ops.flash_attention(q, k, v)
+    v = attn_inputs(1, 2, 2, 32, 64, torch.float32, 1, cuda_device)[2]
+    with pytest.raises(ValueError, match="shapes disagree"):
+        fa_ops.flash_attention(q, k, v)              # another length
+    assert fa.LAUNCHES == before
+
+
+# ---------------------- MoE and the new model families ---------------------- #
+
+def moe_inputs(cfg, device, dtype, seed=0):
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(seed)
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        return torch.from_numpy((rng.normal(size=node) * 0.2)
+                                .astype(np.float32)).to(device, dtype)
+    x = torch.from_numpy(rng.normal(size=(2, 96, cfg.d_model))
+                         .astype(np.float32)).to(device, dtype)
+    return x, draw(L.moe_params_shapes(cfg))
+
+
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.0],
+                         ids=["dropless", "dropping"])
+def test_moe_ffn_on_the_card_matches_the_cpu_and_repeats_bitwise(
+        cuda_device, fp32_exact, capacity_factor):
+    """Reduced deepseek-v3's MoE (8 experts, top-3, a shared expert): in
+    fp32 the card's output equals the CPU's within 1e-5 (the same products
+    summed in another order) with the same aux; in bf16 two runs on the
+    card give the same bits (the combine adds each token's contributions
+    in a fixed order: no atomics)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_map
+
+    cfg = replace(reduced_config("deepseek-v3-671b"),
+                  capacity_factor=capacity_factor)
+    x, p = moe_inputs(cfg, "cpu", torch.float32)
+    want, want_aux = L.moe_ffn(x, p, cfg)
+    got, aux = L.moe_ffn(x.to(cuda_device),
+                         tree_map(lambda t: t.to(cuda_device), p), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+    xb, pb = moe_inputs(cfg, cuda_device, torch.bfloat16)
+    first, _ = L.moe_ffn(xb, pb, cfg)
+    second, _ = L.moe_ffn(xb, pb, cfg)
+    assert torch.equal(first, second)
+
+
+def family_card_vs_cpu(name, batch, prefill, decode_tokens, cuda_device):
+    """Reduced ``name`` on the card (kernel) and the CPU (plain): the
+    prefill's logits within 2e-4 with one flash launch per attention layer,
+    then each decode token within 2e-3 with the same greedy token and no
+    launch (a ``None`` prefill length: one cache-less forward)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_config(name)
+    host = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    on = lambda b: {k: v.to(cuda_device) for k, v in b.items()}  # noqa: E731
+    attn_layers = sum(k.mixer == "attn" for k in cfg.block_pattern()) \
+        * cfg.n_blocks + cfg.first_dense_layers
+    before = fa.LAUNCHES
+    if prefill is None:
+        got, _ = M.serve_step(card, cfg, on(batch), None, None)
+        want, _ = M.serve_step(host, cfg, batch, None, None)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+        assert fa.LAUNCHES == before + attn_layers
+        return
+    T = prefill + len(decode_tokens)
+    caches = {d: M.init_cache(cfg, 2, T, device=d) for d in ("cpu", "cuda")}
+    got, caches["cuda"] = M.serve_step(card, cfg, on(batch), caches["cuda"], 0)
+    want, caches["cpu"] = M.serve_step(host, cfg, batch, caches["cpu"], 0)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    assert fa.LAUNCHES == before + attn_layers
+    for j, tok in enumerate(decode_tokens):
+        got, caches["cuda"] = M.serve_step(card, cfg, on({"tokens": tok}),
+                                           caches["cuda"], prefill + j)
+        want, caches["cpu"] = M.serve_step(host, cfg, {"tokens": tok},
+                                           caches["cpu"], prefill + j)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+        assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
+    assert fa.LAUNCHES == before + attn_layers        # decode: no kernel
+
+
+def test_deepseek_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
+    """Reduced deepseek-v3 (a dense MLA layer, an MLA + MoE layer; q/k
+    head dim 48, v 32): the prefill's MLA attention on the CUDA-core
+    kernel with Dv < D, the absorbed decode on the direct path."""
+    from repro_torch.configs import reduced_config
+
+    V = reduced_config("deepseek-v3-671b").vocab_size
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, V, (2, 164)))
+    family_card_vs_cpu("deepseek-v3-671b", {"tokens": toks[:, :160]}, 160,
+                       [toks[:, j:j + 1] for j in range(160, 164)],
+                       cuda_device)
+
+
+def test_llava_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
+    """Reduced llava-next: 16 patch embeddings before 144 tokens."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config("llava-next-34b")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 148)))
+    patches = torch.from_numpy(rng.normal(size=(2, 16, cfg.frontend_dim))
+                               .astype(np.float32))
+    family_card_vs_cpu("llava-next-34b",
+                       {"patches": patches, "tokens": toks[:, :144]}, 160,
+                       [toks[:, j:j + 1] for j in range(144, 148)],
+                       cuda_device)
+
+
+def test_hubert_forward_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
+    """Reduced hubert: a non-causal forward over 200 frame embeddings."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config("hubert-xlarge")
+    frames = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 200, cfg.frontend_dim)).astype(np.float32))
+    family_card_vs_cpu("hubert-xlarge", {"frames": frames}, None, [],
+                       cuda_device)
 
 
 # ------------------- the hash's short rows: one warp a row ------------------ #
