@@ -25,11 +25,12 @@
 // (0.04 ms at 3.35 TB/s): it is bound by operations, so its products
 // belong on the tensor cores.
 //
-// Two kernels, chosen by dtype and head dim in `arcadia_flash_attention`
-// (never by trying one and then the other):
+// Two kernels, chosen by dtype, head dims and alignment in
+// `arcadia_flash_attention` (never by trying one and then the other):
 //
-// 1. `flash_fwd_wgmma` — bf16 at head dims 64, 128 and 256 (pointers and
-//    strides 16-byte aligned, TMA's rule): the serving widths.
+// 1. `flash_fwd_wgmma<D, Dv>` — bf16 at the serving pairs (D, Dv) = (64,
+//    64), (80, 80) (hubert), (128, 128), (192, 128) (MLA's prefill) and
+//    (256, 256), pointers and strides 16-byte aligned (TMA's rule).
 //    * Three warpgroups.  Warpgroup 0 is the producer: after `setmaxnreg`
 //      drops it to 24 registers, one thread issues TMA copies of the Q tile
 //      and of each K and V tile into shared memory, with mbarriers counting
@@ -40,9 +41,10 @@
 //      softmax runs on those registers; P is rounded to bf16 (the plain
 //      version rounds p to v's dtype) and packed in place: the
 //      accumulator's fragment layout is the A-operand layout of the next
-//      product, so O += P·V is `wgmma m64n{D}k16` with A from registers and
-//      V from shared memory.  V's tile is [keys, D] with D contiguous, the
-//      MN-major B operand (wgmma's transpose bit), so it needs no transpose.
+//      product, so O += P·V is `wgmma m64n{N}k16` with A from registers and
+//      V from shared memory, N = Dv rounded up to whole 64-column boxes.
+//      V's tile is [keys, Dv] with Dv contiguous, the MN-major B operand
+//      (wgmma's transpose bit), so it needs no transpose.
 //    * Overlap.  K/V tiles sit in a ring of two stages with full and empty
 //      mbarriers (K and V apart, so K's slot frees as soon as Q·Kᵀ is
 //      done): the producer loads ahead while the consumers multiply.  A
@@ -52,19 +54,29 @@
 //      runs under the other's products; for that both walk all the
 //      block's tiles.  The softmax, not the products or the copies, is what
 //      the kernel waits for (tools/flash_ablate.py times it without each).
-//    * Tensor maps: one per operand over its strided 4-D view (D, S, heads,
-//      batch), built on the host per call with cuTensorMapEncodeTiled got
-//      through cudaGetDriverEntryPoint (no -lcuda), 128-byte swizzle, so a
-//      row of D bf16 is D/64 boxes of 64 columns.  The layer's [B,S,H,D]
-//      views go in as they are.  Rows past S arrive as zeros.
+//    * Tensor maps: one per operand over its strided 4-D view (D or Dv, S,
+//      heads, batch), built on the host per call with cuTensorMapEncodeTiled
+//      got through cudaGetDriverEntryPoint (no -lcuda), 128-byte swizzle,
+//      so a row is ceil(D/64) boxes of 64 columns.  The layer's [B,S,H,D]
+//      views go in as they are, and so does MLA's v, the [..., 128:] view
+//      of its [B,S,H,256] expansion (a 256-byte offset).  Rows past S
+//      arrive as zeros, and so do a box's columns past the view's head dim:
+//      at D = 80 a row is two boxes, columns 80..127 zero.  Q·Kᵀ runs D/16
+//      k16 steps (5 at D = 80: the zero columns are never multiplied); P·V
+//      runs over N = 128 and the epilogue writes the Dv live columns.  So
+//      at D = 80 the tensor cores execute (80 + 128)/160 = 1.3× the
+//      function's operations; narrowing P·V needs a second, 16-column map
+//      with a 32-byte swizzle.  TMA counts a box's bytes whole, zero
+//      columns included, so the barriers expect boxes·rows·128 bytes.
 //    * Tiles (227 KB of shared memory a block; Br = 128 query rows):
-//        D = 256: Bc = 64,  Q 64 KB + 2 stages × (K 32 + V 32 KB) = 192 KB
-//        D = 128: Bc = 128, Q 32 KB + 2 × (32 + 32 KB)             = 160 KB
-//        D =  64: Bc = 128, Q 16 KB + 2 × (16 + 16 KB)             =  80 KB
+//        D = 256:         Bc = 64,  Q 64 KB + 2 stages × (K 32 + V 32 KB) = 192 KB
+//        D = 192, Dv 128: Bc = 128, Q 48 KB + 2 × (48 + 32 KB)            = 208 KB
+//        D = 128 and 80:  Bc = 128, Q 32 KB + 2 × (32 + 32 KB)            = 160 KB
+//        D = 64:          Bc = 128, Q 16 KB + 2 × (16 + 16 KB)            =  80 KB
 //      plus 1 KB to align the ring to the swizzle's 1024 bytes and 128 B of
-//      barriers.  Registers a consumer thread: O is 64 × D fp32 over 128
-//      threads (D/2: 128 at D = 256), S is Bc/2 (32), P Bc/4 (16): 176 of
-//      its 240 at D = 256; 64 + 64 + 32 at D = 128.  No kernel spills
+//      barriers.  Registers a consumer thread: O is 64 × N fp32 over 128
+//      threads (N/2: 128 at D = 256), S is Bc/2 (32), P Bc/4 (16): 176 of
+//      its 240 at D = 256; 64 + 64 + 32 at N = 128.  No kernel spills
 //      (cudaFuncGetAttributes' local bytes are 0; `arcadia_flash_kernel_info`
 //      reports them).
 //    * Masks only where they bite.  Tiles outside the causal/window band
@@ -80,9 +92,10 @@
 //      past S are not written.  Without a softcap the scale and log2(e)
 //      go into one FMA before ex2; with one, log2(e) is folded in after
 //      tanh.  The softcap uses tanhf (not tanh.approx).
-// 2. `flash_fwd_kernel` — fp32, bf16 at other head dims, and every Dv < D:
-//    the CUDA-core kernel of the first port.  fp32 in, fp32 products (no
-//    TF32), so fp32 inputs agree with the plain version to 2e-5.
+// 2. `flash_fwd_kernel` — fp32, bf16 at other pairs, and bf16 views that
+//    are not 16-byte aligned: the CUDA-core kernel of the first port.  fp32
+//    in, fp32 products (no TF32), so fp32 inputs agree with the plain
+//    version to 2e-5.
 //    * Dv < D.  The template width DM bounds max(D, Dv) = D; Q and K are
 //      staged over D columns and V over Dv (the rest of the tile is zero);
 //      Q·Kᵀ runs over the D columns (a run-time bound), P·V over all DM
@@ -370,21 +383,31 @@ int dispatch(const Args& a, int batch, int heads, cudaStream_t stream) {
 }
 
 
-// ------------------ tensor-core route: bf16, D in {64, 128, 256} ------------------ //
+// --------------- tensor-core route: bf16 at the serving (D, Dv) pairs --------------- //
 
 constexpr int kTcRows = 128;           // query rows of a block: two consumer warpgroups
 constexpr int kTcThreads = 384;        // producer warpgroup + two consumer warpgroups
 constexpr int kStages = 2;             // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+// q/k head dim D, v head dim Dv (both multiples of 16, Dv <= D).  A row
+// is loaded as 64-column boxes of 128 bytes; a box that reaches past the
+// head dim (D = 80: columns 64..127 of which 80..127 lie outside the
+// view) arrives with its outside columns zero, and TMA's complete_tx
+// counts the whole box, so every byte count below is boxes·rows·128.
+template <int D, int Dv>
 struct TcCfg {
+  static_assert(D % 16 == 0 && Dv % 16 == 0 && Dv <= D, "head dims");
   static constexpr int kBc = D == 256 ? 64 : 128;       // keys of a tile
-  static constexpr int kBoxes = D / 64;                 // 128-byte boxes of a row
-  static constexpr int kQBytes = kTcRows * D * 2;
-  static constexpr int kTileBytes = kBc * D * 2;        // one K or V tile
+  static constexpr int kBoxes = (D + 63) / 64;          // boxes of a Q or K row
+  static constexpr int kVBoxes = (Dv + 63) / 64;        // boxes of a V row
+  static constexpr int kN = 64 * kVBoxes;               // P·V's width: O's columns
+  static constexpr int kQBytes = kTcRows * kBoxes * 128;
+  static constexpr int kKBytes = kBc * kBoxes * 128;    // one K tile
+  static constexpr int kVBytes = kBc * kVBoxes * 128;   // one V tile
   static constexpr int kBarBytes = 128;                 // 1 + 4·kStages mbarriers
-  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+  static constexpr int kSmem =
+      1024 + kQBytes + kStages * (kKBytes + kVBytes) + kBarBytes;
   static_assert(kSmem <= kMaxSmem, "tile plan exceeds 227 KB");
 };
 
@@ -707,17 +730,17 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) 
   }
 }
 
-template <int D, bool kCap>
+template <int D, int Dv, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
-  using C = TcCfg<D>;
+  using C = TcCfg<D, Dv>;
   constexpr int Bc = C::kBc;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle repeats every 1024 bytes of shared address: align the ring
   uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* k_s = q_s + C::kQBytes;                    // stage st at + st·kTileBytes
-  uint8_t* v_s = k_s + kStages * C::kTileBytes;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(v_s + kStages * C::kTileBytes);
+  uint8_t* k_s = q_s + C::kQBytes;                    // stage st at + st·kKBytes
+  uint8_t* v_s = k_s + kStages * C::kKBytes;          // stage st at + st·kVBytes
+  uint64_t* bar = reinterpret_cast<uint64_t*>(v_s + kStages * C::kVBytes);
   uint64_t* q_full = bar;
   uint64_t* k_full = bar + 1;
   uint64_t* v_full = bar + 1 + kStages;
@@ -761,17 +784,17 @@ flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
         const int st = i % kStages;
         const int free_parity = ((i / kStages) & 1) ^ 1;  // the slot's last use
         const int k0 = (kt_lo + i) * Bc;
-        uint8_t* kd = k_s + st * C::kTileBytes;
-        uint8_t* vd = v_s + st * C::kTileBytes;
+        uint8_t* kd = k_s + st * C::kKBytes;
+        uint8_t* vd = v_s + st * C::kVBytes;
         mbar_wait(k_empty + st, free_parity);
-        mbar_expect_tx(k_full + st, C::kTileBytes);
+        mbar_expect_tx(k_full + st, C::kKBytes);
 #pragma unroll
         for (int c = 0; c < C::kBoxes; ++c)
           tma_load(kd + c * Bc * 128, &a.kmap, k_full + st, 64 * c, k0, kvh, b);
         mbar_wait(v_empty + st, free_parity);
-        mbar_expect_tx(v_full + st, C::kTileBytes);
+        mbar_expect_tx(v_full + st, C::kVBytes);
 #pragma unroll
-        for (int c = 0; c < C::kBoxes; ++c)
+        for (int c = 0; c < C::kVBoxes; ++c)
           tma_load(vd + c * Bc * 128, &a.vmap, v_full + st, 64 * c, k0, kvh, b);
       }
     }
@@ -803,11 +826,12 @@ flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
     // descriptors of this warpgroup's Q rows and of the stages' K and V
     // tiles; a step adds its byte offset / 16 to the start-address field
     const uint64_t q_desc = smem_desc(smem_u32(q_s) + cw * 64 * 128, 16, 1024);
-    // S = Q·Kᵀ of tile i into sc: D/16 steps of k16, Q and K K-major, each
+    // S = Q·Kᵀ of tile i into sc: D/16 steps of k16 (the zero columns of a
+    // last box past D are never multiplied), Q and K K-major, each
     // 64-column box after the last, 32 bytes a step within a box
     auto issue_qk = [&](float (&sc)[Bc / 2], int i) {
       const uint64_t k_desc =
-          smem_desc(smem_u32(k_s + (i % kStages) * C::kTileBytes), 16, 1024);
+          smem_desc(smem_u32(k_s + (i % kStages) * C::kKBytes), 16, 1024);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int col = (kk % 4) * 2;
@@ -816,10 +840,12 @@ flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
       }
     };
     // O += P·V of tile i: Bc/16 steps of k16 (16 key rows, 2048 bytes, a
-    // step), V MN-major with its 64-column boxes Bc·128 bytes apart
-    auto issue_pv = [&](float (&o)[D / 2], uint32_t (&pa)[Bc / 16][4], int i) {
+    // step), N = kN (Dv rounded up to whole boxes: at Dv = 80 the 48 zero
+    // columns give O columns that are never written), V MN-major with its
+    // 64-column boxes Bc·128 bytes apart
+    auto issue_pv = [&](float (&o)[C::kN / 2], uint32_t (&pa)[Bc / 16][4], int i) {
       const uint64_t v_desc =
-          smem_desc(smem_u32(v_s + (i % kStages) * C::kTileBytes), Bc * 128, 1024);
+          smem_desc(smem_u32(v_s + (i % kStages) * C::kVBytes), Bc * 128, 1024);
 #pragma unroll
       for (int ks = 0; ks < Bc / 16; ++ks) wgmma_rs(o, pa[ks], v_desc + ks * 128);
     };
@@ -832,9 +858,9 @@ flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
 
     // accumulator fragment (wgmma m64nN f32): o[4j + 2r + e] is row
     // row0 + 8r, column 8j + col0 + e; likewise the scores
-    float o[D / 2];
+    float o[C::kN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < C::kN / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};                   // running max
     float l[2] = {0.f, 0.f};                           // this thread's columns
     float alpha[2];
@@ -921,7 +947,7 @@ flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       __nv_bfloat16* row = og + static_cast<long long>(qpos) * a.o_ss + ctx.col0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < Dv / 8; ++j)                 // the Dv live columns
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
             __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
@@ -967,9 +993,9 @@ bool encode_view(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D, int 
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int Dv>
 int launch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t stream) {
-  using C = TcCfg<D>;
+  using C = TcCfg<D, Dv>;
   const EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   TcArgs t;
@@ -978,7 +1004,7 @@ int launch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t st
                    kTcRows) ||
       !encode_view(enc, &t.kmap, a.k, D, a.S, kv_heads, batch, a.k_ss, a.k_sh,
                    a.k_sb, C::kBc) ||
-      !encode_view(enc, &t.vmap, a.v, D, a.S, kv_heads, batch, a.v_ss, a.v_sh,
+      !encode_view(enc, &t.vmap, a.v, Dv, a.S, kv_heads, batch, a.v_ss, a.v_sh,
                    a.v_sb, C::kBc))
     return static_cast<int>(cudaErrorInvalidValue);
   t.o = a.o;
@@ -992,7 +1018,7 @@ int launch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t st
   t.window = a.window;
   t.scale = a.scale;
   t.cap = a.cap;
-  auto kernel = t.cap > 0.f ? flash_fwd_wgmma<D, true> : flash_fwd_wgmma<D, false>;
+  auto kernel = t.cap > 0.f ? flash_fwd_wgmma<D, Dv, true> : flash_fwd_wgmma<D, Dv, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1002,7 +1028,28 @@ int launch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
-bool tc_head_dim(int D) { return D == 64 || D == 128 || D == 256; }
+// The (q/k head dim, v head dim) pairs the tensor-core kernel is built
+// for: f(Pair<D, Dv>{}) for the pair whose q/k head dim is `D` (256's for
+// any other D; callers check tc_pair first).
+template <int D, int Dv>
+struct Pair {
+  static constexpr int kD = D, kDv = Dv;
+};
+
+template <typename F>
+int on_tc_pair(int D, F f) {
+  switch (D) {
+    case 64: return f(Pair<64, 64>{});
+    case 80: return f(Pair<80, 80>{});
+    case 128: return f(Pair<128, 128>{});
+    case 192: return f(Pair<192, 128>{});
+    default: return f(Pair<256, 256>{});
+  }
+}
+
+bool tc_pair(int D, int Dv) {
+  return on_tc_pair(D, [&](auto p) { return decltype(p)::kD == D && decltype(p)::kDv == Dv; });
+}
 
 // TMA's rules: 16-byte aligned base addresses and strides
 bool tc_aligned(const Args& a) {
@@ -1012,12 +1059,6 @@ bool tc_aligned(const Args& a) {
   for (long long s : strides)
     if (s % 8) return false;
   return ptr_ok(a.q) && ptr_ok(a.k) && ptr_ok(a.v) && ptr_ok(a.o);
-}
-
-int dispatch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t stream) {
-  if (a.D == 64) return launch_tc<64>(a, batch, heads, kv_heads, stream);
-  if (a.D == 128) return launch_tc<128>(a, batch, heads, kv_heads, stream);
-  return launch_tc<256>(a, batch, heads, kv_heads, stream);
 }
 
 // attributes of a kernel into out[5..8]: registers, local (spill) bytes,
@@ -1033,6 +1074,20 @@ int kernel_attributes(const void* fn, int* out) {
   return 0;
 }
 
+// the plan and attributes of flash_fwd_wgmma<D, Dv> into out[0..8]
+template <int D, int Dv>
+int tc_info(int capped, int* out) {
+  using C = TcCfg<D, Dv>;
+  out[0] = 1;
+  out[1] = kTcRows;
+  out[2] = C::kBc;
+  out[3] = kStages;
+  out[4] = C::kSmem;
+  return kernel_attributes(capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<D, Dv, true>)
+                                  : reinterpret_cast<const void*>(flash_fwd_wgmma<D, Dv, false>),
+                           out);
+}
+
 }  // namespace
 
 // Attention of q [batch, heads, seqlen, headdim] against k [batch,
@@ -1041,10 +1096,11 @@ int kernel_attributes(const void* fn, int* out) {
 // data pointer and its batch, head and sequence strides in elements (the
 // head dim is contiguous, and every stride and pointer a multiple of four
 // elements).  dtype: 0 for fp32, 1 for bf16, the same for all four.
-// window <= 0 means no window, cap <= 0 no softcap.  bf16 at head dims 64,
-// 128 and 256 with vdim == headdim and 16-byte aligned pointers and
-// strides goes to the tensor-core kernel, everything else to the CUDA-core
-// kernel; *route is set to 1 or 0 accordingly.  Launches one kernel on
+// window <= 0 means no window, cap <= 0 no softcap.  bf16 at the
+// (headdim, vdim) pairs (64, 64), (80, 80), (128, 128), (192, 128) and
+// (256, 256) with 16-byte aligned pointers and strides goes to the
+// tensor-core kernel, everything else to the CUDA-core kernel; *route is
+// set to 1 or 0 accordingly.  Launches one kernel on
 // `stream`, does not synchronise, and returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int arcadia_flash_attention(
@@ -1070,39 +1126,31 @@ extern "C" int arcadia_flash_attention(
   *route = 0;
   if (dtype == 0) return dispatch<float>(a, batch, heads, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (tc_head_dim(headdim) && vdim == headdim && tc_aligned(a)) {
+  if (tc_pair(headdim, vdim) && tc_aligned(a)) {
     *route = 1;
-    return dispatch_tc(a, batch, heads, kv_heads, s);
+    return on_tc_pair(headdim, [&](auto p) {
+      return launch_tc<decltype(p)::kD, decltype(p)::kDv>(a, batch, heads, kv_heads, s);
+    });
   }
   return dispatch<__nv_bfloat16>(a, batch, heads, s);
 }
 
-// The plan and attributes of the kernel that serves (dtype, headdim, with
-// or without a softcap) when the alignment allows the tensor cores: out[0]
-// route (1 tensor cores, 0 CUDA cores), out[1] query rows of a block,
-// out[2] keys of a tile, out[3] K/V stages, out[4] dynamic shared bytes of
-// a launch, out[5] registers a thread, out[6] local (spill) bytes a
-// thread, out[7] static shared bytes, out[8] max threads a block.  Returns
-// a cudaError_t (0 on success).
-extern "C" int arcadia_flash_kernel_info(int dtype, int headdim, int capped, int* out) {
-  if (headdim <= 0 || headdim > 256 || headdim % 4 || (dtype != 0 && dtype != 1))
+// The plan and attributes of the kernel that serves (dtype, headdim, vdim,
+// with or without a softcap) when the alignment allows the tensor cores:
+// out[0] route (1 tensor cores, 0 CUDA cores), out[1] query rows of a
+// block, out[2] keys of a tile, out[3] K/V stages, out[4] dynamic shared
+// bytes of a launch, out[5] registers a thread, out[6] local (spill) bytes
+// a thread, out[7] static shared bytes, out[8] max threads a block.
+// Returns a cudaError_t (0 on success).
+extern "C" int arcadia_flash_kernel_info(int dtype, int headdim, int vdim, int capped,
+                                         int* out) {
+  if (headdim <= 0 || headdim > 256 || headdim % 4 || vdim <= 0 || vdim > headdim ||
+      vdim % 4 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && tc_head_dim(headdim)) {
-    const void* fn =
-        headdim == 64 ? (capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<64, true>)
-                                : reinterpret_cast<const void*>(flash_fwd_wgmma<64, false>))
-        : headdim == 128 ? (capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<128, true>)
-                                   : reinterpret_cast<const void*>(flash_fwd_wgmma<128, false>))
-                         : (capped ? reinterpret_cast<const void*>(flash_fwd_wgmma<256, true>)
-                                   : reinterpret_cast<const void*>(flash_fwd_wgmma<256, false>));
-    out[0] = 1;
-    out[1] = kTcRows;
-    out[2] = headdim == 256 ? TcCfg<256>::kBc : headdim == 128 ? TcCfg<128>::kBc : TcCfg<64>::kBc;
-    out[3] = kStages;
-    out[4] = headdim == 256 ? TcCfg<256>::kSmem : headdim == 128 ? TcCfg<128>::kSmem
-                                                                  : TcCfg<64>::kSmem;
-    return kernel_attributes(fn, out);
-  }
+  if (dtype == 1 && tc_pair(headdim, vdim))
+    return on_tc_pair(headdim, [&](auto p) {
+      return tc_info<decltype(p)::kD, decltype(p)::kDv>(capped, out);
+    });
   const int dm = headdim <= 32 ? 32 : headdim <= 64 ? 64 : headdim <= 128 ? 128 : 256;
   out[0] = 0;
   out[1] = kTile;

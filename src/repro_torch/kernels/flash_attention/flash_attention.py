@@ -2,16 +2,19 @@
 
 The kernels (``csrc/flash_attention.cu``) replace the JAX package's Pallas
 TPU kernel ``_flash_kernel`` (``repro/kernels/flash_attention/
-flash_attention.py``).  Two routes, chosen by dtype and head dim inside
-``arcadia_flash_attention`` (see the note at the top of the source):
+flash_attention.py``).  Two routes, chosen by dtype, head dims and
+alignment inside ``arcadia_flash_attention`` (see the note at the top of
+the source):
 
-* ``"tensor_cores"`` — bf16 at head dims 64, 128 and 256 with v's head
-  dim equal to q's (16-byte aligned pointers and strides, TMA's rule):
-  both products on wgmma, K/V tiles brought by TMA into a two-stage ring
-  by a producer warpgroup, 128 query rows a block;
-* ``"cuda_cores"`` — fp32, bf16 at other head dims, and a value head dim
-  Dv below D (MLA's prefill: D 192, Dv 128): fp32 products out of shared
-  memory, 64 query rows a block.
+* ``"tensor_cores"`` — bf16 at the (q/k head dim D, v head dim Dv) pairs
+  of ``TENSOR_CORE_PAIRS``: (64, 64), (80, 80) (hubert-xlarge), (128,
+  128), (192, 128) (MLA's prefill) and (256, 256), with 16-byte aligned
+  pointers and strides (TMA's rule): both products on wgmma, K/V tiles
+  brought by TMA into a two-stage ring by a producer warpgroup, 128 query
+  rows a block;
+* ``"cuda_cores"`` — fp32, bf16 at other pairs, and bf16 views whose
+  pointers or strides are not 16-byte aligned: fp32 products out of
+  shared memory, 64 query rows a block.
 
 The source is compiled with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/nvcc.py``); nothing is compiled at import time.
@@ -42,7 +45,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_SMEM = 232448                          # 227 KB a block, H100
 ROUTES = ("cuda_cores", "tensor_cores")    # the C side's route numbers
-TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+# (D, Dv) pairs with a flash_fwd_wgmma instantiation
+TENSOR_CORE_PAIRS = ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256))
 
 
 @dataclass(frozen=True)
@@ -60,15 +64,18 @@ def tile_plan(dtype: torch.dtype, head_dim: int,
     """The plan of ``csrc/flash_attention.cu`` for inputs whose pointers
     and strides are 16-byte aligned (``arcadia_flash_kernel_info`` reports
     the same on the card), v's head dim ``v_head_dim`` (D unless given).
-    Tensor cores (bf16, Dv == D): Q [128, D] plus two stages of K and V
-    [Bc, D] in bf16, 1 KB to align them to the swizzle and 128 B of
-    mbarriers.  CUDA cores: fp32 Q and K [64][D+4], V [64][D] and P
-    [64][68] at D rounded up to 32, 64, 128 or 256."""
+    Tensor cores (bf16 at a pair of ``TENSOR_CORE_PAIRS``): Q [128, D] plus
+    two stages of K [Bc, D] and V [Bc, Dv] in bf16, each row a whole number
+    of 64-column boxes of 128 bytes (D = 80 fills two, the columns past 80
+    zero), 1 KB to align them to the swizzle and 128 B of mbarriers.  CUDA
+    cores: fp32 Q and K [64][D+4], V [64][D] and P [64][68] at D rounded
+    up to 32, 64, 128 or 256."""
     dv = head_dim if v_head_dim is None else v_head_dim
-    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS and \
-            dv == head_dim:
+    if dtype == torch.bfloat16 and (head_dim, dv) in TENSOR_CORE_PAIRS:
         keys = 64 if head_dim == 256 else 128
-        smem = 1024 + 128 * head_dim * 2 + 2 * 2 * keys * head_dim * 2 + 128
+        boxes, v_boxes = -(-head_dim // 64), -(-dv // 64)
+        smem = 1024 + 128 * boxes * 128 + 2 * keys * (boxes + v_boxes) * 128 \
+            + 128
         return TilePlan("tensor_cores", 128, keys, 2, smem)
     dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
     smem = (2 * 64 * (dm + 4) + 64 * dm + 64 * 68) * 4
@@ -82,23 +89,24 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, *[ll] * 12, i, i, i, i, i, i, i, i, f, f, i, p,
         ctypes.POINTER(i)]
     lib.arcadia_flash_attention.restype = ctypes.c_int
-    lib.arcadia_flash_kernel_info.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.arcadia_flash_kernel_info.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.arcadia_flash_kernel_info.restype = ctypes.c_int
 
 
-def kernel_info(dtype: torch.dtype, head_dim: int,
-                capped: bool = False) -> dict:
+def kernel_info(dtype: torch.dtype, head_dim: int, capped: bool = False,
+                v_head_dim: Optional[int] = None) -> dict:
     """The plan and ``cudaFuncGetAttributes`` of the kernel that serves
-    (dtype, head dim, with or without a softcap) on the card: route, rows,
-    keys, stages, smem_bytes, registers, local_bytes (spills),
-    static_smem_bytes, max_threads."""
+    (dtype, head dim, v head dim (D unless given), with or without a
+    softcap) on the card: route, rows, keys, stages, smem_bytes,
+    registers, local_bytes (spills), static_smem_bytes, max_threads."""
+    dv = head_dim if v_head_dim is None else v_head_dim
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_int * 9)()
     err = lib.arcadia_flash_kernel_info(_DTYPES[dtype], int(head_dim),
-                                        int(capped), out)
+                                        int(dv), int(capped), out)
     if err != 0:
         raise RuntimeError(f"flash kernel info failed: cudaError_t {err} "
-                           f"({dtype}, D={head_dim})")
+                           f"({dtype}, D={head_dim}, Dv={dv})")
     return dict(route=ROUTES[out[0]], rows=out[1], keys=out[2],
                 stages=out[3], smem_bytes=out[4], registers=out[5],
                 local_bytes=out[6], static_smem_bytes=out[7],

@@ -1,14 +1,15 @@
 """Routing of forward attention by the tensors' device.
 
 CPU tensors go to the plain PyTorch version (``ref.py``), CUDA tensors to
-the hand-written kernels (``flash_attention.py``: bf16 at head dims 64,
-128 and 256 on the tensor cores, the rest on the CUDA cores), anything
-else raises.  Nothing falls back: a CUDA tensor never reaches the plain
-version, and a kernel that cannot build or launch, or an input it does
-not take (a dtype other than fp32 or bf16, a head dim above 256, a value
-head dim above q's, a head dim that is not contiguous), raises.  The kernels' launch count is
-``flash_attention.LAUNCHES``, each route's ``TENSOR_CORE_LAUNCHES`` and
-``CUDA_CORE_LAUNCHES``.
+the hand-written kernels (``flash_attention.py``: bf16 at the (D, Dv)
+pairs (64, 64), (80, 80), (128, 128), (192, 128) and (256, 256) with
+16-byte aligned views on the tensor cores, the rest on the CUDA cores),
+anything else raises.  Nothing falls back: a CUDA tensor never reaches
+the plain version, and a kernel that cannot build or launch, or an input
+it does not take (a dtype other than fp32 or bf16, a head dim above 256,
+a value head dim above q's, a head dim that is not contiguous), raises.
+The kernels' launch count is ``flash_attention.LAUNCHES``, each route's
+``TENSOR_CORE_LAUNCHES`` and ``CUDA_CORE_LAUNCHES``.
 """
 
 from __future__ import annotations

@@ -125,43 +125,69 @@ def test_ops_routes_cpu_tensors_to_the_plain_version():
         fa.flash_attention_cuda(tq, tk, tv)        # the kernel takes no CPU
 
 
+def tc_smem(D, Dv):
+    """flash_fwd_wgmma's shared bytes (csrc/flash_attention.cu, TcCfg): 1 KB
+    to align the ring, Q [128 rows] and two stages of K and V [Bc rows],
+    each row whole 64-column boxes of 128 bytes (TMA fills a box past the
+    head dim with zeros and counts it whole), 128 B of barriers."""
+    keys = 64 if D == 256 else 128
+    boxes, v_boxes = -(-D // 64), -(-Dv // 64)
+    return 1024 + 128 * boxes * 128 + 2 * keys * (boxes + v_boxes) * 128 + 128
+
+
 def test_tile_plan_fits_a_block_for_every_input_the_kernel_takes():
-    """Every (dtype, head dim) the wrapper's check accepts (fp32 or bf16,
-    multiples of 4 up to 256) has a plan within the 232,448 bytes of
-    shared memory a Hopper block may use; bf16 at 64, 128 and 256 goes to
-    the tensor cores in 128-row blocks with a two-stage K/V ring, and fp32
-    always to the CUDA cores."""
+    """Every (dtype, D, Dv) the wrapper's check accepts (fp32 or bf16, D a
+    multiple of 4 up to 256, Dv one up to D) has a plan within the 232,448
+    bytes of shared memory a Hopper block may use; bf16 at the pairs of
+    TENSOR_CORE_PAIRS goes to the tensor cores in 128-row blocks with a
+    two-stage K/V ring whose bytes are TcCfg's arithmetic (214,144 at MLA's
+    192/128, 160 KB + 1 KB + 128 B at hubert's 80), and fp32 always to the
+    CUDA cores."""
     assert fa.MAX_SMEM == 232448
+    assert tc_smem(192, 128) == 214144
+    assert tc_smem(80, 80) == tc_smem(128, 128) == 160 * 1024 + 1024 + 128
+    pairs = {(D, Dv) for D in range(4, fa.MAX_HEAD_DIM + 1, 4)
+             for Dv in (D, D // 2 // 4 * 4 or 4, 128 if D > 128 else D)}
+    assert set(fa.TENSOR_CORE_PAIRS) <= pairs and (192, 128) in pairs
     for dtype in (torch.float32, torch.bfloat16):
-        for D in range(4, fa.MAX_HEAD_DIM + 1, 4):
-            plan = fa.tile_plan(dtype, D)
-            assert 0 < plan.smem_bytes <= fa.MAX_SMEM, (dtype, D, plan)
+        for D, Dv in sorted(pairs):
+            plan = fa.tile_plan(dtype, D, Dv)
+            assert 0 < plan.smem_bytes <= fa.MAX_SMEM, (dtype, D, Dv, plan)
             tensor_cores = dtype == torch.bfloat16 and \
-                D in fa.TENSOR_CORE_HEAD_DIMS
+                (D, Dv) in fa.TENSOR_CORE_PAIRS
             assert plan.route == ("tensor_cores" if tensor_cores
-                                  else "cuda_cores"), (dtype, D)
+                                  else "cuda_cores"), (dtype, D, Dv)
             if tensor_cores:
                 assert (plan.rows, plan.stages) == (128, 2)
                 assert plan.keys % 16 == 0 and plan.keys <= 256   # wgmma N
+                assert plan.smem_bytes == tc_smem(D, Dv), (D, Dv)
             else:
                 assert (plan.rows, plan.keys, plan.stages) == (64, 64, 1)
 
 
 def test_serving_widths_go_to_the_tensor_cores():
     """The dense GQA configs' head dims in bf16 (qwen2-7b, starcoder2-3b
-    and command-r-35b at 128, gemma2-9b at 256) and the kernel tests' 64
-    get the tensor-core plan; the same widths in fp32 do not."""
+    and command-r-35b at 128, gemma2-9b at 256), deepseek-v3's MLA prefill
+    (qk_nope + qk_rope, v_head_dim) = (192, 128), hubert-xlarge's 80 and
+    the kernel tests' 64 get the tensor-core plan; the same widths in fp32
+    do not."""
     from repro_torch.configs import get_config
 
     dims = {get_config(a).resolved_head_dim
             for a in ("qwen2-7b", "starcoder2-3b", "command-r-35b",
                       "gemma2-9b")}
     assert dims == {128, 256}
-    for D in dims | {64}:
-        assert fa.tile_plan(torch.bfloat16, D).route == "tensor_cores"
-        assert fa.tile_plan(torch.float32, D).route == "cuda_cores"
+    ds = get_config("deepseek-v3-671b")
+    mla = (ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim)
+    hubert = get_config("hubert-xlarge").resolved_head_dim
+    assert mla == (192, 128) and hubert == 80
+    for D, Dv in {(d, d) for d in dims | {64, hubert}} | {mla}:
+        assert fa.tile_plan(torch.bfloat16, D, Dv).route == "tensor_cores"
+        assert fa.tile_plan(torch.float32, D, Dv).route == "cuda_cores"
     assert fa.tile_plan(torch.bfloat16, 256).keys == 64      # 192 KB of tiles
     assert fa.tile_plan(torch.bfloat16, 128).keys == 128     # 160 KB
+    assert fa.tile_plan(torch.bfloat16, *mla).keys == 128    # 208 KB
+    assert fa.tile_plan(torch.bfloat16, hubert).keys == 128  # 160 KB
 
 
 # ----------------------------- rotary tables ----------------------------- #

@@ -404,7 +404,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
 # ------------------- flash attention on the tensor cores ------------------- #
 
 def check_route(route, q, k, v, **kw):
-    """check_flash, and the one launch went to ``route``'s kernel."""
+    """check_flash, and the one launch went to ``route``'s kernel, as the
+    C side reported it to the launch counters."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     before = (fa.TENSOR_CORE_LAUNCHES, fa.CUDA_CORE_LAUNCHES)
@@ -429,23 +430,39 @@ TC_MASKS = {"causal": dict(causal=True), "full": dict(causal=False),
             "noncausal-window": dict(causal=False, window=40, cap=20.0)}
 
 
-@pytest.mark.parametrize("D", [128, 256])
+def pair_inputs(B, H, KV, S, D, Dv, dtype, seed, device):
+    """attn_inputs with v's head dim Dv: q [B,H,S,D], k [B,KV,S,D], v
+    [B,KV,S,Dv]."""
+    q, k, _ = attn_inputs(B, H, KV, S, D, dtype, seed, device)
+    v = attn_inputs(B, KV, KV, S, Dv, dtype, seed + 1, device)[2]
+    return q, k, v
+
+
+# the serving pairs besides Dv = D at 128 and 256: hubert-xlarge's D 80
+# (two 64-column boxes, the second zero past column 80) and MLA's prefill
+# (D 192 over three boxes, Dv 128)
+TC_PAIRS = [(128, 128), (256, 256), (80, 80), (192, 128)]
+TC_PAIR_IDS = ["128", "256", "80", "192-128"]
+
+
+@pytest.mark.parametrize("D,Dv", TC_PAIRS, ids=TC_PAIR_IDS)
 @pytest.mark.parametrize("kw", list(TC_MASKS.values()), ids=list(TC_MASKS))
-def test_flash_tensor_cores_mask_variants(cuda_device, D, kw):
-    """The fp32 mask variants' bf16 twins at the serving head dims: a
-    window of 16 lies below both key tiles (64 and 128), so some rows'
-    first tiles are wholly masked."""
-    check_route("tensor_cores", *attn_inputs(1, 4, 2, 256, D, torch.bfloat16,
-                                             7, cuda_device), **kw)
+def test_flash_tensor_cores_mask_variants(cuda_device, D, Dv, kw):
+    """The fp32 mask variants' bf16 twins at the serving pairs: a window of
+    16 lies below both key tiles (64 and 128), so some rows' first tiles
+    are wholly masked."""
+    check_route("tensor_cores", *pair_inputs(1, 4, 2 if Dv == D else 4, 256,
+                                             D, Dv, torch.bfloat16, 7,
+                                             cuda_device), **kw)
 
 
 @pytest.mark.parametrize("S", [1, 65, 200, 1000])
-@pytest.mark.parametrize("D", [128, 256])
-def test_flash_tensor_cores_ragged_lengths(cuda_device, S, D):
+@pytest.mark.parametrize("D,Dv", TC_PAIRS, ids=TC_PAIR_IDS)
+def test_flash_tensor_cores_ragged_lengths(cuda_device, S, D, Dv):
     """Lengths that no 128-row block or 64/128-key tile divides: keys past
     S weigh nothing and rows past S are not written."""
-    check_route("tensor_cores", *attn_inputs(1, 4, 2, S, D, torch.bfloat16,
-                                             S, cuda_device),
+    check_route("tensor_cores", *pair_inputs(1, 4, 2, S, D, Dv,
+                                             torch.bfloat16, S, cuda_device),
                 causal=True, window=100)
 
 
@@ -455,6 +472,16 @@ def test_flash_tensor_cores_gqa_ratios(cuda_device, H, KV):
     check_route("tensor_cores", *attn_inputs(2, H, KV, 160, 128,
                                              torch.bfloat16, H, cuda_device),
                 causal=True)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 4), (14, 2)],
+                         ids=["gqa1", "gqa2", "gqa7"])
+def test_flash_tensor_cores_gqa_ratios_at_mlas_pair(cuda_device, H, KV):
+    """GQA ratios at (D 192, Dv 128): query head h reads kv head h // rep
+    through the K and V maps."""
+    check_route("tensor_cores", *pair_inputs(2, H, KV, 160, 192, 128,
+                                             torch.bfloat16, H, cuda_device),
+                causal=True, scale=1.0 / float(np.sqrt(192)))
 
 
 def test_flash_tensor_cores_read_the_layers_strided_views(cuda_device):
@@ -475,10 +502,12 @@ def test_flash_tensor_cores_read_the_layers_strided_views(cuda_device):
 
 
 def test_flash_kernels_count_launches_per_route(cuda_device, fp32_exact):
-    """bf16 at 64, 128 and 256 with 16-byte aligned strides goes to the
-    tensor cores; fp32, bf16 at another head dim, and bf16 whose strides
-    are multiples of 4 elements but not of 8 go to the CUDA cores.
-    LAUNCHES counts both routes."""
+    """bf16 at a tensor-core pair (here 128, hubert's 80 and MLA's 192/128)
+    with 16-byte aligned strides goes to the tensor cores; fp32, bf16 at
+    another pair (D 96; D 96 with Dv 64), and bf16 whose strides are
+    multiples of 4 elements but not of 8 (at 128, 80 and 192/128: the
+    plan's pair, TMA's rule broken) go to the CUDA cores.  LAUNCHES counts
+    both routes."""
     def sliced(D, pad):
         """q, k, v as [..., :D] slices of rows D + pad long."""
         full = attn_inputs(1, 2, 1, 64, D + pad, torch.bfloat16, 5,
@@ -492,7 +521,15 @@ def test_flash_kernels_count_launches_per_route(cuda_device, fp32_exact):
                                         cuda_device)),
              ("cuda_cores", attn_inputs(1, 2, 1, 64, 96, torch.bfloat16, 3,
                                         cuda_device)),
-             ("cuda_cores", sliced(128, 4))]
+             ("cuda_cores", sliced(128, 4)),
+             ("tensor_cores", sliced(80, 8)),
+             ("cuda_cores", sliced(80, 4)),
+             ("tensor_cores", sliced(192, 8)[:2] + (sliced(128, 8)[2],)),
+             ("cuda_cores", sliced(192, 4)[:2] + (sliced(128, 4)[2],)),
+             ("cuda_cores", attn_inputs(1, 2, 1, 64, 96, torch.bfloat16, 4,
+                                        cuda_device)[:2]
+              + (attn_inputs(1, 2, 1, 64, 64, torch.bfloat16, 4,
+                             cuda_device)[2],))]
     for route, (q, k, v) in cases:
         check_route(route, q, k, v, causal=True)
 
@@ -501,19 +538,22 @@ def test_flash_kernels_count_launches_per_route(cuda_device, fp32_exact):
                          ids=["fp32", "bf16"])
 def test_flash_kernel_info_matches_the_plan_and_nothing_spills(cuda_device,
                                                                dtype):
-    """The kernel that serves each (dtype, head dim, softcap) reports the
-    host's tile plan and no local (spill) bytes."""
+    """The kernel that serves each (dtype, D, Dv, softcap) reports the
+    host's tile plan and no local (spill) bytes: every tensor-core pair
+    (MLA's 192/128 and hubert's 80 among them) and the CUDA-core widths."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
-    for D in (32, 64, 96, 128, 256):
-        plan = fa.tile_plan(dtype, D)
+    pairs = sorted(set(fa.TENSOR_CORE_PAIRS) | {(32, 32), (96, 96),
+                                                (128, 64)})
+    for D, Dv in pairs:
+        plan = fa.tile_plan(dtype, D, Dv)
         for capped in (False, True):
-            info = fa.kernel_info(dtype, D, capped)
+            info = fa.kernel_info(dtype, D, capped, v_head_dim=Dv)
             assert (info["route"], info["rows"], info["keys"],
                     info["stages"], info["smem_bytes"]) == \
                 (plan.route, plan.rows, plan.keys, plan.stages,
-                 plan.smem_bytes), (D, capped, info)
-            assert info["local_bytes"] == 0, (D, capped, info)
+                 plan.smem_bytes), (D, Dv, capped, info)
+            assert info["local_bytes"] == 0, (D, Dv, capped, info)
             assert info["max_threads"] >= (384 if plan.route == "tensor_cores"
                                            else 256)
 
@@ -563,20 +603,23 @@ def test_gemma2_serving_on_the_card_matches_the_cpu(cuda_device, fp32_exact):
                          ids=["mla", "gqa-128-64", "reduced-mla"])
 def test_flash_kernel_with_a_narrower_value_head(cuda_device, fp32_exact,
                                                  dtype, B, H, KV, S, D, Dv):
-    """v [B,KV,S,Dv] with Dv < D: the CUDA-core kernel (a bf16 head dim of
-    128 too: the tensor-core kernel needs Dv == D), causal, within the
-    elementwise and row tolerances of the plain version."""
+    """v [B,KV,S,Dv] with Dv < D, causal, within the elementwise and row
+    tolerances of the plain version: MLA's pair (192, 128) in bf16 on the
+    tensor cores; fp32, and bf16 at pairs without a tensor-core kernel
+    (128/64, 48/32), on the CUDA cores."""
     q, k, _ = attn_inputs(B, H, KV, S, D, dtype, S + Dv, cuda_device)
     v = attn_inputs(B, KV, KV, S, Dv, dtype, S + D, cuda_device)[2]
-    check_route("cuda_cores", q, k, v, causal=True,
-                scale=1.0 / float(np.sqrt(D)))
+    route = "tensor_cores" if dtype == torch.bfloat16 and (D, Dv) == \
+        (192, 128) else "cuda_cores"
+    check_route(route, q, k, v, causal=True, scale=1.0 / float(np.sqrt(D)))
 
 
 def test_flash_kernel_reads_mlas_value_view(cuda_device):
     """MLA's prefill passes v as the strided [..., qk_nope:] view of the
     expanded [B,S,H,qk_nope + v] projection (a 256-byte offset) and q, k
-    as permuted [B,S,H,D] views: no copy, the same bits as contiguous
-    inputs, and a [B,S,H,Dv]-laid-out output."""
+    as permuted [B,S,H,D] views: the tensor-core kernel reads them with no
+    copy, gives the same bits as contiguous inputs, and a
+    [B,S,H,Dv]-laid-out output."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     B, S, H, dn, dr, dv = 2, 150, 4, 128, 64, 128
@@ -586,12 +629,64 @@ def test_flash_kernel_reads_mlas_value_view(cuda_device):
     q, k, kv = t(B, S, H, dn + dr), t(B, S, H, dn + dr), t(B, S, H, dn + dv)
     qv, kvw, vv = q.transpose(1, 2), k.transpose(1, 2), \
         kv[..., dn:].transpose(1, 2)
-    check_route("cuda_cores", qv, kvw, vv, causal=True)
+    check_route("tensor_cores", qv, kvw, vv, causal=True)
     a = fa.flash_attention_cuda(qv, kvw, vv, causal=True)
     b = fa.flash_attention_cuda(qv.contiguous(), kvw.contiguous(),
                                 vv.contiguous(), causal=True)
     assert a.shape == (B, H, S, dv) and a.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_flash_kernel_reads_huberts_views(cuda_device):
+    """hubert's encoder passes q, k, v as permuted views of [B,S,16,80]
+    projections (head stride 80 elements, 160 bytes; row stride 1280):
+    the tensor-core kernel reads them with no copy, non-causal, and gives
+    the same bits as contiguous inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    B, S, H, D = 2, 300, 16, 80
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+        for _ in range(3))
+    assert q.stride() == (S * H * D, D, H * D, 1)
+    check_route("tensor_cores", q, k, v, causal=False)
+    a = fa.flash_attention_cuda(q, k, v, causal=False)
+    b = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=False)
+    assert a.shape == (B, H, S, D) and a.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("D,Dv", [(80, 80), (192, 128)], ids=["80", "192-128"])
+def test_flash_tensor_core_launch_that_fails_raises(cuda_device, monkeypatch,
+                                                    D, Dv):
+    """No fallback: when the C side reports a failed launch on the
+    tensor-core route, the wrapper raises and counts nothing; it never
+    re-runs the inputs on the CUDA cores."""
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    lib = nvcc.load(fa.SOURCE, fa._bind)
+
+    class Refusing:
+        """The library, with a launch that fails on the tensor cores."""
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def arcadia_flash_attention(*args):
+            args[-1]._obj.value = 1                  # route: tensor cores
+            return 1                                 # cudaErrorInvalidValue
+
+    q, k, v = pair_inputs(1, 2, 2, 64, D, Dv, torch.bfloat16, 0, cuda_device)
+    assert fa.tile_plan(q.dtype, D, Dv).route == "tensor_cores"
+    monkeypatch.setattr(nvcc, "load", lambda source, bind: Refusing())
+    before = (fa.LAUNCHES, fa.TENSOR_CORE_LAUNCHES, fa.CUDA_CORE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="route 1"):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    assert (fa.LAUNCHES, fa.TENSOR_CORE_LAUNCHES,
+            fa.CUDA_CORE_LAUNCHES) == before
 
 
 def test_flash_kernel_refuses_a_value_head_wider_than_the_key_head(

@@ -188,18 +188,36 @@ def test_attention_with_a_narrower_value_head_matches_jax(B, H, S, D, Dv,
 
 
 def test_mla_and_hubert_prefills_take_the_cuda_core_plan():
-    """MLA's prefill (D 192, Dv 128) and hubert's (D 80) have no
-    tensor-core kernel: their plans are the CUDA-core kernel's at the
-    256- and 128-wide instantiations; a bf16 head dim of 128 with Dv 128
-    keeps the tensor cores."""
+    """In fp32 (the card-vs-CPU checks) MLA's prefill (D 192, Dv 128) and
+    hubert's (D 80) take the CUDA-core kernel's plan at the 256- and
+    128-wide instantiations; so does bf16 at a head dim of 128 with Dv 64,
+    a pair without a tensor-core instantiation."""
     full = get_config(NAME)
     D, Dv = full.qk_nope_dim + full.qk_rope_dim, full.v_head_dim
-    for dtype in (torch.bfloat16, torch.float32):
-        plan = fa.tile_plan(dtype, D, Dv)
-        assert plan.route == "cuda_cores"
-        assert plan.smem_bytes == (2 * 64 * 260 + 64 * 256 + 64 * 68) * 4
-        hubert = get_config("hubert-xlarge").resolved_head_dim
-        assert hubert == 80
-        assert fa.tile_plan(dtype, hubert).route == "cuda_cores"
+    hubert = get_config("hubert-xlarge").resolved_head_dim
+    assert (D, Dv, hubert) == (192, 128, 80)
+    plan = fa.tile_plan(torch.float32, D, Dv)
+    assert plan.route == "cuda_cores"
+    assert plan.smem_bytes == (2 * 64 * 260 + 64 * 256 + 64 * 68) * 4
+    plan = fa.tile_plan(torch.float32, hubert)
+    assert plan.route == "cuda_cores"
+    assert plan.smem_bytes == (2 * 64 * 132 + 64 * 128 + 64 * 68) * 4
     assert fa.tile_plan(torch.bfloat16, 128, 64).route == "cuda_cores"
+
+
+def test_mla_and_hubert_bf16_prefills_take_the_tensor_core_plan():
+    """In bf16, as they serve, MLA's prefill (D 192, Dv 128) and hubert's
+    (D 80) each have a tensor-core instantiation: Q·Kᵀ over three
+    64-column boxes at 192 (214,144 B of shared memory), two boxes, the
+    second zero past column 80, at 80 (the 160 KB of D 128's ring); a
+    bf16 head dim of 128 with Dv 128 takes the tensor cores too."""
+    full = get_config(NAME)
+    D, Dv = full.qk_nope_dim + full.qk_rope_dim, full.v_head_dim
+    hubert = get_config("hubert-xlarge").resolved_head_dim
+    plan = fa.tile_plan(torch.bfloat16, D, Dv)
+    assert (plan.route, plan.keys, plan.smem_bytes) == \
+        ("tensor_cores", 128, 214144)
+    plan = fa.tile_plan(torch.bfloat16, hubert)
+    assert (plan.route, plan.keys, plan.smem_bytes) == \
+        ("tensor_cores", 128, 160 * 1024 + 1024 + 128)
     assert fa.tile_plan(torch.bfloat16, 128, 128).route == "tensor_cores"
