@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
-Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and of forward
-flash attention from ``src/repro_torch/csrc`` (one nvcc per source, in
-parallel) and then, on the card:
+Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
+backward, and of forward flash attention from ``src/repro_torch/csrc``
+(one nvcc per source, in parallel) and then, on the card:
 
   kernel        the hash against its plain PyTorch version, bit-exact, at
                 every listed shape, each on the route its row length picks
@@ -80,6 +80,35 @@ parallel) and then, on the card:
                 card-vs-CPU checks run again on a variant of the params in
                 which the scan carries each mixer's output (at init it is
                 mostly the 4-token conv);
+  ssd backward  the SSD backward kernel (the gradient through ops.ssd's
+                autograd Function) against the plain chunked backward and
+                torch.autograd through the plain scan, within 1e-4 (fp32) /
+                5e-2 (bf16) of each gradient's largest value, at the CPU
+                tests' shapes and at mamba2-130m's training shape (8 x 4096,
+                bf16 as the mixer's views and fp32), two calls bitwise
+                equal, fp32 cases against a float64 gradient; at the
+                training shape the gradient of each half of the sequence
+                alone (no adjoint or no state across the halves) must fail
+                the check; with its median time, the plain versions' and
+                its bound;
+  train         mamba2-130m at full width and depth (24 layers, bf16 compute,
+                fp32 master params) trained on 8 x 4096 synthetic tokens a
+                step with AdamW: a profiled step (24 SSD forward launches,
+                24 remat recomputes, 24 backward launches, one hash launch
+                per grad leaf; ms, tokens/s, peak memory, busy share, top
+                kernels), then 12 steps through the journaled, checkpointed
+                trainer (checkpoint every 4, F = 4, manifests and journal
+                on a replicated log with 1 backup at W = 2, checkpoints on 2
+                in-memory stores at W = 2) and a second deployment that
+                stops after step 8, restores and finishes: the loss finite
+                and falling, the resumed steps 9-12 within rtol 1e-5 of the
+                uninterrupted run, every step's integrity equal to the
+                plain hash of its grads on the CPU;
+  train cpu     mamba2-130m at full width cut to 2 layers, fp32: one AdamW
+                step of 1 x 512 tokens on the card and on the CPU from the
+                same state, loss within 1e-5 relative and grads, moments
+                and params within 1e-4 of each leaf's scale, where a
+                backward run chunk by chunk must move the grads past that;
   flash kernel  the flash-attention kernels against their plain version
                 (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16, and
                 per output row within 1e-4 / 2^-6 of the row's largest
@@ -1167,7 +1196,8 @@ def ssd_kernel_phase(seed: int) -> dict:
 
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def serving_phase(seed: int) -> dict:
@@ -1365,6 +1395,596 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
         out[name] = dict(max_abs_diff=diff, next_token_equal=same,
                          greedy_agreement=agree)
     return out
+
+
+# ------------------------------ SSD backward ----------------------------- #
+
+SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256)     # mamba2-130m, 8 x 4096 tokens
+# the CPU tests' shapes (tests/test_torch_ssd_backward.py) in fp32 and a bf16
+# twin, then the training shape as the mixer's views (bf16) and in fp32
+SSD_BWD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32", "contiguous"),
+                  ((1, 128, 2, 64, 1, 32, 32), "float32", "contiguous"),
+                  ((1, 96, 6, 16, 2, 16, 32), "float32", "contiguous"),
+                  ((1, 64, 2, 16, 1, 64, 64), "float32", "contiguous"),
+                  ((2, 64, 4, 32, 2, 16, 64), "bfloat16", "contiguous"),
+                  (SSD_TRAIN, "bfloat16", "mixer views"),
+                  (SSD_TRAIN, "float32", "contiguous")]
+# of each gradient's largest magnitude: the forward's tolerances
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+GRAD_NAMES = ("dxh", "ddt", "dA_log", "dBm", "dCm")
+
+
+def ssd_bwd_inputs(shape, dtype, seed: int, layout: str):
+    """``ssd_inputs`` and the cotangents: dy in xh's dtype and d(final
+    state) in fp32, N(0, 1) from numpy."""
+    args = ssd_inputs(shape, dtype, seed, layout)
+    B, S, H, P, G, N, _ = shape
+    rng = np.random.default_rng(seed + 1000)
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P), np.float32)
+                          ).to(DEV).to(args[0].dtype)
+    ds = torch.from_numpy(rng.standard_normal((B, H, P, N), np.float32)
+                          ).to(DEV)
+    return args, dy, ds
+
+
+def grad_errs(got, want) -> dict:
+    """max |got - want| / max |want| of each of the five gradients."""
+    return {n: float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+            for n, g, w in zip(GRAD_NAMES, got, want)}
+
+
+def scan_grads(scan, args, dy, ds, chunk: int):
+    """The five gradients of ``scan`` (``ops.ssd`` or the plain
+    ``ssd_reference``) by torch.autograd, for the cotangents dy and d(state)
+    (none if ``ds`` is None).  Views stay views (``detach`` keeps strides)."""
+    leaves = [a.detach().requires_grad_() for a in args]
+    y, st = scan(*leaves, chunk=chunk)
+    outs, cots = ((y, st), (dy, ds)) if ds is not None else ((y,), (dy,))
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+def ssd_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
+    """Least time for the gradient: xh, dy, Bm, Cm, dt and A_log read once
+    and dxh, dBm, dCm, ddt and dA_log written once at the HBM rate, against
+    the chunked algorithm's operations at the dtype's peak — per (batch,
+    head, chunk) the causal pairs' C·B, dy·x~, dx~, dB and dC products,
+    Q(Q+1)(3N + 2P), and the five Q·N·P state products (two chunk sums,
+    G·B, Gᵀ·x~, h0ᵀ·dy), 10·Q·N·P."""
+    B, S, H, P, G, N, chunk = shape
+    Q = min(chunk, S)
+    el = 2 if dtype == "bfloat16" else 4
+    n_bytes = (3 * B * S * H * P * el + 4 * B * S * G * N * el
+               + 2 * B * S * H * 4 + 2 * H * 4)
+    ops = B * H * (S // Q) * (Q * (Q + 1) * (3 * N + 2 * P) + 10 * Q * N * P)
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bwd_planted_faults(args, dy, chunk: int, whole, tol: float) -> dict:
+    """The check must fail a backward that drops what crosses chunks: the
+    kernel's gradient of the first half of the sequence alone (no adjoint
+    from the second half) against the whole gradient's dxh there, and of
+    the second half alone (no state from the first) against its dCm."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    xh, dt, A_log, Bm, Cm = args
+    h = xh.shape[1] // 2
+    out = {}
+    for name, sl, k in (("adjoint not carried across chunks", slice(0, h), 0),
+                        ("inter-chunk dC term dropped", slice(h, None), 4)):
+        part = ssd_scan.ssd_backward_cuda(xh[:, sl], dt[:, sl].contiguous(),
+                                          A_log, Bm[:, sl], Cm[:, sl],
+                                          dy[:, sl], None, chunk)
+        want = whole[k][:, sl].float()
+        err = float((part[k].float() - want).abs().max() / want.abs().max())
+        if not err > tol:
+            raise AssertionError(f"SSD backward fault {name!r} passes the "
+                                 f"check ({err:.3e} <= {tol})")
+        out[name] = err
+    return out
+
+
+def ssd_backward_phase(seed: int) -> dict:
+    """Each case: the gradient through ``ops.ssd`` (the autograd Function:
+    the forward kernel, then the backward kernel, one backward launch) held
+    against the plain chunked backward and against torch.autograd through
+    the plain scan, within SSD_BWD_TOL of each gradient's largest value;
+    the per-(batch, head, chunk) block error of dxh; two calls bitwise
+    equal; fp32 cases against a float64 gradient; at the training shape
+    the main path's case without d(state) and two planted faults."""
+    from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    results = {}
+    for k, (shape, dtype, layout) in enumerate(SSD_BWD_SHAPES):
+        chunk, tol = shape[-1], SSD_BWD_TOL[dtype]
+        name = f"ssd_bwd{shape} {dtype}" + ("" if layout == "contiguous"
+                                            else f" {layout}")
+        args, dy, ds = ssd_bwd_inputs(shape, dtype, seed + 50 + k, layout)
+        before = ssd_scan.BACKWARD_LAUNCHES
+        got = scan_grads(ops.ssd, args, dy, ds, chunk)
+        again = scan_grads(ops.ssd, args, dy, ds, chunk)
+        torch.cuda.synchronize()
+        if ssd_scan.BACKWARD_LAUNCHES - before != 2:
+            raise AssertionError(f"{name}: {ssd_scan.BACKWARD_LAUNCHES - before}"
+                                 f" backward launches for two gradients")
+        repeat = all(bitwise_equal(a, b) for a, b in zip(got, again))
+        if not repeat:
+            raise AssertionError(f"{name}: two calls differ")
+        for g, a in zip(got, args):
+            if g.shape != a.shape or g.dtype != a.dtype or \
+                    not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name}: gradient {tuple(g.shape)} "
+                                     f"{g.dtype} not finite or not its "
+                                     f"input's shape and dtype")
+        del again
+        chunked = ref.ssd_backward_reference(*args, dy, ds, chunk)
+        auto = scan_grads(ref.ssd_reference, args, dy, ds, chunk)
+        errs = {"plain chunked": grad_errs(got, chunked),
+                "plain autograd": grad_errs(got, auto)}
+        del auto
+        for side, e in errs.items():
+            if not all(v <= tol for v in e.values()):
+                raise AssertionError(f"{name}: kernel differs from the "
+                                     f"{side} gradient: {e} (tolerance {tol})")
+        blk = block_err(got[0], chunked[0], chunk)
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, chunked))
+        err64 = None
+        if dtype == "float32" and shape[0] * shape[1] <= 4096:
+            exact = ref.ssd_backward_reference(
+                *(a.double() for a in args), dy.double(), ds.double(), chunk)
+            err64 = {"kernel": grad_errs(got, exact),
+                     "plain": grad_errs(chunked, exact)}
+        no_state = faults = None
+        if shape == SSD_TRAIN and dtype == "bfloat16":
+            whole = scan_grads(ops.ssd, args, dy, None, chunk)
+            no_state = grad_errs(whole, ref.ssd_backward_reference(
+                *args, dy, None, chunk))
+            if not all(v <= tol for v in no_state.values()):
+                raise AssertionError(f"{name}, no d(state): {no_state}")
+            faults = ssd_bwd_planted_faults(args, dy, chunk, whole, tol)
+            del whole
+        del got, chunked
+        big = shape[0] * shape[1] > 4096
+        ms = timed_ms(lambda: ssd_scan.ssd_backward_cuda(*args, dy, None,
+                                                         chunk),
+                      5 if big else 20, flush)
+        plain = timed_ms(lambda: ref.ssd_backward_reference(*args, dy, None,
+                                                            chunk),
+                         3 if big else 10, flush)
+        auto_ms = timed_ms(lambda: scan_grads(ref.ssd_reference, args, dy,
+                                              None, chunk),
+                           3 if big else 10, flush)
+        b, by = ssd_bwd_bound_ms(shape, dtype)
+        results[name] = dict(shape=list(shape), dtype=dtype, layout=layout,
+                             rel_err=errs, tol=tol, dxh_block_rel_err=blk,
+                             rel_err_without_dstate=no_state,
+                             rel_err_from_float64=err64, bitwise_repeat=repeat,
+                             planted_fault_rel_err=faults, ms=ms,
+                             plain_ms=plain, plain_autograd_ms=auto_ms,
+                             bound_ms=b, bound_by=by, max_abs_err=abs_err)
+        worst = {side: max(e, key=e.get) for side, e in errs.items()}
+        log(f"kernel {name}: of each gradient's largest value, worst "
+            + ", ".join(f"{errs[s][w]:.3e} ({w}) from the {s}"
+                        for s, w in worst.items())
+            + f" (tolerance {tol}); dxh block err {blk:.3e}; bitwise repeat "
+            f"{repeat}"
+            + ("" if err64 is None else
+               "; from float64 kernel " + ", ".join(
+                   f"{n} {v:.2e}" for n, v in err64["kernel"].items())
+               + ", plain " + ", ".join(f"{n} {v:.2e}"
+                                        for n, v in err64["plain"].items()))
+            + ("" if faults is None else "; planted faults: " + ", ".join(
+                f"{f} {e:.3e}" for f, e in faults.items()))
+            + f"; {ms:.6f} ms, plain {plain:.6f} ms, plain autograd "
+            f"(forward + backward) {auto_ms:.6f} ms, bound {b:.6f} ms ({by})")
+        del args, dy, ds
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------ training mamba2-130m -------------------------- #
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 4096
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_F, TRAIN_CRASH = 12, 4, 4, 8
+TRAIN_PEAK_CUT_GB = 70.0
+# tests/test_trainer.py's optimizer
+TRAIN_OPT = dict(name="adamw", lr=3e-3, warmup_steps=2, decay_steps=1000,
+                 clip_norm=1.0)
+
+
+def zero_ssd_counts() -> None:
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    ssd_scan.LAUNCHES = ssd_scan.TENSOR_CORE_LAUNCHES = 0
+    ssd_scan.CUDA_CORE_LAUNCHES = ssd_scan.BACKWARD_LAUNCHES = 0
+
+
+def ssd_counts() -> dict:
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return dict(forward=ssd_scan.LAUNCHES,
+                tensor_cores=ssd_scan.TENSOR_CORE_LAUNCHES,
+                cuda_cores=ssd_scan.CUDA_CORE_LAUNCHES,
+                backward=ssd_scan.BACKWARD_LAUNCHES)
+
+
+class JournaledSteps:
+    """The trainer's step as ``train_step`` runs it (``grads_and_metrics``,
+    then ``apply_step`` with the journal), timed, and each step's grads
+    copied to the host after the update and hashed there by the plain
+    version in a worker thread, to hold ``metrics["integrity"]`` to."""
+
+    def __init__(self, cfg, opt_cfg):
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self.pool = ThreadPoolExecutor(1)
+        self.plain, self.integrity, self.ms = [], [], []
+
+    def __call__(self, state, batch):
+        from repro_torch.kernels.checksum import ref
+        from repro_torch.train import step as S
+        from repro_torch.tree import leaf_paths
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, metrics = S.grads_and_metrics(state["params"], batch, self.cfg)
+        new_state, metrics = S.apply_step(state, grads, metrics, self.opt_cfg,
+                                          journal=True)
+        self.integrity.append(metrics["integrity"].cpu())
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        host = [g.detach().cpu() for _, g in leaf_paths(grads)]
+        self.plain.append(self.pool.submit(
+            lambda: [int(ref.tensor_checksum(g)) for g in host]))
+        return new_state, metrics
+
+    def check(self, what: str) -> int:
+        """Every step's integrity equals the plain hash; returns the steps."""
+        for i, (got, fut) in enumerate(zip(self.integrity, self.plain)):
+            if got.tolist() != fut.result():
+                raise AssertionError(f"{what}: step {i}'s integrity "
+                                     f"{got.tolist()} is not the plain hash "
+                                     f"of its grads {fut.result()}")
+        self.pool.shutdown()
+        return len(self.integrity)
+
+
+def profiled_train_step(state, batch, cfg, opt_cfg):
+    """One step as ``train_step`` runs it, with the SSD launches read after
+    the forward and after the backward and the hash launches after the
+    update.  Returns (new_state, counts)."""
+    from repro_torch.models import model as M
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths, map_with_path
+
+    zero_ssd_counts()
+    zero_hash_counts()
+    leaves = {n: t.detach().requires_grad_(True)
+              for n, t in leaf_paths(state["params"])}
+    loss, metrics = M.forward_train(
+        map_with_path(lambda n, _: leaves[n], state["params"]), cfg, batch)
+    forward = ssd_counts()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    backward = ssd_counts()
+    by_name = dict(zip(leaves, grads))
+    new_state, metrics = S.apply_step(
+        state, map_with_path(lambda n, _: by_name[n], state["params"]),
+        {k: v.detach() for k, v in metrics.items()}, opt_cfg, journal=True)
+    torch.cuda.synchronize()
+    return new_state, dict(
+        ssd_forward=forward["forward"],
+        ssd_recompute=backward["forward"] - forward["forward"],
+        ssd_backward=backward["backward"],
+        ssd_tensor_core=backward["tensor_cores"], hash=hash_counts(),
+        loss=float(metrics["loss"]))
+
+
+def train_phase(seed: int, card: str) -> dict:
+    """mamba2-130m at its published widths and depth, bf16 compute over fp32
+    master params, 8 x 4096 tokens a step from the synthetic pipeline,
+    AdamW: a profiled step, then tests/test_trainer.py's schedule through
+    the journaled, checkpointed trainer — 12 steps (a checkpoint every 4, F
+    = 4) and a second deployment that stops after step 8, restores in a
+    fresh trainer and finishes — with the manifests and journal on a
+    replicated log (local+remote, 1 backup, W = 2) and the checkpoints on 2
+    in-memory stores at W = 2; every step journaled with its grads' hashes."""
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        ObjectStore, ReplicatedStore)
+    from repro_torch.configs import get_config
+    from repro_torch.core.replication import build_replica_set
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.train import check_trainable
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import step as S
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaf_paths
+
+    cfg = get_config("mamba2-130m")
+    check_trainable(cfg, DEV, TRAIN_SEQ)
+    opt = OptConfig(**TRAIN_OPT)
+    reduced = ["weights random from --seed (init_params)",
+               "synthetic Markov tokens (SyntheticDataset)"]
+    out: dict = {}
+
+    # the profiled step: the second of two from a fresh state
+    batch = TRAIN_BATCH
+    while True:
+        torch.cuda.reset_peak_memory_stats()
+        data = SyntheticDataset(cfg, DataConfig(batch=batch,
+                                                seq_len=TRAIN_SEQ))
+        state = S.init_train_state(
+            cfg, opt, torch.Generator(device=DEV).manual_seed(seed), DEV)
+        state, _ = S.train_step(state, data.tensors_at(0, DEV), cfg, opt,
+                                journal=True)
+        b1 = data.tensors_at(1, DEV)
+        (state, counts), prof = device_window(
+            lambda: profiled_train_step(state, b1, cfg, opt))
+        step_ms = prof["wall_ms"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if peak <= TRAIN_PEAK_CUT_GB or batch == 4:
+            break
+        reduced.append(f"batch {TRAIN_BATCH} -> 4: peak {peak:.3f} GB > "
+                       f"{TRAIN_PEAK_CUT_GB} GB")
+        batch = 4
+        del state, b1
+        torch.cuda.empty_cache()
+    del state, b1
+    torch.cuda.empty_cache()
+    out.update(describe(cfg, reduced, card))
+    n_leaves = len(list(leaf_paths(S.train_state_specs(cfg, opt)["params"])))
+    want = (cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    got = (counts["ssd_forward"], counts["ssd_recompute"],
+           counts["ssd_backward"])
+    if got != want or counts["ssd_tensor_core"] != 2 * cfg.n_layers or \
+            counts["hash"]["launches"] != n_leaves:
+        raise AssertionError(f"profiled step's launches {counts}: expected "
+                             f"{want} SSD (forward, remat, backward) on the "
+                             f"tensor cores and {n_leaves} hash launches")
+    tokens = batch * TRAIN_SEQ
+    out["profiled_step"] = dict(counts, profile=prof, step_ms=step_ms,
+                                tokens_per_s=tokens / step_ms * 1e3,
+                                peak_memory_gb=peak, batch=batch,
+                                seq=TRAIN_SEQ)
+    log(f"train profiled step ({batch} x {TRAIN_SEQ} tokens, {card}): "
+        f"{step_ms:.3f} ms ({tokens / step_ms * 1e3:.1f} tokens/s), peak "
+        f"device memory {peak:.3f} GB; SSD launches {counts['ssd_forward']} "
+        f"forward + {counts['ssd_recompute']} remat recompute (all "
+        f"{counts['ssd_tensor_core']} on the tensor cores) + "
+        f"{counts['ssd_backward']} backward; hash launches {counts['hash']}")
+    log_profile("train step", prof)
+
+    def deployment():
+        rs = build_replica_set(mode="local+remote", capacity=1 << 20,
+                               n_backups=1, write_quorum=2, device=DEV)
+        return rs, [ObjectStore(f"s{i}") for i in range(2)]
+
+    def trainer(rs, stores):
+        mgr = CheckpointManager(ReplicatedStore(stores, write_quorum=2),
+                                rs.log, CheckpointConfig(force_freq=TRAIN_F))
+        tr = Trainer(cfg, opt, SyntheticDataset(
+            cfg, DataConfig(batch=batch, seq_len=TRAIN_SEQ)), mgr,
+            TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                          journal_freq=TRAIN_F, seed=seed, async_ckpt=False),
+            device=DEV)
+        tr.step_fn = JournaledSteps(cfg, opt)
+        return tr
+
+    zero_ssd_counts()
+    zero_hash_counts()
+    t0 = time.perf_counter()
+    rs, stores = deployment()
+    try:
+        ref_tr = trainer(rs, stores)
+        ref_tr.init_or_restore()
+        rep = ref_tr.run()
+        ref_tr.mgr.close()
+    finally:
+        rs.shutdown()
+    run_s = time.perf_counter() - t0
+    main_counts = dict(ssd=ssd_counts(), hash=hash_counts())
+    ref_steps = ref_tr.step_fn
+    final = ref_tr.state
+    del ref_tr, stores, rs
+
+    rs, stores = deployment()
+    try:
+        first = trainer(rs, stores)
+        first.init_or_restore()
+        first.run(n_steps=TRAIN_CRASH)     # "crash": the trainer is dropped
+        first.mgr.close()
+        first_steps = first.step_fn
+        del first
+        second = trainer(rs, stores)
+        restored = second.init_or_restore()
+        seated = second.data.step
+        rep2 = second.run()
+        second.mgr.close()
+        log_stats = rs.log.stats()
+    finally:
+        rs.shutdown()
+    checked = sum(s.check(w) for s, w in (
+        (ref_steps, "train run"), (first_steps, "train run to the crash"),
+        (second.step_fn, "resumed run")))
+    losses = np.array(rep.losses)
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"train losses {rep.losses}")
+    first4, last4 = float(losses[:4].mean()), float(losses[-4:].mean())
+    if not last4 < first4:
+        raise AssertionError(f"loss did not fall: {rep.losses}")
+    if restored != TRAIN_CRASH or seated < TRAIN_CRASH:
+        raise AssertionError(f"restored step {restored}, data re-seated at "
+                             f"{seated}")
+    tail = rep.losses[TRAIN_CRASH:]
+    if not np.allclose(rep2.losses, tail, rtol=1e-5, atol=0):
+        raise AssertionError(f"resumed losses {rep2.losses} differ from the "
+                             f"uninterrupted run's {tail}")
+    loss_bitwise = rep2.losses == tail
+    params_bitwise = all(bitwise_equal(a, b) for (_, a), (_, b) in zip(
+        leaf_paths(final), leaf_paths(second.state)))
+    expect = TRAIN_STEPS * cfg.n_layers
+    if main_counts["ssd"]["backward"] != expect or \
+            main_counts["ssd"]["forward"] != 2 * expect:
+        raise AssertionError(f"train run's SSD launches {main_counts['ssd']}: "
+                             f"expected {2 * expect} forward, {expect} "
+                             f"backward")
+    ms = ref_steps.ms[1:]
+    out.update(
+        losses=rep.losses, resumed_losses=rep2.losses,
+        first4_mean=first4, last4_mean=last4, restored_step=restored,
+        data_reseated_at=seated, resumed_losses_bitwise_equal=loss_bitwise,
+        final_params_bitwise_equal=params_bitwise,
+        integrity_steps_checked=checked, run_s=run_s,
+        step_ms_median=float(np.median(ms)),
+        tokens_per_s=batch * TRAIN_SEQ / float(np.median(ms)) * 1e3,
+        ckpts_saved=rep.ckpts_saved, ckpts_skipped=rep.ckpts_skipped,
+        main_path_counts=main_counts, log_stats={
+            k: log_stats[k] for k in ("next_lsn", "durable_lsn", "used")})
+    log(f"train run: {TRAIN_STEPS} steps of {batch} x {TRAIN_SEQ} in "
+        f"{run_s:.3f} s ({rep.ckpts_saved} checkpoints), median step "
+        f"{out['step_ms_median']:.3f} ms ({out['tokens_per_s']:.1f} "
+        f"tokens/s); loss {rep.losses[0]:.4f} -> {rep.losses[-1]:.4f} (mean "
+        f"of first 4 {first4:.4f}, last 4 {last4:.4f}); main path launches "
+        f"{main_counts}")
+    log(f"train resume: restored step {restored}, data re-seated at "
+        f"{seated}; steps {TRAIN_CRASH + 1}-{TRAIN_STEPS} within rtol 1e-5 "
+        f"of the uninterrupted run, losses bitwise equal {loss_bitwise}, "
+        f"final params bitwise equal {params_bitwise}; integrity equal to the "
+        f"plain hash of the grads on the CPU at all {checked} steps")
+    del final, second
+    torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_CPU_LAYERS, TRAIN_CPU_TOKENS = 2, 512
+# Loss within 1e-5 relative; each grad leaf and each new first and second
+# moment leaf within 1e-4 of the leaf's largest magnitude (fp32 sums in
+# other orders on the two devices; the CPU tests see 1e-6 between two
+# frameworks); each new param leaf within 1e-4 of the leaf's largest update
+# plus two fp32 spacings of its largest value (p - lr·u rounds to p's
+# spacing), where the grad is at least 1e-3 of the leaf's largest: from
+# zero moments AdamW moves an element by lr·g/(|g| + eps), about ±lr, whose
+# sign is round-off where |g| is that small (those elements are counted,
+# not compared).  (The first statement, without the spacing term, was made
+# before a run whose CPU grads were NaN — see PERF.md.)
+TRAIN_CPU_TOL = 1e-4
+TRAIN_CPU_SIGN_FLOOR = 1e-3
+FP32_SPACING = 2.0 ** -23
+
+
+def per_chunk_backward(real):
+    """A planted fault: the backward kernel run on each chunk as a sequence
+    of its own, so no adjoint or state crosses a chunk boundary."""
+    def fault(xh, dt, A_log, Bm, Cm, dy, dstate, chunk):
+        B, S = xh.shape[:2]
+        n = B * (S // chunk)
+
+        def r(t):
+            return t.contiguous().reshape(n, chunk, *t.shape[2:])
+        g = real(r(xh), r(dt), A_log, r(Bm), r(Cm), r(dy), None, chunk)
+        return (g[0].reshape(xh.shape), g[1].reshape(dt.shape), g[2],
+                g[3].reshape(Bm.shape), g[4].reshape(Cm.shape))
+    return fault
+
+
+def train_card_vs_cpu_phase(seed: int) -> dict:
+    """mamba2-130m at full width cut to 2 layers, fp32: one AdamW step of
+    1 x 512 tokens from the same state (zero moments at step 2, so lr > 0)
+    on the card (the kernels) and on the CPU (the plain versions), held to
+    TRAIN_CPU_TOL; with the backward kernel run chunk by chunk the grads
+    must move past it."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths, tree_map
+
+    cfg = replace(get_config("mamba2-130m"), n_layers=TRAIN_CPU_LAYERS,
+                  compute_dtype="float32")
+    opt = OptConfig(**TRAIN_OPT)
+    host = S.init_train_state(cfg, opt, torch.Generator().manual_seed(
+        seed + 23), device="cpu")
+    host["step"] = torch.tensor(2, dtype=torch.int32)
+    card = tree_map(lambda t: t.to(DEV), host)
+    nb = SyntheticDataset(cfg, DataConfig(batch=1, seq_len=TRAIN_CPU_TOKENS,
+                                          seed=seed)).batch_at(0)
+    batch = {k: torch.from_numpy(v).long() for k, v in nb.items()}
+
+    def step(state, dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        grads, met = S.grads_and_metrics(state["params"], b, cfg)
+        new, met = S.apply_step(state, grads, met, opt)
+        return tree_map(lambda t: t.cpu(), (grads, new)), float(met["loss"])
+
+    def leaf_errs(a, b, scale=None):
+        out = {}
+        for (n, x), (_, y) in zip(leaf_paths(a), leaf_paths(b)):
+            s = float((scale or {}).get(n, y.abs().max().clamp_min(1e-30)))
+            out[n] = float((x - y).abs().max()) / s
+        return out
+
+    zero_ssd_counts()
+    (g_card, new_card), loss_card = step(card, DEV)
+    counts = ssd_counts()
+    if counts["backward"] != cfg.n_layers or \
+            counts["forward"] != 2 * cfg.n_layers:
+        raise AssertionError(f"card step's SSD launches {counts}")
+    (g_cpu, new_cpu), loss_cpu = step(host, "cpu")
+    if ssd_counts() != counts:
+        raise AssertionError("the CPU step launched a kernel")
+    grad_err = leaf_errs(g_card, g_cpu)
+    moment_err = leaf_errs(new_card["opt"], new_cpu["opt"])
+    param_err, skipped = {}, 0
+    old = dict(leaf_paths(host["params"]))
+    grads = dict(leaf_paths(g_cpu))
+    for (n, pc), (_, pp) in zip(leaf_paths(new_card["params"]),
+                                leaf_paths(new_cpu["params"])):
+        g = grads[n].abs()
+        keep = (g >= TRAIN_CPU_SIGN_FLOOR * g.max()) | (g == 0)
+        skipped += int((~keep).sum())
+        upd = (pp - old[n]).abs().max()
+        scale = TRAIN_CPU_TOL * upd + 2 * FP32_SPACING * pp.abs().max()
+        param_err[n] = TRAIN_CPU_TOL * float(((pc - pp).abs() * keep).max()
+                                             / scale.clamp_min(1e-30))
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = {k: max(v.values()) for k, v in (("grads", grad_err),
+                                             ("moments", moment_err),
+                                             ("params", param_err))}
+    log(f"train card vs cpu (fp32, {TRAIN_CPU_LAYERS} layers, 1 x "
+        f"{TRAIN_CPU_TOKENS}): loss {loss_card:.7f} / {loss_cpu:.7f} "
+        f"({loss_rel:.3e} relative, tolerance 1e-5); worst leaf "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (tolerance {TRAIN_CPU_TOL}); {skipped} elements with |g| below "
+        f"{TRAIN_CPU_SIGN_FLOOR} of their leaf's largest not compared")
+    if not (loss_rel <= 1e-5 and all(v <= TRAIN_CPU_TOL
+                                     for e in (grad_err, moment_err,
+                                               param_err)
+                                     for v in e.values())):
+        raise AssertionError(f"card and CPU train steps disagree: loss "
+                             f"{loss_rel:.3e}, {worst}")
+    real = ssd_scan.ssd_backward_cuda
+    ssd_scan.ssd_backward_cuda = per_chunk_backward(real)
+    try:
+        (g_fault, _), _ = step(card, DEV)
+    finally:
+        ssd_scan.ssd_backward_cuda = real
+    fault_errs = leaf_errs(g_fault, g_cpu)
+    if not all(v == v for v in fault_errs.values()):     # NaN
+        raise AssertionError(f"planted fault's grads not finite: {fault_errs}")
+    fault = max(fault_errs.values())
+    log(f"train card vs cpu, backward run chunk by chunk: worst grad leaf "
+        f"{fault:.3e} (must exceed {TRAIN_CPU_TOL})")
+    if not fault > TRAIN_CPU_TOL:
+        raise AssertionError("a backward that drops the carried adjoint "
+                             "passes the card-vs-CPU check")
+    del card
+    torch.cuda.empty_cache()
+    return dict(loss_rel_err=loss_rel, worst_leaf_err=worst,
+                grad_leaf_err=grad_err, sign_floor_skipped=skipped,
+                planted_fault_grad_err=fault, tol=TRAIN_CPU_TOL)
 
 
 # ---------------------------- flash attention ---------------------------- #
@@ -2648,7 +3268,7 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
-               flash_attention.SOURCE]
+               ssd_scan.BWD_SOURCE, flash_attention.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
@@ -2687,6 +3307,15 @@ def main() -> int:
     serving = serving_phase(args.seed)
     cross = card_vs_cpu_phase(serving.pop("restored"), args.seed)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssd_bwd = ssd_backward_phase(args.seed)
+    log(f"phase ssd backward: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    train = train_phase(args.seed, card)
+    log(f"phase train: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    train_cpu = train_card_vs_cpu_phase(args.seed)
+    log(f"phase train card vs cpu: {time.perf_counter() - t0:.3f} s")
     flash = flash_kernel_phase(args.seed)
     flash_attrs = flash_attributes()
     for a in flash_attrs:
@@ -2721,13 +3350,17 @@ def main() -> int:
              + main["recovery_short_row_launches"]
              + main["rebuild_short_row_launches"]
              + sum(c["short_rows"] for c in new_paths))
+    train_hash = train["main_path_counts"]["hash"]
     kernels = [dict(
         name="checksum_rows", route="cuda",
         source="src/repro_torch/csrc/checksum.cu",
         replaces="src/repro/kernels/checksum/checksum.py:30",
-        launches=main_launches,
-        launches_by_route={"short_rows": short,
-                           "long_rows": main_launches - short},
+        launches=main_launches + train_hash["launches"],
+        launches_by_route={
+            "short_rows": short + train_hash["short_rows"],
+            "long_rows": main_launches - short + train_hash["long_rows"]},
+        launches_by_path={"log": main_launches,
+                          "train": train_hash["launches"]},
         max_abs_err=max(r["max_abs_err"] for r in kern.values()
                         if "max_abs_err" in r),
         ms=at["kernel_alone_ms"], wrapper_ms=at["ms"],
@@ -2735,22 +3368,40 @@ def main() -> int:
         bound_by=at["bound_by"], library_ms=None)]
     serve_at = ssd[f"ssd{SSD_SERVE} bfloat16 mixer views"]
     turns = serve_at["layouts"]
+    train_ssd = train["main_path_counts"]["ssd"]
     kernels.append(dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan_tc.cu",
         cuda_core_source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
-        launches=serving["ssd_launches"],
+        launches=serving["ssd_launches"] + train_ssd["forward"],
         launches_by_route={
-            "tensor_cores": serving["ssd_tensor_core_launches"],
+            "tensor_cores": (serving["ssd_tensor_core_launches"]
+                             + train_ssd["tensor_cores"]),
             "cuda_cores": (serving["ssd_launches"]
-                           - serving["ssd_tensor_core_launches"])},
+                           - serving["ssd_tensor_core_launches"]
+                           + train_ssd["cuda_cores"])},
+        launches_by_path={"serving": serving["ssd_launches"],
+                          "train": train_ssd["forward"]},
         max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
         ms=float(np.median(turns["mixer views"]["alone_ms"])),
         wrapper_ms=serve_at["ms"],
         contiguous_ms=float(np.median(turns["contiguous"]["alone_ms"])),
         plain_ms=serve_at["plain_ms"],
         bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
+        library_ms=None))
+    bwd_at = ssd_bwd[f"ssd_bwd{SSD_TRAIN} bfloat16 mixer views"]
+    kernels.append(dict(
+        name="ssd_scan_backward", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
+        gradient_of="src/repro/kernels/ssd_scan/ref.py:24 (jax.grad; the "
+                    "Pallas kernel has no gradient)",
+        launches=train_ssd["backward"],
+        max_abs_err=max(r["max_abs_err"] for r in ssd_bwd.values()),
+        ms=bwd_at["ms"], plain_ms=bwd_at["plain_ms"],
+        plain_autograd_ms=bwd_at["plain_autograd_ms"],
+        bound_ms=bwd_at["bound_ms"], bound_by=bwd_at["bound_by"],
         library_ms=None))
     flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
     by_path = {"gemma2-9b": dict(
@@ -2784,6 +3435,8 @@ def main() -> int:
                       "trim_resync": resync, "router_kv": router,
                       "ssd_shapes": ssd,
                       "serving": serving, "card_vs_cpu": cross,
+                      "ssd_backward_shapes": ssd_bwd, "train": train,
+                      "train_card_vs_cpu": train_cpu,
                       "flash_shapes": flash, "gemma2_serving": gemma,
                       "gemma2_card_vs_cpu": gemma_cpu,
                       "deepseek_serving": deepseek,

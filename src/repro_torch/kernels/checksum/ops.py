@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ...tree import leaf_paths
 from . import ref
 from .checksum import checksum_rows_cuda
 
@@ -47,3 +48,17 @@ def tensor_checksum_batch(mat: torch.Tensor) -> torch.Tensor:
     if _route(mat) == "cpu":
         return ref.checksum_lanes_2d(mat)
     return checksum_rows_cuda(mat.contiguous())
+
+
+def tree_checksums(tree) -> torch.Tensor:
+    """One hash per leaf of ``tree``, in the JAX package's leaf order
+    (``jax.tree_util``: dict keys sorted) -> int64 [n_leaves] in [0, 2^32)
+    on the leaves' device (the JAX package's ``tree_checksums``, the
+    integrity record of a journaled train step).  On the card each leaf is
+    one kernel launch on the route its length picks: matrices and stacked
+    blocks on ``long_rows``, norms and the SSM's per-head vectors on
+    ``short_rows``."""
+    leaves = [leaf for _, leaf in leaf_paths(tree)]
+    if not leaves:
+        return torch.zeros(0, dtype=torch.int64)
+    return torch.stack([tensor_checksum(leaf) for leaf in leaves])

@@ -12,24 +12,25 @@ chunk):
         + exp(A_i) C_i · h_chunk_start                    [inter, recurrent]
 
 The chunk states are combined by a loop over the chunks in order (the
-only serial dependency).  Everything is computed in fp32; ``y`` comes
-back in ``xh``'s dtype and the state as ``[B,H,P,N]`` fp32, as in the
-JAX package's ``kernels/ssd_scan/ref.py``.  This is what the CUDA kernel
-(``ssd_scan.py``) is held against, and what CPU tensors run.
+only serial dependency).  Everything is computed in fp32 (float64 for
+float64 inputs, the oracle of the accuracy checks); ``y`` comes back in
+``xh``'s dtype and the state as ``[B,H,P,N]`` fp32, as in the JAX
+package's ``kernels/ssd_scan/ref.py``.  This is what the CUDA kernel
+(``ssd_scan.py``) is held against, and what CPU tensors run, under
+autograd on the CPU.
+
+``ssd_backward_reference`` is the scan's gradient in the chunked passes
+of the backward kernel (``csrc/ssd_scan_bwd.cu``): the CPU tests and
+``chip_smoke.py`` hold the kernel against it; no main path runs it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 F32 = torch.float32
-
-
-def _decay_logs(dt: torch.Tensor, A_log: torch.Tensor) -> torch.Tensor:
-    """a = -exp(A_log)·dt in fp32, [..., H]."""
-    return -torch.exp(A_log.to(F32)) * dt.to(F32)
 
 
 def ssd_reference(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
@@ -45,19 +46,23 @@ def ssd_reference(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
     nc = S // Q
     rep = H // G
+    f = _compute_dtype(xh)
 
-    dt32 = dt.to(F32)
-    ac = _decay_logs(dt32, A_log).reshape(B_, nc, Q, H)
-    xdt = (xh.to(F32) * dt32[..., None]).reshape(B_, nc, Q, H, P)
-    Brep = Bm.to(F32).reshape(B_, nc, Q, G, N).repeat_interleave(rep, dim=3)
-    Crep = Cm.to(F32).reshape(B_, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    dt32 = dt.to(f)
+    ac = (-torch.exp(A_log.to(f)) * dt32).reshape(B_, nc, Q, H)
+    xdt = (xh.to(f) * dt32[..., None]).reshape(B_, nc, Q, H, P)
+    Brep = Bm.to(f).reshape(B_, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    Crep = Cm.to(f).reshape(B_, nc, Q, G, N).repeat_interleave(rep, dim=3)
 
     cum = torch.cumsum(ac, dim=2)                             # A_i (inclusive)
-    # intra-chunk: L[i,j] = exp(A_i - A_j) for j <= i, selected (never
-    # multiplied) so that an overflowing exp above the diagonal is dropped
+    # intra-chunk: L[i,j] = exp(A_i - A_j) for j <= i.  Above the diagonal
+    # the difference is set to 0 before the exp and the result selected
+    # away, so no exp there overflows — not in the values and not in the
+    # gradient, where an inf times the select's 0 would be NaN
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # [B,nc,i,j,H]
     tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    below = tri[None, None, :, :, None]
+    L = torch.where(below, torch.exp(torch.where(below, seg, 0.0)), 0.0)
     s = torch.einsum("bcihn,bcjhn->bchij", Crep, Brep)
     w = s * L.permute(0, 1, 4, 2, 3)                          # [B,nc,H,i,j]
     y = torch.einsum("bchij,bcjhp->bcihp", w, xdt)
@@ -69,7 +74,7 @@ def ssd_reference(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                           Brep * decay_out[..., None], xdt)
 
     # walk the chunks in order; h_prev[c] is the state at chunk c's start
-    h = torch.zeros(B_, H, P, N, dtype=F32, device=xh.device)
+    h = torch.zeros(B_, H, P, N, dtype=f, device=xh.device)
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
@@ -80,6 +85,115 @@ def ssd_reference(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     y = y + torch.einsum("bcqhn,bchpn->bcqhp",
                          Crep * torch.exp(cum)[..., None], h_prev)
     return y.reshape(B_, S, H, P).to(xh.dtype), h
+
+
+def ssd_backward_reference(xh: torch.Tensor, dt: torch.Tensor,
+                           A_log: torch.Tensor, Bm: torch.Tensor,
+                           Cm: torch.Tensor, dy: torch.Tensor,
+                           dstate: Optional[torch.Tensor], chunk: int
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Gradient of ``ssd_reference`` given dy [B,S,H,P] and an optional
+    d(final state) [B,H,P,N] -> (dxh, ddt, dA_log, dBm, dCm), dxh, dBm and
+    dCm in their inputs' dtypes, ddt and dA_log in fp32 (float64 for
+    float64 inputs), in the passes of the backward kernel.
+
+    Per head, with x~_t = dt_t·x_t, h_t the state after token t and the
+    adjoint g_t = dL/dh_t = dy_t ⊗ C_t + e^{a_{t+1}} g_{t+1}:
+    dC_t = h_tᵀ dy_t, dB_t = g_tᵀ x~_t (each summed over a group's
+    heads), dx~_t = g_t B_t, da_t = e^{a_t} <g_t, h_{t-1}>, ddt_t =
+    <x_t, dx~_t> - exp(A_log)·da_t, dA_log = Σ a_t·da_t.  Chunked:
+
+    1. chunk-start states h0_c, recomputed (cum of the decays in fp64, as
+       the forward sums it);
+    2. the adjoint at each chunk's end, G_c, passed backwards over the
+       chunks: G_{c-1} = e^{cum_Q} G_c + Σ_i e^{cum_i} dy_i ⊗ C_i, with
+       G_last = dstate (or 0);
+    3. per chunk, with L_ij = e^{cum_i - cum_j} (j <= i), s_ij = C_i·B_j
+       and r_ij = dy_i·x~_j: dx~ = (L∘s)ᵀ dy + e^{cum_Q - cum_j} G B_j,
+       dB = (L∘r)ᵀ C + e^{cum_Q - cum_j} Gᵀ x~_j, dC = (L∘r) B +
+       e^{cum_i} h0ᵀ dy_i; and d(cum) of the products M = L∘s∘r, taken
+       below the diagonal only (the diagonal's two terms cancel), turned
+       into da by a reverse cumsum, with the state terms added where no
+       cancellation is needed: da_t = Σ_{i>=t} (Σ_{j<i} M_ij - Σ_{k>i}
+       M_ki + u_i) + Σ_{j<t} v_j + e^{cum_Q} <G, h0>, u_i = e^{cum_i}
+       C_i·(h0ᵀ dy_i), v_j = e^{cum_Q - cum_j} x~_j·(G B_j)."""
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc, rep = S // Q, H // G
+    f = _compute_dtype(xh)
+    x = xh.to(f).reshape(B_, nc, Q, H, P)
+    dtc = dt.to(f).reshape(B_, nc, Q, H)
+    A = -torch.exp(A_log.to(f))                               # [H]
+    Bq = Bm.to(f).reshape(B_, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    Cq = Cm.to(f).reshape(B_, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    dyq = dy.to(f).reshape(B_, nc, Q, H, P)
+    xdt = x * dtc[..., None]
+    cum64 = torch.cumsum(A.double() * dtc.double(), dim=2)    # [B,nc,Q,H]
+    total64 = cum64[:, :, -1]                                 # [B,nc,H]
+    cum, total = cum64.to(f), total64.to(f)
+    w = torch.exp((total64[:, :, None] - cum64).to(f))        # e^{cum_Q-cum_j}
+    ecum = torch.exp(cum)
+
+    # 1. chunk-start states
+    S_c = torch.einsum("bcqhn,bcqhp->bchpn", Bq * w[..., None], xdt)
+    h = torch.zeros(B_, H, P, N, dtype=f, device=xh.device)
+    h0 = []
+    for c in range(nc):
+        h0.append(h)
+        h = torch.exp(total[:, c])[:, :, None, None] * h + S_c[:, c]
+    h0 = torch.stack(h0, dim=1)                               # [B,nc,H,P,N]
+
+    # 2. adjoint at each chunk's end
+    D_c = torch.einsum("bcqhn,bcqhp->bchpn", Cq * ecum[..., None], dyq)
+    g = torch.zeros(B_, H, P, N, dtype=f, device=xh.device) \
+        if dstate is None else dstate.to(f)
+    g_end = [None] * nc
+    for c in reversed(range(nc)):
+        g_end[c] = g
+        g = torch.exp(total[:, c])[:, :, None, None] * g + D_c[:, c]
+    g_end = torch.stack(g_end, dim=1)                         # [B,nc,H,P,N]
+
+    # 3. per chunk
+    seg = (cum64[:, :, :, None, :] - cum64[:, :, None, :, :]).to(f)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    L = torch.where(tri[None, None, :, :, None], torch.exp(seg),
+                    0.0).permute(0, 1, 4, 2, 3)               # [B,nc,H,i,j]
+    s = torch.einsum("bcihn,bcjhn->bchij", Cq, Bq)
+    r = torch.einsum("bcihp,bcjhp->bchij", dyq, xdt)
+    Ls, Lr = L * s, L * r
+    gB = torch.einsum("bchpn,bcjhn->bcjhp", g_end, Bq)        # G B_j
+    hdy = torch.einsum("bchpn,bcihp->bcihn", h0, dyq)         # h0ᵀ dy_i
+    dxdt = torch.einsum("bchij,bcihp->bcjhp", Ls, dyq) + w[..., None] * gB
+    dBh = torch.einsum("bchij,bcihn->bcjhn", Lr, Cq) + w[..., None] * \
+        torch.einsum("bchpn,bcjhp->bcjhn", g_end, xdt)
+    dCh = torch.einsum("bchij,bcjhn->bcihn", Lr, Bq) + ecum[..., None] * hdy
+
+    # d(cum): the row and column sums of M, u and v summed in fp64 over
+    # products in f, and da's cumsums in fp64, as the kernel takes them
+    # (the reverse cumsum of row - column sums cancels every term with
+    # j >= t, so their rounding would not cancel)
+    strict = torch.tril(tri, diagonal=-1)
+    M = torch.where(strict, Ls * r, 0.0).double()
+    u = ecum.double() * (Cq * hdy).double().sum(-1)           # [B,nc,Q,H]
+    v = w.double() * (xdt * gB).double().sum(-1)
+    row = M.sum(-1).permute(0, 1, 3, 2) + u                   # Σ_{j<i} M_ij + u_i
+    col = M.sum(-2).permute(0, 1, 3, 2)                       # Σ_{k>j} M_kj
+    c0 = torch.exp(total) * (g_end * h0).sum((-1, -2))        # [B,nc,H]
+    rev = torch.flip(torch.cumsum(torch.flip(row - col, [2]), dim=2), [2])
+    below = torch.cumsum(v, dim=2) - v                        # Σ_{j<t} v_j
+    da64 = rev + below + c0.double()[:, :, None]
+    da = da64.to(f)
+
+    ddt = (x * dxdt).sum(-1) + A * da
+    dA_log = ((A * dtc).double() * da64).sum((0, 1, 2)).to(f)
+    dxh = (dxdt * dtc[..., None]).reshape(B_, S, H, P)
+    dBm = dBh.reshape(B_, nc, Q, G, rep, N).sum(4).reshape(B_, S, G, N)
+    dCm = dCh.reshape(B_, nc, Q, G, rep, N).sum(4).reshape(B_, S, G, N)
+    return (dxh.to(xh.dtype), ddt.reshape(B_, S, H), dA_log,
+            dBm.to(Bm.dtype), dCm.to(Cm.dtype))
 
 
 def ssd_three_pass_reference(xh: torch.Tensor, dt: torch.Tensor,

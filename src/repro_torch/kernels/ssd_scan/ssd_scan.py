@@ -25,6 +25,14 @@ nothing is compiled at import time.
 number of kernels; ``TENSOR_CORE_LAUNCHES`` and ``CUDA_CORE_LAUNCHES`` each
 route's.  ``ssd_cuda`` adds one to ``LAUNCHES`` and to its route's count
 right after each successful call and nowhere else.
+
+The gradient (``ssd_backward_cuda``, ``csrc/ssd_scan_bwd.cu``) takes fp32
+or bf16 with P <= 128 and N <= 256, on the CUDA cores in seven launches:
+chunk sums, state passes, rows, columns, a finalize and two fixed-order
+reductions (no atomics, so two calls give the same bits).  It takes
+contiguous tensors and copies views.  ``BACKWARD_LAUNCHES`` counts its
+calls that launched, one per call, added right after each successful
+call and nowhere else.
 """
 
 from __future__ import annotations
@@ -39,9 +47,11 @@ from .. import nvcc
 LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 CUDA_CORE_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
 SOURCE = nvcc.CSRC / "ssd_scan.cu"
 TC_SOURCE = nvcc.CSRC / "ssd_scan_tc.cu"
+BWD_SOURCE = nvcc.CSRC / "ssd_scan_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_TILE = 64                      # kTile of ssd_scan_tc.cu
 PAD = 8                            # kPad: bf16 of padding a shared row
@@ -65,6 +75,25 @@ def _bind_tc(lib: ctypes.CDLL) -> None:
     lib.arcadia_ssd_scan_tc_plan.argtypes = [i, i, i,
                                              ctypes.POINTER(ctypes.c_longlong)]
     lib.arcadia_ssd_scan_tc_plan.restype = None
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.arcadia_ssd_scan_bwd.argtypes = [p] * 22 + [i] * 8 + [p]
+    lib.arcadia_ssd_scan_bwd.restype = ctypes.c_int
+    lib.arcadia_ssd_scan_bwd_plan.argtypes = [i, i, i,
+                                              ctypes.POINTER(ctypes.c_longlong)]
+    lib.arcadia_ssd_scan_bwd_plan.restype = None
+
+
+def bwd_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
+    """Shared bytes of the backward's chunk-sum launch (cum fp64, 32-token
+    tiles of x~, B, dy, C), of its row and column launches (cum, k-major
+    64-token tiles of C, B, dy and x~ and one of pair weights, each row
+    padded to 65 floats) and of its finalize launch (da, fp64);
+    ``arcadia_ssd_scan_bwd_plan`` reports the same on the card."""
+    tile = 8 * Q + 4 * (ROW_TILE + 1) * (2 * N + 2 * P + ROW_TILE)
+    return 8 * Q + 4 * 32 * (2 * P + 2 * N), tile, 8 * Q
 
 
 def tc_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
@@ -202,6 +231,77 @@ def ssd_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     else:
         CUDA_CORE_LAUNCHES += 1
     return y, state
+
+
+def ssd_backward_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                      dstate, chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the scan of CUDA tensors (the contract of
+    ``ref.ssd_backward_reference``): dy [B,S,H,P] in xh's dtype and an
+    optional d(final state) [B,H,P,N] -> (dxh, ddt, dA_log, dBm, dCm), each
+    in its input's dtype, contiguous.  Views are copied to contiguous
+    tensors for the kernel."""
+    global BACKWARD_LAUNCHES
+    Q = _check(xh, dt, A_log, Bm, Cm, chunk)
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dy.shape != xh.shape or dy.dtype != xh.dtype or dy.device != xh.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} must "
+                         f"match xh {tuple(xh.shape)} {xh.dtype} on {xh.device}")
+    if dstate is not None and (tuple(dstate.shape) != (B_, H, P, N) or
+                               dstate.device != xh.device):
+        raise ValueError(f"d(state) {tuple(dstate.shape)} on {dstate.device} "
+                         f"must be [B,H,P,N] = {(B_, H, P, N)} on {xh.device}")
+    if P > MAX_P or N > MAX_N or max(B_, H) > MAX_GRID_YZ or \
+            max(bwd_plan(P, N, Q)[:2]) > MAX_SMEM:
+        raise ValueError(f"SSD backward takes P <= {MAX_P}, N <= {MAX_N} "
+                         f"within {MAX_SMEM} shared bytes: P={P}, N={N}, Q={Q}")
+    xh, Bm, Cm, dy = (t.contiguous() for t in (xh, Bm, Cm, dy))
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    nc = S // Q
+    dev = xh.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxh = torch.empty_like(xh)
+    ddt = torch.empty((B_, S, H), **f32)
+    dA_log = torch.empty((H,), **f32)
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    cum = torch.empty((B_, H, S), dtype=torch.float64, device=dev)
+    hbuf = torch.empty((B_, H, nc, P, N), **f32)
+    gbuf = torch.empty((B_, H, nc, P, N), **f32)
+    dB_part = torch.empty((B_, S, H, N), **f32)
+    dC_part = torch.empty((B_, S, H, N), **f32)
+    row, col, v = (torch.empty((B_, H, S), dtype=torch.float64, device=dev)
+                   for _ in range(3))
+    xdx = torch.empty((B_, H, S), **f32)
+    dA_part = torch.empty((B_, H, nc), dtype=torch.float64, device=dev)
+    if xh.numel() == 0:
+        return dxh.zero_(), ddt.zero_(), dA_log.zero_(), dBm.zero_(), \
+            dCm.zero_()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+        err = lib.arcadia_ssd_scan_bwd(
+            *(ptr(t) for t in (xh, dt, A_log, Bm, Cm, dy, dstate, dxh, ddt,
+                               dA_log, dBm, dCm, cum, hbuf, gbuf, dB_part,
+                               dC_part, row, col, v, xdx, dA_part)),
+            B_, S, H, P, G, N, Q, _DTYPES[xh.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"SSD backward kernel launch failed: cudaError_t "
+                           f"{err} (B={B_}, S={S}, H={H}, P={P}, G={G}, N={N}, "
+                           f"Q={Q}, {xh.dtype})")
+    BACKWARD_LAUNCHES += 1
+    return dxh, ddt, dA_log, dBm, dCm
+
+
+def bwd_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
+    """``arcadia_ssd_scan_bwd_plan`` of the built library (held to
+    ``bwd_plan`` by the card tests)."""
+    lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+    out = (ctypes.c_longlong * 3)()
+    lib.arcadia_ssd_scan_bwd_plan(P, N, Q, out)
+    return int(out[0]), int(out[1]), int(out[2])
 
 
 def tc_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:

@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (batched prefill + greedy decode)."""
+"""Launchers of the port: ``serve`` (batched prefill + greedy decode) and
+``train`` (the journaled, checkpointed trainer)."""

@@ -4,9 +4,10 @@
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``),
 into the port's: the same nesting, the same names, the same stacked
 leading block axis, each leaf a tensor on ``device`` with its own dtype.
-``params_to_numpy`` goes back.  bf16 leaves travel as ``ml_dtypes``
-bfloat16 arrays on the numpy side (what ``np.asarray`` of a JAX bf16
-array gives) and as torch.bfloat16 on the port's.
+``params_to_numpy`` goes back, and ``train_state_from_numpy`` /
+``train_state_to_numpy`` carry a whole train state.  bf16 leaves travel
+as ``ml_dtypes`` bfloat16 arrays on the numpy side (what ``np.asarray`` of
+a JAX bf16 array gives) and as torch.bfloat16 on the port's.
 """
 
 from __future__ import annotations
@@ -55,3 +56,22 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
 def params_to_numpy(tree: Any) -> Any:
     """Port params -> the same tree with numpy leaves (on the host)."""
     return tree_map(tensor_to_numpy, tree)
+
+
+def train_state_from_numpy(state: Any, device="cuda") -> Any:
+    """The JAX package's train state ``{"params", "opt", "step"}`` with
+    numpy leaves (``jax.tree_util.tree_map(np.asarray, state)``) -> the
+    port's, on ``device``: the same trees, ``step`` an int32 scalar
+    tensor.  Both packages then start a step from the same state."""
+    device = resolve_device(device)
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": params_from_numpy(state["opt"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The port's train state -> numpy leaves, ``step`` an int32 scalar."""
+    return {"params": params_to_numpy(state["params"]),
+            "opt": params_to_numpy(state["opt"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

@@ -203,12 +203,20 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
     JAX package does: decode or short -> direct; long local -> sliding;
     long global -> q-chunked lazy softmax.  CPU prefill keeps these
     strategies rather than the plain version behind ``flash_ops`` so that
-    the CPU parity tests hold each of them to its JAX counterpart."""
+    the CPU parity tests hold each of them to its JAX counterpart, and
+    CPU training differentiates through them.  The flash kernel has no
+    backward yet: a CUDA prefill that needs a gradient raises rather than
+    run the plain strategies on the card."""
     B, Sq, K, G, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cuda" and Sq == Sk and kv_len is None and \
             q_offset == 0:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "training attention on the card needs a flash-attention "
+                "backward kernel, which is not written yet (ROADMAP.md, "
+                "Queue 1 item 4: the flash backward)")
         return _flash_attention(q, k, v, scale=scale, causal=causal,
                                 window=window, cap=cap)
     if Sq == 1 or Sq * Sk <= 2048 * 2048 or kv_len is not None:

@@ -13,14 +13,24 @@ Public entry points:
   cast_params(params, cfg)                — the compute-dtype cast, once
   cache_specs(cfg, batch, max_len) / init_cache(...)
   serve_step(params, cfg, batch, cache, index) — prefill & decode
+  forward_train(params, cfg, batch)       — (loss, metrics), differentiable
 
 Every layer of the ten configs runs here: GQA attention (with gemma2's
 local/global alternation, softcaps and post-norms, and command-r's
 parallel block), MLA attention with its latent cache and deepseek's dense
 prologue, dense MLP, MoE and SSM layers, and the frame (hubert) and patch
-(llava-next) frontends.  Training (``forward_train``, the loss,
-multi-token prediction) waits for the training slice; the MTP params
-exist in ``param_specs`` as in the JAX package.
+(llava-next) frontends.
+
+Training keeps the params as they are stored (fp32 master params where
+the config says so) and casts each layer's matrices to the compute dtype
+inside the layer (``_cast_compute``, the JAX package's policy), so the
+gradients land on the stored leaves; ``cast_params`` is serving's one-off
+cast and training never calls it.  With ``cfg.remat == "block"`` each
+block of a differentiated forward runs under ``torch.utils.checkpoint``
+(non-reentrant): only its input is kept, and the block runs again in the
+backward pass, as ``jax.checkpoint(..., nothing_saveable)`` does.  On the
+card only the SSM mixer has a gradient kernel: attention layers refuse a
+differentiated prefill there (``layers.attention``).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..tree import leaf_paths, map_with_path, tree_map
@@ -275,15 +286,29 @@ def _run_stack(params: Params, cfg: ModelConfig, h, cache, index):
         aux_total = aux_total + aux
         if cache is not None:
             _write_into(c, nc)
+    remat = cache is None and cfg.remat == "block" and \
+        torch.is_grad_enabled() and (h.requires_grad or any(
+            t.requires_grad for _, t in leaf_paths(params["blocks"])))
+    # one unbind per leaf: its backward stacks the blocks' grads once
+    slices = {n: t.unbind(0) for n, t in leaf_paths(params["blocks"])}
     for b in range(cfg.n_blocks):
-        bp = tree_map(lambda t: t[b], params["blocks"])
+        bp = map_with_path(lambda n, _: slices[n][b], params["blocks"])
         bc = None if cache is None else \
             tree_map(lambda t: t[b], cache["blocks"])
-        h, ncs, aux = apply_block(bp, h, cfg, bc, index)
+        if remat:
+            h, aux = checkpoint(_remat_block, bp, h, cfg,
+                                use_reentrant=False)
+        else:
+            h, ncs, aux = apply_block(bp, h, cfg, bc, index)
+            if cache is not None:
+                _write_into(bc, ncs)
         aux_total = aux_total + aux
-        if cache is not None:
-            _write_into(bc, ncs)
     return h, cache, aux_total
+
+
+def _remat_block(bp, h, cfg: ModelConfig):
+    h, _, aux = apply_block(bp, h, cfg)
+    return h, aux
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
@@ -318,6 +343,55 @@ def _logits(params: Params, cfg: ModelConfig, h):
     return L.softcap(logits, cfg.final_logit_softcap)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -1) -> torch.Tensor:
+    """fp32 cross-entropy with an ignore mask; logits [B,S,V] (any float
+    dtype), in the JAX package's operations: max-shifted log-sum-exp minus
+    the gold logit, averaged over the labels that are not ``ignore``."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    safe = torch.clamp(labels, min=0)
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    nll = lse - gold
+    mask = (labels != ignore).float()
+    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: (scalar fp32 loss, metrics {"ce", "aux", "loss"}
+    and "mtp" where the config predicts a second token).  The loss is
+    ce + 0.3·mtp + the MoE routers' auxiliary loss."""
+    h = _embed_inputs(params, cfg, batch)
+    h, _, aux = _run_stack(params, cfg, h, cache=None, index=None)
+    loss = cross_entropy(_logits(params, cfg, h), batch["labels"])
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp_depth and "tokens" in batch:
+        loss_mtp = _mtp_loss(params, cfg, h, batch)
+        metrics["mtp"] = loss_mtp
+        loss = loss + 0.3 * loss_mtp
+    total = loss + aux
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _mtp_loss(params: Params, cfg: ModelConfig, h, batch):
+    """DeepSeek-V3 multi-token prediction: one extra (dense attention)
+    block predicting token t+2 from [h_t ; embed(token_{t+1})]."""
+    dt = h.dtype
+    emb = params["embed"]["w"].to(dt)[batch["tokens"]]
+    nxt = torch.roll(emb, -1, dims=1)
+    u = torch.cat([L.rms_norm(h, params["mtp"]["norm"]["w"], cfg.norm_eps),
+                   nxt], dim=-1)
+    hm = torch.matmul(u, params["mtp"]["proj"]["w"].to(dt))
+    hm, _, _ = _apply_layer(hm, params["mtp"]["block"], cfg,
+                            LayerKind(mixer="attn"), None, None)
+    labels2 = torch.roll(batch["labels"], -1, dims=1)
+    labels2[:, -2:] = -1
+    return cross_entropy(_logits(params, cfg, hm), labels2)
+
+
 def serve_step(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                cache, index) -> Tuple[torch.Tensor, Any]:
     """Prefill (S>1, index=0) or decode (S=1) against a persistent cache
@@ -336,4 +410,5 @@ def serve_step(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 
 
 __all__ = ["param_specs", "init_params", "cast_params", "cache_specs",
-           "init_cache", "apply_block", "serve_step"]
+           "init_cache", "apply_block", "serve_step", "cross_entropy",
+           "forward_train"]

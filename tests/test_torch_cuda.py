@@ -1092,3 +1092,196 @@ def test_mamba2_prefill_scans_on_the_tensor_cores(cuda_device):
     assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (4, 2, 2)
     agree = (got.float().argmax(-1) == want.argmax(-1)).float().mean()
     assert float(agree) >= 0.9
+
+
+# ----------------------------- SSD backward ------------------------------ #
+
+BWD_SHAPES = [(2, 64, 4, 32, 2, 16, 16), (1, 128, 2, 64, 1, 32, 32),
+              (1, 96, 6, 16, 2, 16, 32), (1, 64, 2, 16, 1, 64, 64),
+              (1, 512, 24, 64, 1, 128, 256)]
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def bwd_inputs(B, S, H, P, G, N, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mixer = N == 128
+    t = lambda a, d=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(device).to(d)
+    dt = rng.uniform(1e-3, 0.1, (B, S, H)) if mixer else \
+        rng.uniform(0.05, 0.9, (B, S, H))
+    A = np.log(rng.uniform(1.0, 16.0, H)) if mixer else \
+        rng.uniform(-1.0, 0.5, H)
+    args = (t(rng.standard_normal((B, S, H, P)), dtype), t(dt), t(A),
+            t(rng.standard_normal((B, S, G, N)), dtype),
+            t(rng.standard_normal((B, S, G, N)), dtype))
+    return args, t(rng.standard_normal((B, S, H, P)), dtype), \
+        t(rng.standard_normal((B, H, P, N)))
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("with_dstate", [False, True],
+                         ids=["no-dstate", "dstate"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
+def test_ssd_backward_kernel_matches_plain(cuda_device, fp32_exact, shape,
+                                           dtype, with_dstate):
+    """The gradient through ``ops.ssd`` on the card (forward kernel, then one
+    backward launch) against the plain chunked backward and torch.autograd
+    through the plain scan, within 1e-4 (fp32) / 5e-2 (bf16) of each
+    gradient's largest value; a second call repeats it bitwise."""
+    *dims, chunk = shape
+    args, dy, ds = bwd_inputs(*dims, dtype, cuda_device, seed=sum(shape))
+    ds = ds if with_dstate else None
+
+    def grads(scan):
+        leaves = [a.detach().requires_grad_() for a in args]
+        y, st = scan(*leaves, chunk=chunk)
+        outs, cots = ((y, st), (dy, ds)) if ds is not None else ((y,), (dy,))
+        return torch.autograd.grad(outs, leaves, cots)
+
+    before = ssd_scan.BACKWARD_LAUNCHES
+    got, again = grads(ssd_ops.ssd), grads(ssd_ops.ssd)
+    assert ssd_scan.BACKWARD_LAUNCHES == before + 2
+    for g, h, a in zip(got, again, args):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        assert torch.equal(g, h)
+    tol = BWD_TOL[dtype]
+    for want in (ssd_ref.ssd_backward_reference(*args, dy, ds, chunk),
+                 grads(ssd_ref.ssd_reference)):
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        assert max(errs) <= tol, errs
+
+
+@pytest.mark.parametrize("seed", [1, 9])
+def test_ssd_backward_of_fp32_is_near_float64(cuda_device, fp32_exact, seed):
+    """In fp32 the kernel is about as close to a float64 gradient as the
+    plain chunked backward: within 4x its distance or 2e-5 of each
+    gradient's largest value.  At seed 1 (two heads, a d(state)) dA_log is
+    a sum whose terms cancel: the plain fp32 version is 1.2e-4 (CPU) to
+    1.4e-4 (card) from float64 there and the kernel 1.8e-4, past the 1e-4
+    that two fp32 versions are held to elsewhere."""
+    shape = (1, 128, 2, 64, 1, 32, 32)
+    *dims, chunk = shape
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(cuda_device)
+    B, S, H, P, G, N = dims
+    dt, A = f(rng.uniform(0.05, 0.9, (B, S, H))), f(rng.uniform(-1.0, 0.5, H))
+    args = (f(rng.standard_normal((B, S, H, P))), dt, A,
+            f(rng.standard_normal((B, S, G, N))),
+            f(rng.standard_normal((B, S, G, N))))
+    dy, ds = f(rng.standard_normal((B, S, H, P))), \
+        f(rng.standard_normal((B, H, P, N)))
+    got = ssd_scan.ssd_backward_cuda(*args, dy, ds, chunk)
+    plain = ssd_ref.ssd_backward_reference(*args, dy, ds, chunk)
+    exact = ssd_ref.ssd_backward_reference(
+        *(a.double() for a in args), dy.double(), ds.double(), chunk)
+    for g, p, e in zip(got, plain, exact):
+        assert rel_err(g, e) <= max(4 * rel_err(p, e), 2e-5)
+
+
+def test_ssd_backward_reads_the_mixers_views(cuda_device):
+    """xh, Bm and Cm as views of one conv output (the mixer's split): the
+    gradient equals the one of contiguous copies, bitwise."""
+    B, S, H, P, G, N, Q = 2, 256, 4, 64, 1, 128, 128
+    args, dy, _ = bwd_inputs(B, S, H, P, G, N, torch.bfloat16, cuda_device)
+    xh, dt, A, Bm, Cm = args
+    conv = torch.cat([xh.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
+                      Cm.reshape(B, S, G * N)], dim=-1)
+    xi, bv, cv = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+    views = (xi.reshape(B, S, H, P), dt, A, bv.reshape(B, S, G, N),
+             cv.reshape(B, S, G, N))
+    got = ssd_scan.ssd_backward_cuda(*views, dy, None, Q)
+    want = ssd_scan.ssd_backward_cuda(*args, dy, None, Q)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_ssd_backward_planted_faults_fail(cuda_device):
+    """The gradient of each half of the sequence alone (no adjoint from the
+    second half; no state from the first) misses the whole gradient by more
+    than the bf16 tolerance, in dxh and dCm respectively."""
+    B, S, H, P, G, N, Q = 1, 1024, 24, 64, 1, 128, 256
+    args, dy, _ = bwd_inputs(B, S, H, P, G, N, torch.bfloat16, cuda_device)
+    xh, dt, A, Bm, Cm = args
+    whole = ssd_scan.ssd_backward_cuda(*args, dy, None, Q)
+    h = S // 2
+    first = ssd_scan.ssd_backward_cuda(xh[:, :h], dt[:, :h].contiguous(), A,
+                                       Bm[:, :h], Cm[:, :h], dy[:, :h], None,
+                                       Q)
+    second = ssd_scan.ssd_backward_cuda(xh[:, h:], dt[:, h:].contiguous(), A,
+                                        Bm[:, h:], Cm[:, h:], dy[:, h:], None,
+                                        Q)
+    assert rel_err(first[0], whole[0][:, :h]) > BWD_TOL[torch.bfloat16]
+    assert rel_err(second[4], whole[4][:, h:]) > BWD_TOL[torch.bfloat16]
+
+
+def test_ssd_backward_plan_matches_the_host(cuda_device):
+    for P, N, Q in ((64, 128, 256), (16, 16, 16), (128, 192, 128),
+                    (32, 64, 96)):
+        assert ssd_scan.bwd_kernel_plan(P, N, Q) == ssd_scan.bwd_plan(P, N, Q)
+
+
+def test_attention_refuses_a_gradient_on_the_card(cuda_device):
+    """The flash kernel has no backward: a CUDA prefill that needs a
+    gradient raises instead of running the plain strategies."""
+    from repro_torch.models import layers as L
+
+    q = torch.randn(1, 64, 2, 2, 64, device=cuda_device, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="flash-attention backward"):
+        L.attention(q, k, k.clone())
+    with torch.no_grad():
+        assert L.attention(q, k, k.clone()).shape == (1, 64, 2, 2, 64)
+
+
+def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,
+                                                       fp32_exact):
+    """mamba2-130m (reduced) in fp32: one journaled train step on the card
+    (the SSD forward and backward kernels, the hash kernel) and on the CPU
+    from the same state: the loss within 1e-5, each grad's hash equal to
+    the plain hash of that grad, the new params within 1e-4 of each leaf's
+    largest update plus two fp32 spacings of its largest value, where the
+    grad is at least 1e-3 of the leaf's largest (below that, AdamW's sign
+    from zero moments is round-off)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths, tree_map
+
+    cfg = reduced_config("mamba2-130m")
+    opt = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=1000)
+    host = S.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                              device="cpu")
+    host["step"] = torch.tensor(2, dtype=torch.int32)
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    batch = SyntheticDataset(cfg, DataConfig(batch=2, seq_len=256)
+                             ).tensors_at(0, "cpu")
+    before = ssd_scan.BACKWARD_LAUNCHES
+    new_card, met_card = S.train_step(
+        card, {k: v.to(cuda_device) for k, v in batch.items()}, cfg, opt,
+        journal=True)
+    assert ssd_scan.BACKWARD_LAUNCHES == before + cfg.n_layers
+    new_cpu, met_cpu = S.train_step(host, batch, cfg, opt, journal=True)
+    assert float(met_card["loss"]) == pytest.approx(float(met_cpu["loss"]),
+                                                    rel=1e-5)
+    grads, _ = S.grads_and_metrics(card["params"], {
+        k: v.to(cuda_device) for k, v in batch.items()}, cfg)
+    assert met_card["integrity"].tolist() == [
+        int(ref.tensor_checksum(g.cpu())) for _, g in leaf_paths(grads)]
+    g_cpu = dict(leaf_paths(S.grads_and_metrics(host["params"], batch,
+                                                cfg)[0]))
+    old = dict(leaf_paths(host["params"]))
+    for (n, pc), (_, pp) in zip(leaf_paths(new_card["params"]),
+                                leaf_paths(new_cpu["params"])):
+        g = g_cpu[n].abs()
+        keep = (g >= 1e-3 * g.max()) | (g == 0)
+        tol = 1e-4 * (pp - old[n]).abs().max() + 2 * 2.0 ** -23 * \
+            pp.abs().max()
+        assert float(((pc.cpu() - pp).abs() * keep).max()) <= float(tol), n

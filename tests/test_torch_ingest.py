@@ -1,6 +1,6 @@
 """The port's group-commit ingestion front end (core/ingest.py, a copy of
 the JAX package's) against the JAX package's, on the CPU, and the port's
-two examples run on the CPU.
+three examples run on the CPU.
 
 BENCH_fig9.json's ingest rows: 16 producers x 200 puts of 100 B values,
 serially, from 16 threads, and through the engine; every shape recovers
@@ -159,14 +159,23 @@ def test_latency_percentiles_match_jax():
     assert empty.keys() == jcore.latency_percentiles([]).keys()
 
 
-@pytest.mark.parametrize("example", ["torch_quickstart", "torch_kvstore_wal"])
+@pytest.mark.parametrize("example", ["torch_quickstart", "torch_kvstore_wal",
+                                     "torch_journaled_training"])
 def test_examples_run_on_the_cpu(example):
-    """The port's examples, run as a user would with ``--device cpu``."""
+    """The port's examples, run as a user would with ``--device cpu`` (the
+    training example at its reduced preset)."""
+    extra = ["--preset", "reduced"] if example == "torch_journaled_training" \
+        else []
+    # one intra-op thread: beside the suite's other workers a pool of
+    # spinning torch threads made the training example 20x slower
     res = subprocess.run(
         [sys.executable, str(ROOT / "examples" / f"{example}.py"),
-         "--device", "cpu"], capture_output=True, text=True, timeout=120,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+         "--device", "cpu", *extra], capture_output=True, text=True,
+        timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     want = {"torch_quickstart": "survived a backup partition",
-            "torch_kvstore_wal": "all 400 acked puts present: True"}[example]
+            "torch_kvstore_wal": "all 400 acked puts present: True",
+            "torch_journaled_training": "lifecycle check passed"}[example]
     assert want in res.stdout

@@ -116,7 +116,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.checksum.ops, repro_torch.kernels.ssd_scan.ops, "
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.checkpoint, repro_torch.configs, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.train, repro_torch.optim, repro_torch.data; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
