@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Run the PyTorch port of the Arcadia log on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phase ssd_backward]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
 Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
-backward, and of forward flash attention from ``src/repro_torch/csrc``
+backward (the same two routes), and of forward flash attention from
+``src/repro_torch/csrc``
 (one nvcc per source, in parallel) and then, on the card:
 
   kernel        the hash against its plain PyTorch version, bit-exact, at
@@ -80,21 +81,33 @@ backward, and of forward flash attention from ``src/repro_torch/csrc``
                 card-vs-CPU checks run again on a variant of the params in
                 which the scan carries each mixer's output (at init it is
                 mostly the 4-token conv);
-  ssd backward  the SSD backward kernel (the gradient through ops.ssd's
+  ssd backward  the SSD backward kernels (the gradient through ops.ssd's
                 autograd Function) against the plain chunked backward and
                 torch.autograd through the plain scan, within 1e-4 (fp32) /
-                5e-2 (bf16) of each gradient's largest value, at the CPU
-                tests' shapes and at mamba2-130m's training shape (8 x 4096,
-                bf16 as the mixer's views and fp32), two calls bitwise
-                equal, fp32 cases against a float64 gradient; at the
-                training shape the gradient of each half of the sequence
-                alone (no adjoint or no state across the halves) must fail
-                the check; with its median time, the plain versions' and
-                its bound;
+                5e-2 (bf16) of each gradient's largest value, each case on
+                the route the table names (bf16 with chunks of 64·k on the
+                tensor cores, also as the mixer's views, and held to the
+                kernel's CPU mirror and a float64 gradient too; fp32, a
+                chunk of 16 and a misaligned bf16 copy on the CUDA cores),
+                at the CPU tests' shapes, at jamba's groups (G 8) over
+                chunks, at the widest P and N the tensor cores take, and
+                at mamba2-130m's training shape
+                (8 x 4096: bf16 views, a misaligned bf16 copy, fp32), two
+                calls bitwise equal, fp32 cases against a float64 gradient;
+                at the training shape the gradient of each half of the
+                sequence alone (no adjoint or no state across the halves)
+                must fail the check; with its median time a call, alone
+                (CUDA graph) and per launch (torch.profiler) at the training
+                shape, the plain versions' and its bound; then each
+                tensor-core launch's registers and spill bytes at each
+                (P, N) of its cases.  ``--phase ssd_backward`` builds the
+                kernels, runs this phase alone and prints its JSON (not
+                the run's result line);
   train         mamba2-130m at full width and depth (24 layers, bf16 compute,
                 fp32 master params) trained on 8 x 4096 synthetic tokens a
                 step with AdamW: a profiled step (24 SSD forward launches,
-                24 remat recomputes, 24 backward launches, one hash launch
+                24 remat recomputes, 24 backward launches on the tensor
+                cores and none on the CUDA cores, one hash launch
                 per grad leaf; ms, tokens/s, peak memory, busy share, top
                 kernels), then 12 steps through the journaled, checkpointed
                 trainer (checkpoint every 4, F = 4, manifests and journal
@@ -106,9 +119,10 @@ backward, and of forward flash attention from ``src/repro_torch/csrc``
                 plain hash of its grads on the CPU;
   train cpu     mamba2-130m at full width cut to 2 layers, fp32: one AdamW
                 step of 1 x 512 tokens on the card and on the CPU from the
-                same state, loss within 1e-5 relative and grads, moments
-                and params within 1e-4 of each leaf's scale, where a
-                backward run chunk by chunk must move the grads past that;
+                same state (the fp32 backward on the CUDA cores), loss
+                within 1e-5 relative and grads, moments and params within
+                1e-4 of each leaf's scale, where a backward run chunk by
+                chunk must move the grads past that;
   flash kernel  the flash-attention kernels against their plain version
                 (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16, and
                 per output row within 1e-4 / 2^-6 of the row's largest
@@ -1400,24 +1414,48 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
 # ------------------------------ SSD backward ----------------------------- #
 
 SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256)     # mamba2-130m, 8 x 4096 tokens
-# the CPU tests' shapes (tests/test_torch_ssd_backward.py) in fp32 and a bf16
-# twin, then the training shape as the mixer's views (bf16) and in fp32
-SSD_BWD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32", "contiguous"),
-                  ((1, 128, 2, 64, 1, 32, 32), "float32", "contiguous"),
-                  ((1, 96, 6, 16, 2, 16, 32), "float32", "contiguous"),
-                  ((1, 64, 2, 16, 1, 64, 64), "float32", "contiguous"),
-                  ((2, 64, 4, 32, 2, 16, 64), "bfloat16", "contiguous"),
-                  (SSD_TRAIN, "bfloat16", "mixer views"),
-                  (SSD_TRAIN, "float32", "contiguous")]
+# Each case with the backward route it must take: the CPU tests' shapes in
+# fp32 (CUDA cores); bf16 twins, a chunk of 64 on the tensor cores
+# (contiguous and as the mixer's views) and a chunk of 16 on the CUDA cores;
+# then the training shape as the mixer's bf16 views (tensor cores), as a
+# bf16 copy one element off 16-byte alignment (the CUDA-core kernel on the
+# same data) and in fp32 (CUDA cores)
+SSD_BWD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32", "contiguous", CC),
+                  ((1, 128, 2, 64, 1, 32, 32), "float32", "contiguous", CC),
+                  ((1, 96, 6, 16, 2, 16, 32), "float32", "contiguous", CC),
+                  ((1, 64, 2, 16, 1, 64, 64), "float32", "contiguous", CC),
+                  ((2, 64, 4, 32, 2, 16, 64), "bfloat16", "contiguous", TC),
+                  ((1, 64, 2, 16, 1, 64, 64), "bfloat16", "mixer views", TC),
+                  # jamba's groups (G 8, 2 heads each) over chunks; the
+                  # widest P and N the route takes
+                  ((2, 512, 16, 64, 8, 128, 256), "bfloat16", "mixer views",
+                   TC),
+                  ((1, 256, 4, 128, 2, 256, 128), "bfloat16", "contiguous",
+                   TC),
+                  ((2, 64, 4, 32, 2, 16, 16), "bfloat16", "contiguous", CC),
+                  (SSD_TRAIN, "bfloat16", "mixer views", TC),
+                  (SSD_TRAIN, "bfloat16", "misaligned", CC),
+                  (SSD_TRAIN, "float32", "contiguous", CC)]
 # of each gradient's largest magnitude: the forward's tolerances
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 GRAD_NAMES = ("dxh", "ddt", "dA_log", "dBm", "dCm")
 
 
+def shifted(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past 16-byte alignment."""
+    v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return v.view(t.shape).copy_(t)
+
+
 def ssd_bwd_inputs(shape, dtype, seed: int, layout: str):
     """``ssd_inputs`` and the cotangents: dy in xh's dtype and d(final
-    state) in fp32, N(0, 1) from numpy."""
-    args = ssd_inputs(shape, dtype, seed, layout)
+    state) in fp32, N(0, 1) from numpy.  Layout "misaligned": xh, Bm and Cm
+    are contiguous copies one element off 16-byte alignment."""
+    args = ssd_inputs(shape, dtype, seed,
+                      "contiguous" if layout == "misaligned" else layout)
+    if layout == "misaligned":
+        xh, dt, A_log, Bm, Cm = args
+        args = (shifted(xh), dt, A_log, shifted(Bm), shifted(Cm))
     B, S, H, P, G, N, _ = shape
     rng = np.random.default_rng(seed + 1000)
     dy = torch.from_numpy(rng.standard_normal((B, S, H, P), np.float32)
@@ -1447,16 +1485,19 @@ def scan_grads(scan, args, dy, ds, chunk: int):
 def ssd_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
     """Least time for the gradient: xh, dy, Bm, Cm, dt and A_log read once
     and dxh, dBm, dCm, ddt and dA_log written once at the HBM rate, against
-    the chunked algorithm's operations at the dtype's peak — per (batch,
-    head, chunk) the causal pairs' C·B, dy·x~, dx~, dB and dC products,
-    Q(Q+1)(3N + 2P), and the five Q·N·P state products (two chunk sums,
-    G·B, Gᵀ·x~, h0ᵀ·dy), 10·Q·N·P."""
+    the function's least operations at the dtype's peak: per (batch, head,
+    chunk) the causal pairs' dy·x~ and dx~ products, Q(Q+1)·2P, and the
+    five Q·N·P state products (two chunk sums, G·B, Gᵀ·x~, h0ᵀ·dy),
+    10·Q·N·P; and per (batch, group, chunk) the causal pairs' C·Bᵀ, dB and
+    dC products, Q(Q+1)·3N (B and C belong to the group, so dB and dC need
+    only the sum of L∘r over its heads).  Both routes are held to it."""
     B, S, H, P, G, N, chunk = shape
     Q = min(chunk, S)
     el = 2 if dtype == "bfloat16" else 4
     n_bytes = (3 * B * S * H * P * el + 4 * B * S * G * N * el
                + 2 * B * S * H * 4 + 2 * H * 4)
-    ops = B * H * (S // Q) * (Q * (Q + 1) * (3 * N + 2 * P) + 10 * Q * N * P)
+    ops = B * (S // Q) * (H * (Q * (Q + 1) * 2 * P + 10 * Q * N * P)
+                          + G * Q * (Q + 1) * 3 * N)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
@@ -1487,30 +1528,59 @@ def ssd_bwd_planted_faults(args, dy, chunk: int, whole, tol: float) -> dict:
     return out
 
 
+def backward_launch_ms(args, dy, chunk: int, calls: int = 5) -> dict:
+    """Each launch's mean device time (ms) in ``calls`` gradient calls
+    without d(state) (torch.profiler), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd_scan.ssd_backward_cuda(*args, dy, None, chunk)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"bwd_\w+(<[^>]*>)?", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m.group(0)] = e.self_device_time_total / e.count / 1e3
+    return out
+
+
 def ssd_backward_phase(seed: int) -> dict:
     """Each case: the gradient through ``ops.ssd`` (the autograd Function:
-    the forward kernel, then the backward kernel, one backward launch) held
-    against the plain chunked backward and against torch.autograd through
-    the plain scan, within SSD_BWD_TOL of each gradient's largest value;
-    the per-(batch, head, chunk) block error of dxh; two calls bitwise
-    equal; fp32 cases against a float64 gradient; at the training shape
-    the main path's case without d(state) and two planted faults."""
+    the forward kernel, then one backward launch on the route the case
+    names) held against the plain chunked backward and against
+    torch.autograd through the plain scan, within SSD_BWD_TOL of each
+    gradient's largest value; tensor-core cases also against their CPU
+    mirror run on the card and a float64 gradient; the per-(batch, head,
+    chunk) block error of dxh; two calls bitwise equal; fp32 cases against
+    a float64 gradient; at the training shape the main path's case without
+    d(state), two planted faults, the gradient alone (CUDA graph) and each
+    launch's device time; then the launches' registers and spill bytes."""
     from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     results = {}
-    for k, (shape, dtype, layout) in enumerate(SSD_BWD_SHAPES):
+    for k, (shape, dtype, layout, route) in enumerate(SSD_BWD_SHAPES):
         chunk, tol = shape[-1], SSD_BWD_TOL[dtype]
         name = f"ssd_bwd{shape} {dtype}" + ("" if layout == "contiguous"
                                             else f" {layout}")
         args, dy, ds = ssd_bwd_inputs(shape, dtype, seed + 50 + k, layout)
-        before = ssd_scan.BACKWARD_LAUNCHES
+        picked = ssd_scan.backward_route(args[0], args[3], args[4], dy, chunk)
+        if picked != route:
+            raise AssertionError(f"{name}: routed to {picked}, not {route}")
+        before = ssd_counts()
         got = scan_grads(ops.ssd, args, dy, ds, chunk)
         again = scan_grads(ops.ssd, args, dy, ds, chunk)
         torch.cuda.synchronize()
-        if ssd_scan.BACKWARD_LAUNCHES - before != 2:
-            raise AssertionError(f"{name}: {ssd_scan.BACKWARD_LAUNCHES - before}"
-                                 f" backward launches for two gradients")
+        after = ssd_counts()
+        n = {key: after[key] - before[key] for key in after}
+        if n["backward"] != 2 or n[f"backward_{route}"] != 2:
+            raise AssertionError(f"{name}: {n} launches for two gradients "
+                                 f"on the {route}")
         repeat = all(bitwise_equal(a, b) for a, b in zip(got, again))
         if not repeat:
             raise AssertionError(f"{name}: two calls differ")
@@ -1526,6 +1596,19 @@ def ssd_backward_phase(seed: int) -> dict:
         errs = {"plain chunked": grad_errs(got, chunked),
                 "plain autograd": grad_errs(got, auto)}
         del auto
+        if route == TC:
+            errs["mirror"] = grad_errs(got, ref.ssd_backward_tc_reference(
+                *args, dy, ds, chunk))
+        err64 = None
+        if route == TC or (dtype == "float32" and
+                           shape[0] * shape[1] <= 4096):
+            exact = ref.ssd_backward_reference(
+                *(a.double() for a in args), dy.double(), ds.double(), chunk)
+            err64 = {"kernel": grad_errs(got, exact),
+                     "plain": grad_errs(chunked, exact)}
+            del exact
+            if route == TC:
+                errs["float64"] = err64["kernel"]
         for side, e in errs.items():
             if not all(v <= tol for v in e.values()):
                 raise AssertionError(f"{name}: kernel differs from the "
@@ -1533,14 +1616,8 @@ def ssd_backward_phase(seed: int) -> dict:
         blk = block_err(got[0], chunked[0], chunk)
         abs_err = max(float((g.float() - w.float()).abs().max())
                       for g, w in zip(got, chunked))
-        err64 = None
-        if dtype == "float32" and shape[0] * shape[1] <= 4096:
-            exact = ref.ssd_backward_reference(
-                *(a.double() for a in args), dy.double(), ds.double(), chunk)
-            err64 = {"kernel": grad_errs(got, exact),
-                     "plain": grad_errs(chunked, exact)}
         no_state = faults = None
-        if shape == SSD_TRAIN and dtype == "bfloat16":
+        if shape == SSD_TRAIN and layout == "mixer views":
             whole = scan_grads(ops.ssd, args, dy, None, chunk)
             no_state = grad_errs(whole, ref.ssd_backward_reference(
                 *args, dy, None, chunk))
@@ -1550,9 +1627,11 @@ def ssd_backward_phase(seed: int) -> dict:
             del whole
         del got, chunked
         big = shape[0] * shape[1] > 4096
-        ms = timed_ms(lambda: ssd_scan.ssd_backward_cuda(*args, dy, None,
-                                                         chunk),
-                      5 if big else 20, flush)
+        call = lambda: ssd_scan.ssd_backward_cuda(  # noqa: E731
+            *args, dy, None, chunk)
+        ms = timed_ms(call, 5 if big else 20, flush)
+        alone = kernel_alone_ms(call, 3) if big else None
+        launch_ms = backward_launch_ms(args, dy, chunk) if big else None
         plain = timed_ms(lambda: ref.ssd_backward_reference(*args, dy, None,
                                                             chunk),
                          3 if big else 10, flush)
@@ -1561,14 +1640,17 @@ def ssd_backward_phase(seed: int) -> dict:
                            3 if big else 10, flush)
         b, by = ssd_bwd_bound_ms(shape, dtype)
         results[name] = dict(shape=list(shape), dtype=dtype, layout=layout,
-                             rel_err=errs, tol=tol, dxh_block_rel_err=blk,
+                             route=route, rel_err=errs, tol=tol,
+                             dxh_block_rel_err=blk,
                              rel_err_without_dstate=no_state,
                              rel_err_from_float64=err64, bitwise_repeat=repeat,
                              planted_fault_rel_err=faults, ms=ms,
+                             alone_ms=alone, launch_ms=launch_ms,
                              plain_ms=plain, plain_autograd_ms=auto_ms,
                              bound_ms=b, bound_by=by, max_abs_err=abs_err)
         worst = {side: max(e, key=e.get) for side, e in errs.items()}
-        log(f"kernel {name}: of each gradient's largest value, worst "
+        log(f"kernel {name} ({route}): of each gradient's largest value, "
+            "worst "
             + ", ".join(f"{errs[s][w]:.3e} ({w}) from the {s}"
                         for s, w in worst.items())
             + f" (tolerance {tol}); dxh block err {blk:.3e}; bitwise repeat "
@@ -1580,9 +1662,22 @@ def ssd_backward_phase(seed: int) -> dict:
                                         for n, v in err64["plain"].items()))
             + ("" if faults is None else "; planted faults: " + ", ".join(
                 f"{f} {e:.3e}" for f, e in faults.items()))
-            + f"; {ms:.6f} ms, plain {plain:.6f} ms, plain autograd "
-            f"(forward + backward) {auto_ms:.6f} ms, bound {b:.6f} ms ({by})")
+            + f"; {ms:.6f} ms a call"
+            + ("" if alone is None else f", {alone:.6f} ms alone")
+            + f", plain {plain:.6f} ms, plain autograd (forward + backward) "
+            f"{auto_ms:.6f} ms, bound {b:.6f} ms ({by})")
+        if launch_ms is not None:
+            log(f"kernel {name} ({route}) per launch: " + ", ".join(
+                f"{kn} {v:.6f} ms" for kn, v in launch_ms.items()))
         del args, dy, ds
+    info = {}
+    for P, N in sorted({(s[3], s[5]) for s, _, _, r in SSD_BWD_SHAPES
+                        if r == TC}):
+        info[f"P {P}, N {N}"] = rows = ssd_scan.bwd_tc_kernel_info(P, N)
+        log(f"kernel ssd backward (tensor_cores) at P {P}, N {N}: "
+            + ", ".join(f"{r['launch']} {r['registers']} registers "
+                        f"{r['local_bytes']} spill bytes" for r in rows))
+    results["kernel_info"] = info
     torch.cuda.empty_cache()
     return results
 
@@ -1601,6 +1696,8 @@ def zero_ssd_counts() -> None:
     from repro_torch.kernels.ssd_scan import ssd_scan
     ssd_scan.LAUNCHES = ssd_scan.TENSOR_CORE_LAUNCHES = 0
     ssd_scan.CUDA_CORE_LAUNCHES = ssd_scan.BACKWARD_LAUNCHES = 0
+    ssd_scan.BACKWARD_TENSOR_CORE_LAUNCHES = 0
+    ssd_scan.BACKWARD_CUDA_CORE_LAUNCHES = 0
 
 
 def ssd_counts() -> dict:
@@ -1608,7 +1705,9 @@ def ssd_counts() -> dict:
     return dict(forward=ssd_scan.LAUNCHES,
                 tensor_cores=ssd_scan.TENSOR_CORE_LAUNCHES,
                 cuda_cores=ssd_scan.CUDA_CORE_LAUNCHES,
-                backward=ssd_scan.BACKWARD_LAUNCHES)
+                backward=ssd_scan.BACKWARD_LAUNCHES,
+                backward_tensor_cores=ssd_scan.BACKWARD_TENSOR_CORE_LAUNCHES,
+                backward_cuda_cores=ssd_scan.BACKWARD_CUDA_CORE_LAUNCHES)
 
 
 class JournaledSteps:
@@ -1676,6 +1775,8 @@ def profiled_train_step(state, batch, cfg, opt_cfg):
         ssd_forward=forward["forward"],
         ssd_recompute=backward["forward"] - forward["forward"],
         ssd_backward=backward["backward"],
+        ssd_backward_tensor_core=backward["backward_tensor_cores"],
+        ssd_backward_cuda_core=backward["backward_cuda_cores"],
         ssd_tensor_core=backward["tensor_cores"], hash=hash_counts(),
         loss=float(metrics["loss"]))
 
@@ -1737,6 +1838,8 @@ def train_phase(seed: int, card: str) -> dict:
     got = (counts["ssd_forward"], counts["ssd_recompute"],
            counts["ssd_backward"])
     if got != want or counts["ssd_tensor_core"] != 2 * cfg.n_layers or \
+            counts["ssd_backward_tensor_core"] != cfg.n_layers or \
+            counts["ssd_backward_cuda_core"] != 0 or \
             counts["hash"]["launches"] != n_leaves:
         raise AssertionError(f"profiled step's launches {counts}: expected "
                              f"{want} SSD (forward, remat, backward) on the "
@@ -1751,7 +1854,8 @@ def train_phase(seed: int, card: str) -> dict:
         f"device memory {peak:.3f} GB; SSD launches {counts['ssd_forward']} "
         f"forward + {counts['ssd_recompute']} remat recompute (all "
         f"{counts['ssd_tensor_core']} on the tensor cores) + "
-        f"{counts['ssd_backward']} backward; hash launches {counts['hash']}")
+        f"{counts['ssd_backward']} backward ({counts['ssd_backward_tensor_core']}"
+        f" on the tensor cores); hash launches {counts['hash']}")
     log_profile("train step", prof)
 
     def deployment():
@@ -1824,6 +1928,8 @@ def train_phase(seed: int, card: str) -> dict:
         leaf_paths(final), leaf_paths(second.state)))
     expect = TRAIN_STEPS * cfg.n_layers
     if main_counts["ssd"]["backward"] != expect or \
+            main_counts["ssd"]["backward_tensor_cores"] != expect or \
+            main_counts["ssd"]["backward_cuda_cores"] != 0 or \
             main_counts["ssd"]["forward"] != 2 * expect:
         raise AssertionError(f"train run's SSD launches {main_counts['ssd']}: "
                              f"expected {2 * expect} forward, {expect} "
@@ -1930,8 +2036,10 @@ def train_card_vs_cpu_phase(seed: int) -> dict:
     (g_card, new_card), loss_card = step(card, DEV)
     counts = ssd_counts()
     if counts["backward"] != cfg.n_layers or \
+            counts["backward_cuda_cores"] != cfg.n_layers or \
             counts["forward"] != 2 * cfg.n_layers:
-        raise AssertionError(f"card step's SSD launches {counts}")
+        raise AssertionError(f"card step's SSD launches {counts}: the fp32 "
+                             f"backward belongs on the CUDA cores")
     (g_cpu, new_cpu), loss_cpu = step(host, "cpu")
     if ssd_counts() != counts:
         raise AssertionError("the CPU step launched a kernel")
@@ -1984,7 +2092,8 @@ def train_card_vs_cpu_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     return dict(loss_rel_err=loss_rel, worst_leaf_err=worst,
                 grad_leaf_err=grad_err, sign_floor_skipped=skipped,
-                planted_fault_grad_err=fault, tol=TRAIN_CPU_TOL)
+                planted_fault_grad_err=fault, tol=TRAIN_CPU_TOL,
+                ssd_counts=counts)
 
 
 # ---------------------------- flash attention ---------------------------- #
@@ -3250,6 +3359,9 @@ def llava_phase(seed: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=["all", "ssd_backward"], default="all",
+                    help="ssd_backward: build, run that phase alone and print "
+                         "its JSON, for work on the SSD backward kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3268,7 +3380,8 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
-               ssd_scan.BWD_SOURCE, flash_attention.SOURCE]
+               ssd_scan.BWD_SOURCE, ssd_scan.BWD_TC_SOURCE,
+               flash_attention.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
@@ -3277,6 +3390,10 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     log(f"kernel build (nvcc, sm_90a, {len(sources)} sources in parallel): "
         f"{build_s:.3f} s")
+
+    if args.phase == "ssd_backward":
+        print(json.dumps({"ssd_backward": ssd_backward_phase(args.seed)}))
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     base = np.random.default_rng(args.seed).integers(
@@ -3390,18 +3507,39 @@ def main() -> int:
         plain_ms=serve_at["plain_ms"],
         bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
         library_ms=None))
-    bwd_at = ssd_bwd[f"ssd_bwd{SSD_TRAIN} bfloat16 mixer views"]
+    bwd_tc = ssd_bwd[f"ssd_bwd{SSD_TRAIN} bfloat16 mixer views"]
+    bwd_cc = ssd_bwd[f"ssd_bwd{SSD_TRAIN} float32"]
+    bwd_cc16 = ssd_bwd[f"ssd_bwd{SSD_TRAIN} bfloat16 misaligned"]
+    bwd_cases = [r for k, r in ssd_bwd.items() if k != "kernel_info"]
+    gradient_of = ("src/repro/kernels/ssd_scan/ref.py:24 (jax.grad; the "
+                   "Pallas kernel has no gradient)")
     kernels.append(dict(
-        name="ssd_scan_backward", route="cuda",
+        name="ssd_scan_backward", route="cuda", backward_route="tensor_cores",
+        source="src/repro_torch/csrc/ssd_scan_bwd_tc.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
+        gradient_of=gradient_of,
+        launches=train_ssd["backward_tensor_cores"],
+        max_abs_err=max(r["max_abs_err"] for r in bwd_cases
+                        if r["route"] == "tensor_cores"),
+        ms=bwd_tc["alone_ms"], wrapper_ms=bwd_tc["ms"],
+        launch_ms=bwd_tc["launch_ms"], plain_ms=bwd_tc["plain_ms"],
+        plain_autograd_ms=bwd_tc["plain_autograd_ms"],
+        bound_ms=bwd_tc["bound_ms"], bound_by=bwd_tc["bound_by"],
+        library_ms=None))
+    kernels.append(dict(
+        name="ssd_scan_backward_cuda_cores", route="cuda",
+        backward_route="cuda_cores",
         source="src/repro_torch/csrc/ssd_scan_bwd.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
-        gradient_of="src/repro/kernels/ssd_scan/ref.py:24 (jax.grad; the "
-                    "Pallas kernel has no gradient)",
-        launches=train_ssd["backward"],
-        max_abs_err=max(r["max_abs_err"] for r in ssd_bwd.values()),
-        ms=bwd_at["ms"], plain_ms=bwd_at["plain_ms"],
-        plain_autograd_ms=bwd_at["plain_autograd_ms"],
-        bound_ms=bwd_at["bound_ms"], bound_by=bwd_at["bound_by"],
+        gradient_of=gradient_of,
+        launches=train_cpu["ssd_counts"]["backward_cuda_cores"],
+        max_abs_err=max(r["max_abs_err"] for r in bwd_cases
+                        if r["route"] == "cuda_cores"),
+        ms=bwd_cc["alone_ms"], wrapper_ms=bwd_cc["ms"],
+        launch_ms=bwd_cc["launch_ms"], plain_ms=bwd_cc["plain_ms"],
+        plain_autograd_ms=bwd_cc["plain_autograd_ms"],
+        bound_ms=bwd_cc["bound_ms"], bound_by=bwd_cc["bound_by"],
+        bf16_ms=bwd_cc16["alone_ms"], bf16_wrapper_ms=bwd_cc16["ms"],
         library_ms=None))
     flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
     by_path = {"gemma2-9b": dict(

@@ -13,15 +13,18 @@ fp32 path, and bf16 views whose pointers or strides are not 16-byte
 aligned, which the router sends there.
 
 The scan of CUDA tensors is a ``torch.autograd.Function``: its forward is
-the kernel above, its backward the hand-written backward kernel
-(``ssd_scan.ssd_backward_cuda``; contiguous copies of the mixer's views).
-CPU tensors run ``ref.ssd_reference`` under plain autograd.
+the kernel above, its backward the hand-written backward kernel that
+``ssd_scan.backward_route`` picks inside ``ssd_scan.ssd_backward_cuda``
+(tensor cores for bf16 at widths of 16·k and chunks of 64·k, reading the
+mixer's views as they are; CUDA cores for the rest, on contiguous
+copies).  CPU tensors run ``ref.ssd_reference`` under plain autograd.
 
 ``ssd_decode`` (one token) is plain PyTorch on either device: three small
 einsums, no kernel, as in the JAX package.  The kernels' launch counts
 are ``ssd_scan.LAUNCHES`` (one per scan) and each route's
 ``ssd_scan.TENSOR_CORE_LAUNCHES`` / ``ssd_scan.CUDA_CORE_LAUNCHES``, and
-``ssd_scan.BACKWARD_LAUNCHES`` (one per gradient).
+``ssd_scan.BACKWARD_LAUNCHES`` (one per gradient) with each backward
+route's ``BACKWARD_TENSOR_CORE_LAUNCHES`` / ``BACKWARD_CUDA_CORE_LAUNCHES``.
 """
 
 from __future__ import annotations

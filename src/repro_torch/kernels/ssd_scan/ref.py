@@ -22,6 +22,9 @@ autograd on the CPU.
 ``ssd_backward_reference`` is the scan's gradient in the chunked passes
 of the backward kernel (``csrc/ssd_scan_bwd.cu``): the CPU tests and
 ``chip_smoke.py`` hold the kernel against it; no main path runs it.
+``ssd_backward_tc_reference`` is the tensor-core backward
+(``csrc/ssd_scan_bwd_tc.cu``) in plain PyTorch, rounding where it rounds
+(tests only).
 """
 
 from __future__ import annotations
@@ -195,6 +198,160 @@ def ssd_backward_reference(xh: torch.Tensor, dt: torch.Tensor,
     return (dxh.to(xh.dtype), ddt.reshape(B_, S, H), dA_log,
             dBm.to(Bm.dtype), dCm.to(Cm.dtype))
 
+
+
+BWD_TC_FAULTS = ("lo dropped", "head summed twice", "adjoint dropped")
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(F32)
+
+
+def _hi_lo(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _head_sum(t: torch.Tensor, G: int, dim: int, twice: bool = False
+              ) -> torch.Tensor:
+    """The fp32 sum over each group's heads (axis ``dim``) in head order;
+    ``twice`` adds each group's first head again (a planted fault)."""
+    t = t.unflatten(dim, (G, t.shape[dim] // G))
+    acc = t.select(dim + 1, 0)
+    if twice:
+        acc = acc + t.select(dim + 1, 0)
+    for k in range(1, t.shape[dim + 1]):
+        acc = acc + t.select(dim + 1, k)
+    return acc
+
+
+def ssd_backward_tc_reference(xh: torch.Tensor, dt: torch.Tensor,
+                              A_log: torch.Tensor, Bm: torch.Tensor,
+                              Cm: torch.Tensor, dy: torch.Tensor,
+                              dstate: Optional[torch.Tensor], chunk: int,
+                              fault: Optional[str] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The tensor-core backward's passes (``csrc/ssd_scan_bwd_tc.cu``) in
+    plain PyTorch, rounding where the kernel rounds: what the tests hold
+    that design to on the CPU.  It is never on the main path.  The contract
+    of ``ssd_backward_reference``; xh, Bm, Cm and dy are taken as bf16
+    values (rounded to bf16 first, as the kernel only takes bf16), and the
+    outputs come back in the inputs' dtypes (fp32 inputs give the fp32
+    values the kernel rounds to bf16 last).
+
+    1. chunk sums: S_c = Σ_j x_j ⊗ bf16(B_j · dt_j · exp(cum_Q - cum_j)),
+       D_c = Σ_i dy_i ⊗ bf16(C_i · exp(cum_i)), the fp32 factor rounded
+       into the bf16 operand once, sums in fp32; cum in fp64, each
+       difference rounded to fp32 once;
+    2. state passes in fp32 (one fused multiply-add a step): h0 forward, G
+       backward; <G, h0> in fp64; h0 and G rounded once to bf16;
+    3. per tile pair, s = C·Bᵀ once per group and r = dt_j (dy_i · x_j) once
+       per head; L masked to 0 above the diagonal before the exp; the fp32
+       sum over a group's heads, in head order, of W = L∘r; M = (L∘s)∘r
+       below the diagonal, its row and column sums in fp64;
+    4. dx~ = exp(cum_Q - cum_j)·(G B_j) + hi·dy + lo·dy, hi and lo the bf16
+       split of L∘s; <x, dx~> in fp32, v in fp64;
+    5. dB = Σ_h dt·exp(cum_Q - cum)·(x G) + hiᵀ C + loᵀ C and dC = Σ_h
+       exp(cum)·(dy h0) + hi B + lo B, hi and lo the split of W's sum;
+       u = exp(cum) Σ_n C·(dy h0) in fp64;
+    6. da, ddt and dA_log as ``ssd_backward_reference`` takes them.
+
+    ``fault`` plants one of ``BWD_TC_FAULTS`` for the tests: the lo
+    operands dropped, a group's first head summed twice into W's sum, or
+    the adjoint not carried across chunks."""
+    if fault is not None and fault not in BWD_TC_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc, rep = S // Q, H // G
+    x = _bf16(xh).reshape(B_, nc, Q, H, P)
+    Bg = _bf16(Bm).reshape(B_, nc, Q, G, N)
+    Cg = _bf16(Cm).reshape(B_, nc, Q, G, N)
+    Bh, Ch = Bg.repeat_interleave(rep, 3), Cg.repeat_interleave(rep, 3)
+    dyq = _bf16(dy).reshape(B_, nc, Q, H, P)
+    dtc = dt.to(F32).reshape(B_, nc, Q, H)
+    A = -torch.exp(A_log.to(F32))
+    cum = torch.cumsum(A.double() * dtc.double(), dim=2)      # [B,nc,Q,H]
+    total = cum[:, :, -1:]
+    w = torch.exp((total - cum).to(F32))                      # e^{cum_Q-cum_j}
+    ecum = torch.exp(cum.to(F32))
+
+    # 1. chunk sums
+    S_c = torch.einsum("bcqhn,bcqhp->bchpn",
+                       _bf16(Bh * (dtc * w)[..., None]), x)
+    D_c = torch.einsum("bcqhn,bcqhp->bchpn", _bf16(Ch * ecum[..., None]), dyq)
+
+    # 2. state passes
+    decay = torch.exp(total[:, :, 0].to(F32)).double()[..., None, None]
+
+    def fma(a, s):
+        return (decay[:, c] * a.double() + s.double()).to(F32)
+    h = torch.zeros(B_, H, P, N, dtype=F32, device=xh.device)
+    h0 = []
+    for c in range(nc):
+        h0.append(h)
+        h = fma(h, S_c[:, c])
+    h0 = torch.stack(h0, 1)                                   # [B,nc,H,P,N]
+    g = torch.zeros_like(h) if dstate is None else dstate.to(F32)
+    Ge = [None] * nc
+    for c in reversed(range(nc)):
+        Ge[c] = g
+        g = torch.zeros_like(g) if fault == "adjoint dropped" else \
+            fma(g, D_c[:, c])
+    Ge = torch.stack(Ge, 1)
+    c0 = torch.exp(total[:, :, 0]) * (Ge.double() * h0.double()).sum((-1, -2))
+    h0b, Gb = _bf16(h0), _bf16(Ge)
+
+    # 3. pairs
+    s = torch.einsum("bcign,bcjgn->bcgij", Cg, Bg)            # [B,nc,G,i,j]
+    r = torch.einsum("bcihp,bcjhp->bchij", dyq, x) * \
+        dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(F32)
+    below = tri[None, None, :, :, None]
+    L = torch.where(below, torch.exp(torch.where(below, seg, 0.0)),
+                    0.0).permute(0, 1, 4, 2, 3)               # [B,nc,H,i,j]
+    Ls = L * s.repeat_interleave(rep, 2)
+    M = torch.where(torch.tril(tri, -1), Ls * r, 0.0).double()
+    row, col = M.sum(-1), M.sum(-2)                           # [B,nc,H,Q]
+    W = _head_sum(L * r, G, 2, twice=fault == "head summed twice")
+
+    # 4. columns
+    lo = 0.0 if fault == "lo dropped" else 1.0
+    hi1, lo1 = _hi_lo(Ls)
+    GB = torch.einsum("bchpn,bcjhn->bcjhp", Gb, Bh)           # G B_j
+    dxdt = w[..., None] * GB + (
+        torch.einsum("bchij,bcihp->bcjhp", hi1, dyq)
+        + lo * torch.einsum("bchij,bcihp->bcjhp", lo1, dyq))
+    xdx = (x * dxdt).sum(-1)
+    v = w.double() * ((x * dtc[..., None]) * GB).double().sum(-1)
+
+    # 5. group
+    hi2, lo2 = _hi_lo(W)
+    hdy = torch.einsum("bcqhp,bchpn->bcqhn", dyq, h0b)        # h0ᵀ dy
+    u = ecum.double() * (Ch * hdy).double().sum(-1)
+    dB = _head_sum(torch.einsum("bcqhp,bchpn->bcqhn", x, Gb)
+                   * (dtc * w)[..., None], G, 3) + (
+        torch.einsum("bcgij,bcign->bcjgn", hi2, Cg)
+        + lo * torch.einsum("bcgij,bcign->bcjgn", lo2, Cg))
+    dC = _head_sum(hdy * ecum[..., None], G, 3) + (
+        torch.einsum("bcgij,bcjgn->bcign", hi2, Bg)
+        + lo * torch.einsum("bcgij,bcjgn->bcign", lo2, Bg))
+
+    # 6. finalize
+    rows = row.permute(0, 1, 3, 2) + u
+    cols = col.permute(0, 1, 3, 2)
+    rev = torch.flip(torch.cumsum(torch.flip(rows - cols, [2]), 2), [2])
+    da64 = rev + (torch.cumsum(v, 2) - v) + c0[:, :, None]
+    ddt = xdx + A * da64.to(F32)
+    dA_log = ((A * dtc).double() * da64).sum((0, 1, 2)).to(F32)
+    dxh = (dxdt * dtc[..., None]).reshape(B_, S, H, P)
+    return (dxh.to(xh.dtype), ddt.reshape(B_, S, H), dA_log,
+            dB.reshape(B_, S, G, N).to(Bm.dtype),
+            dC.reshape(B_, S, G, N).to(Cm.dtype))
 
 def ssd_three_pass_reference(xh: torch.Tensor, dt: torch.Tensor,
                              A_log: torch.Tensor, Bm: torch.Tensor,

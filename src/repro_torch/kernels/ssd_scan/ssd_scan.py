@@ -26,13 +26,24 @@ number of kernels; ``TENSOR_CORE_LAUNCHES`` and ``CUDA_CORE_LAUNCHES`` each
 route's.  ``ssd_cuda`` adds one to ``LAUNCHES`` and to its route's count
 right after each successful call and nowhere else.
 
-The gradient (``ssd_backward_cuda``, ``csrc/ssd_scan_bwd.cu``) takes fp32
-or bf16 with P <= 128 and N <= 256, on the CUDA cores in seven launches:
-chunk sums, state passes, rows, columns, a finalize and two fixed-order
-reductions (no atomics, so two calls give the same bits).  It takes
-contiguous tensors and copies views.  ``BACKWARD_LAUNCHES`` counts its
-calls that launched, one per call, added right after each successful
-call and nowhere else.
+The gradient (``ssd_backward_cuda``) has two routes too, chosen by
+``backward_route`` from the same kind of facts (dy's among them):
+
+* ``"tensor_cores"`` (``csrc/ssd_scan_bwd_tc.cu``) — bf16 xh, Bm, Cm and dy
+  with P and N multiples of 16 (P <= 128, N <= 256), a chunk of 64·k,
+  16-byte aligned pointers and strides of 8·k elements: seven launches
+  (chunk sums, state passes, pairs, columns, group, finalize, dA_log) with
+  every product on the tensor cores, C·Bᵀ once per group, dB and dC summed
+  over a group's heads inside the kernel, the inputs read through their
+  strides;
+* ``"cuda_cores"`` (``csrc/ssd_scan_bwd.cu``) — fp32, and bf16 at other
+  widths or layouts, P <= 128 and N <= 256: seven launches on the CUDA
+  cores in fp32, on contiguous copies of views.
+
+Neither uses atomics, so two calls give the same bits.
+``BACKWARD_LAUNCHES`` counts gradient calls that launched, one per call,
+and ``BACKWARD_TENSOR_CORE_LAUNCHES`` / ``BACKWARD_CUDA_CORE_LAUNCHES``
+each route's, added right after each successful call and nowhere else.
 """
 
 from __future__ import annotations
@@ -48,10 +59,17 @@ LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 CUDA_CORE_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+BACKWARD_TENSOR_CORE_LAUNCHES = 0
+BACKWARD_CUDA_CORE_LAUNCHES = 0
 
 SOURCE = nvcc.CSRC / "ssd_scan.cu"
 TC_SOURCE = nvcc.CSRC / "ssd_scan_tc.cu"
 BWD_SOURCE = nvcc.CSRC / "ssd_scan_bwd.cu"
+BWD_TC_SOURCE = nvcc.CSRC / "ssd_scan_bwd_tc.cu"
+# the tensor-core backward's launches, in order (``bwd_tc_kernel_info``)
+BWD_TC_LAUNCH_NAMES = ("chunk sums", "state passes", "pairs", "columns",
+                       "group", "finalize", "dA_log")
+SLICE_P = 32                       # kSliceP of ssd_scan_bwd_tc.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_TILE = 64                      # kTile of ssd_scan_tc.cu
 PAD = 8                            # kPad: bf16 of padding a shared row
@@ -84,6 +102,71 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.arcadia_ssd_scan_bwd_plan.argtypes = [i, i, i,
                                               ctypes.POINTER(ctypes.c_longlong)]
     lib.arcadia_ssd_scan_bwd_plan.restype = None
+
+
+def _bind_bwd_tc(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.arcadia_ssd_scan_bwd_tc.argtypes = [p] * 13 + [i] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), p]
+    lib.arcadia_ssd_scan_bwd_tc.restype = ctypes.c_int
+    lib.arcadia_ssd_scan_bwd_tc_plan.argtypes = [
+        i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.arcadia_ssd_scan_bwd_tc_plan.restype = None
+    lib.arcadia_ssd_scan_bwd_tc_scratch_bytes.argtypes = [i] * 7
+    lib.arcadia_ssd_scan_bwd_tc_scratch_bytes.restype = ctypes.c_longlong
+    lib.arcadia_ssd_scan_bwd_tc_info.argtypes = [i, i, i,
+                                                 ctypes.POINTER(ctypes.c_int)]
+    lib.arcadia_ssd_scan_bwd_tc_info.restype = ctypes.c_int
+
+
+def bwd_tc_plan(P: int, N: int, Q: int) -> Tuple[int, int, int, int, int]:
+    """Shared bytes of the tensor-core backward's launches, as
+    ``arcadia_ssd_scan_bwd_tc_plan`` reports them: chunk sums (cum, the
+    factors, two stages of 64-token x/dy and B/C tiles), pairs (the B_J
+    and C_I tiles of C·Bᵀ, two stages of a head's cum, dt, x_J and dy_I, the
+    cross-warp row sums), columns (cum, x_J, two stages of a slice of G and
+    B_J or of dy_I), group (C_T, the cross-warp u sums, two stages of a
+    head's 32-row slice of x or dy and G or h0, or of W's hi and lo tiles
+    and C_I or B_J) and finalize (da, the row minus column sums, v).
+    Shared rows are padded by 8 bf16."""
+    t, w = ROW_TILE, ROW_TILE + PAD
+    sums = 8 * Q + 8 * 16 + 4 * Q + 2 * 2 * t * ((P + PAD) + (N + PAD))
+    pair_stage = 2 * t * 8 + 4 * t + 2 * 2 * t * (P + PAD)
+    pairs = 2 * 2 * t * (N + PAD) + 2 * pair_stage + 8 * 4 * t
+    cols = 8 * Q + 2 * t * (P + PAD) + 2 * max(2 * (P + t) * w,
+                                               2 * t * (P + PAD))
+    head = 8 * t + 16 + 4 * t + 2 * t * (SLICE_P + PAD) + \
+        2 * SLICE_P * (N + PAD)
+    quad = 2 * 2 * t * w + 2 * t * (N + PAD)
+    group = 2 * t * (N + PAD) + 8 * 2 * t + 2 * max(head, quad)
+    return sums, pairs, cols, group, 24 * Q
+
+
+def backward_route(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   dy: torch.Tensor, chunk: int) -> str:
+    """The backward kernel that takes these inputs: a function of dtype,
+    shape, strides and pointer alignment only (it runs on CPU tensors
+    too).  "tensor_cores" for bf16 xh, Bm, Cm and dy with P and N multiples
+    of 16 (P <= 128, N <= 256), a chunk of 64·k dividing the sequence, the
+    four 16-byte aligned with strides of 8·k elements and the last
+    dimension contiguous; else "cuda_cores"."""
+    ts = (xh, Bm, Cm, dy)
+    if any(t.dtype != torch.bfloat16 or t.dim() != 4 for t in ts):
+        return "cuda_cores"
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    if Q < 1 or G < 1 or P % 16 or P > MAX_P or N % 16 or N > MAX_N or \
+            Q % ROW_TILE or S % Q or H % G or \
+            max(B_, H, B_ * G) > MAX_GRID_YZ:
+        return "cuda_cores"
+    if max(bwd_tc_plan(P, N, Q)) > MAX_SMEM:
+        return "cuda_cores"
+    for t in ts:
+        if t.stride(3) != 1 or t.data_ptr() % 16 or \
+                any(s % 8 for s in _strides(t)):
+            return "cuda_cores"
+    return "tensor_cores"
 
 
 def bwd_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
@@ -237,11 +320,13 @@ def ssd_backward_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                       Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
                       dstate, chunk: int) -> Tuple[torch.Tensor, ...]:
     """The gradient of the scan of CUDA tensors (the contract of
-    ``ref.ssd_backward_reference``): dy [B,S,H,P] in xh's dtype and an
-    optional d(final state) [B,H,P,N] -> (dxh, ddt, dA_log, dBm, dCm), each
-    in its input's dtype, contiguous.  Views are copied to contiguous
-    tensors for the kernel."""
-    global BACKWARD_LAUNCHES
+    ``ref.ssd_backward_reference``) on the kernel that ``backward_route``
+    picks: dy [B,S,H,P] in xh's dtype and an optional d(final state)
+    [B,H,P,N] -> (dxh, ddt, dA_log, dBm, dCm), each in its input's dtype,
+    contiguous.  The tensor-core kernel reads xh, Bm, Cm and dy through
+    their strides; the CUDA-core kernel takes contiguous copies."""
+    global BACKWARD_LAUNCHES, BACKWARD_TENSOR_CORE_LAUNCHES, \
+        BACKWARD_CUDA_CORE_LAUNCHES
     Q = _check(xh, dt, A_log, Bm, Cm, chunk)
     B_, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -252,6 +337,11 @@ def ssd_backward_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                                dstate.device != xh.device):
         raise ValueError(f"d(state) {tuple(dstate.shape)} on {dstate.device} "
                          f"must be [B,H,P,N] = {(B_, H, P, N)} on {xh.device}")
+    if backward_route(xh, Bm, Cm, dy, Q) == "tensor_cores":
+        grads = _backward_tensor_cores(xh, dt, A_log, Bm, Cm, dy, dstate, Q)
+        BACKWARD_LAUNCHES += 1
+        BACKWARD_TENSOR_CORE_LAUNCHES += 1
+        return grads
     if P > MAX_P or N > MAX_N or max(B_, H) > MAX_GRID_YZ or \
             max(bwd_plan(P, N, Q)[:2]) > MAX_SMEM:
         raise ValueError(f"SSD backward takes P <= {MAX_P}, N <= {MAX_N} "
@@ -292,7 +382,75 @@ def ssd_backward_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                            f"{err} (B={B_}, S={S}, H={H}, P={P}, G={G}, N={N}, "
                            f"Q={Q}, {xh.dtype})")
     BACKWARD_LAUNCHES += 1
+    BACKWARD_CUDA_CORE_LAUNCHES += 1
     return dxh, ddt, dA_log, dBm, dCm
+
+
+def _backward_tensor_cores(xh, dt, A_log, Bm, Cm, dy, dstate, Q: int
+                           ) -> Tuple[torch.Tensor, ...]:
+    """One call of ``arcadia_ssd_scan_bwd_tc`` on the inputs as they are
+    (strided views included); scratch and outputs from ``torch.empty``.
+    Raises if the library does not build or the launch fails."""
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dev = xh.device
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    dxh = torch.empty((B_, S, H, P), dtype=torch.bfloat16, device=dev)
+    ddt = torch.empty((B_, S, H), dtype=torch.float32, device=dev)
+    dA_log = torch.empty((H,), dtype=torch.float32, device=dev)
+    dBm = torch.empty((B_, S, G, N), dtype=torch.bfloat16, device=dev)
+    dCm = torch.empty_like(dBm)
+    if xh.numel() == 0:
+        return dxh, ddt.zero_(), dA_log.zero_(), dBm.zero_(), dCm.zero_()
+    with torch.cuda.device(dev):
+        lib = nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc)
+        n_scratch = lib.arcadia_ssd_scan_bwd_tc_scratch_bytes(
+            B_, S, H, P, G, N, Q)
+        if n_scratch < 0:
+            raise ValueError(f"SSD tensor-core backward refuses B={B_}, "
+                             f"S={S}, H={H}, P={P}, G={G}, N={N}, Q={Q}")
+        scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
+        strides = (ctypes.c_longlong * 12)(
+            *_strides(xh), *_strides(Bm), *_strides(Cm), *_strides(dy))
+        err = lib.arcadia_ssd_scan_bwd_tc(
+            *(None if t is None else t.data_ptr() for t in (
+                xh, dt, A_log, Bm, Cm, dy, dstate, dxh, ddt, dA_log, dBm,
+                dCm, scratch)),
+            B_, S, H, P, G, N, Q, strides,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"SSD backward kernel launch failed "
+                           f"(tensor_cores): cudaError_t {err} (B={B_}, "
+                           f"S={S}, H={H}, P={P}, G={G}, N={N}, Q={Q})")
+    return dxh, ddt, dA_log, dBm, dCm
+
+
+def bwd_tc_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, ...]:
+    """``arcadia_ssd_scan_bwd_tc_plan`` of the built library (held to
+    ``bwd_tc_plan`` by the card tests)."""
+    lib = nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc)
+    out = (ctypes.c_longlong * 5)()
+    lib.arcadia_ssd_scan_bwd_tc_plan(P, N, Q, out)
+    return tuple(int(v) for v in out)
+
+
+def bwd_tc_kernel_info(P: int, N: int) -> list:
+    """``cudaFuncGetAttributes`` of each launch's kernel of the tensor-core
+    backward at head dim P and state dim N: a dict per launch (in
+    ``BWD_TC_LAUNCH_NAMES`` order) with registers a thread, local (spill)
+    bytes, static shared bytes and max threads a block."""
+    lib = nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc)
+    out = []
+    for k, name in enumerate(BWD_TC_LAUNCH_NAMES):
+        vals = (ctypes.c_int * 4)()
+        err = lib.arcadia_ssd_scan_bwd_tc_info(k, P, N, vals)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed ({err}) for "
+                               f"the {name} launch")
+        out.append(dict(launch=name, registers=vals[0], local_bytes=vals[1],
+                        static_shared_bytes=vals[2], max_threads=vals[3]))
+    return out
 
 
 def bwd_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:

@@ -1227,6 +1227,130 @@ def test_ssd_backward_plan_matches_the_host(cuda_device):
         assert ssd_scan.bwd_kernel_plan(P, N, Q) == ssd_scan.bwd_plan(P, N, Q)
 
 
+# ------------------ SSD backward on the tensor cores --------------------- #
+
+# BWD_SHAPES' bf16 shapes whose chunk is 64·k, two groups at a chunk of 64,
+# jamba's groups (G 8, two heads each) over two chunks, and the widest P
+# and N the route takes over two chunks of 128
+TC_BWD_SHAPES = [(1, 64, 2, 16, 1, 64, 64), (2, 64, 4, 32, 2, 16, 64),
+                 (1, 512, 24, 64, 1, 128, 256), (2, 512, 16, 64, 8, 128, 256),
+                 (1, 256, 4, 128, 2, 256, 128)]
+
+
+def bwd_route_counts():
+    return (ssd_scan.BACKWARD_TENSOR_CORE_LAUNCHES,
+            ssd_scan.BACKWARD_CUDA_CORE_LAUNCHES)
+
+
+@pytest.mark.parametrize("with_dstate", [False, True],
+                         ids=["no-dstate", "dstate"])
+@pytest.mark.parametrize("layout", ["contiguous", "mixer views"])
+@pytest.mark.parametrize("shape", TC_BWD_SHAPES, ids=str)
+def test_ssd_backward_tensor_cores_match_plain_and_mirror(
+        cuda_device, fp32_exact, shape, layout, with_dstate):
+    """The tensor-core backward (one launch of its route) against the plain
+    chunked backward, its CPU mirror run on the card and a float64
+    gradient, within 5e-2 of each gradient's largest value; a second call
+    repeats it bitwise."""
+    *dims, chunk = shape
+    args, dy, ds = bwd_inputs(*dims, torch.bfloat16, cuda_device,
+                              seed=2 * sum(shape) + with_dstate)
+    ds = ds if with_dstate else None
+    xh, dt, A, Bm, Cm = args
+    if layout == "mixer views":
+        xh, Bm, Cm = mixer_views(*dims, cuda_device, seed=sum(shape))
+    a = (xh, dt, A, Bm, Cm)
+    assert ssd_scan.backward_route(xh, Bm, Cm, dy, chunk) == "tensor_cores"
+    tc, cc = bwd_route_counts()
+    got = ssd_scan.ssd_backward_cuda(*a, dy, ds, chunk)
+    again = ssd_scan.ssd_backward_cuda(*a, dy, ds, chunk)
+    assert bwd_route_counts() == (tc + 2, cc)
+    for g, h, t in zip(got, again, args):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert torch.equal(g, h)
+    tol = BWD_TOL[torch.bfloat16]
+    for want in (ssd_ref.ssd_backward_reference(*a, dy, ds, chunk),
+                 ssd_ref.ssd_backward_tc_reference(*a, dy, ds, chunk),
+                 ssd_ref.ssd_backward_reference(
+                     *(t.double() for t in a), dy.double(),
+                     None if ds is None else ds.double(), chunk)):
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        assert max(errs) <= tol, errs
+
+
+def test_ssd_backward_tensor_cores_planted_faults_fail(cuda_device):
+    """The mirror with a group's first head summed twice (dBm) or with the
+    adjoint not carried across chunks (dxh) misses the kernel's gradient by
+    more than the bf16 tolerance, where the faithful mirror is within it;
+    at one chunk without d(state) the kernel's ddt (an fp32 output) is
+    within 1e-4 of float64, which the mirror without its lo operands is
+    not."""
+    B, S, H, P, G, N, Q = 1, 512, 24, 64, 1, 128, 256
+    args, dy, ds = bwd_inputs(B, S, H, P, G, N, torch.bfloat16, cuda_device,
+                              seed=5)
+    got = ssd_scan.ssd_backward_cuda(*args, dy, ds, Q)
+    tol = BWD_TOL[torch.bfloat16]
+    mirror = ssd_ref.ssd_backward_tc_reference(*args, dy, ds, Q)
+    assert max(rel_err(g, w) for g, w in zip(got, mirror)) <= tol
+    for fault, k in (("head summed twice", 3), ("adjoint dropped", 0)):
+        bad = ssd_ref.ssd_backward_tc_reference(*args, dy, ds, Q, fault=fault)
+        assert rel_err(got[k], bad[k]) > tol, fault
+    one, dy1, _ = bwd_inputs(1, 256, H, P, G, N, torch.bfloat16, cuda_device,
+                             seed=6)
+    exact = ssd_ref.ssd_backward_reference(*(t.double() for t in one),
+                                           dy1.double(), None, Q)
+    got1 = ssd_scan.ssd_backward_cuda(*one, dy1, None, Q)
+    assert rel_err(got1[1], exact[1]) <= 1e-4
+    no_lo = ssd_ref.ssd_backward_tc_reference(
+        *(t.float() for t in one), dy1.float(), None, Q, fault="lo dropped")
+    assert rel_err(no_lo[1], exact[1]) > 1e-4
+
+
+def test_ssd_backward_tc_plan_matches_the_host(cuda_device):
+    for P, N, Q in ((64, 128, 256), (16, 16, 64), (128, 256, 256),
+                    (48, 80, 128), (128, 256, 512)):
+        assert ssd_scan.bwd_tc_kernel_plan(P, N, Q) == \
+            ssd_scan.bwd_tc_plan(P, N, Q)
+
+
+def test_ssd_backward_tc_launches_do_not_spill(cuda_device):
+    for P, N in ((64, 128), (128, 256), (16, 16)):
+        info = ssd_scan.bwd_tc_kernel_info(P, N)
+        assert [r["launch"] for r in info] == \
+            list(ssd_scan.BWD_TC_LAUNCH_NAMES)
+        assert all(r["local_bytes"] == 0 for r in info), info
+
+
+def test_ssd_backward_bf16_off_the_tensor_cores_is_the_cuda_core_result(
+        cuda_device):
+    """bf16 inputs the route sends to the CUDA cores (xh, or dy, 2 bytes off
+    16-byte alignment) take one CUDA-core launch each and give the same
+    bits either way; both are within 5e-2 of the tensor-core gradient of
+    the same values and of the plain chunked backward."""
+    B, S, H, P, G, N, Q = 1, 256, 4, 64, 1, 128, 128
+    args, dy, ds = bwd_inputs(B, S, H, P, G, N, torch.bfloat16, cuda_device,
+                              seed=8)
+    xh, dt, A, Bm, Cm = args
+
+    def shifted(t):
+        v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+        return v.view(t.shape).copy_(t)
+    odd_x, odd_dy = shifted(xh), shifted(dy)
+    assert ssd_scan.backward_route(odd_x, Bm, Cm, dy, Q) == "cuda_cores"
+    assert ssd_scan.backward_route(xh, Bm, Cm, odd_dy, Q) == "cuda_cores"
+    tc, cc = bwd_route_counts()
+    g1 = ssd_scan.ssd_backward_cuda(odd_x, dt, A, Bm, Cm, dy, ds, Q)
+    g2 = ssd_scan.ssd_backward_cuda(*args, odd_dy, ds, Q)
+    assert bwd_route_counts() == (tc, cc + 2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    on_tc = ssd_scan.ssd_backward_cuda(*args, dy, ds, Q)
+    assert bwd_route_counts() == (tc + 1, cc + 2)
+    for want in (on_tc, ssd_ref.ssd_backward_reference(*args, dy, ds, Q)):
+        errs = [rel_err(g, w) for g, w in zip(g1, want)]
+        assert max(errs) <= BWD_TOL[torch.bfloat16], errs
+
+
 def test_attention_refuses_a_gradient_on_the_card(cuda_device):
     """The flash kernel has no backward: a CUDA prefill that needs a
     gradient raises instead of running the plain strategies."""
@@ -1264,10 +1388,12 @@ def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,
     batch = SyntheticDataset(cfg, DataConfig(batch=2, seq_len=256)
                              ).tensors_at(0, "cpu")
     before = ssd_scan.BACKWARD_LAUNCHES
+    tc, cc = bwd_route_counts()
     new_card, met_card = S.train_step(
         card, {k: v.to(cuda_device) for k, v in batch.items()}, cfg, opt,
         journal=True)
     assert ssd_scan.BACKWARD_LAUNCHES == before + cfg.n_layers
+    assert bwd_route_counts() == (tc, cc + cfg.n_layers)   # fp32: CUDA cores
     new_cpu, met_cpu = S.train_step(host, batch, cfg, opt, journal=True)
     assert float(met_card["loss"]) == pytest.approx(float(met_cpu["loss"]),
                                                     rel=1e-5)
