@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Run the PyTorch port of the Arcadia log on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--phase ssd_backward]
+    python3 chip_smoke.py [--seed N] [--phase ssd_backward|flash_backward]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
 Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
-backward (the same two routes), and of forward flash attention from
-``src/repro_torch/csrc``
+backward (the same two routes), and of flash attention and its backward
+from ``src/repro_torch/csrc``
 (one nvcc per source, in parallel) and then, on the card:
 
   kernel        the hash against its plain PyTorch version, bit-exact, at
@@ -151,6 +151,46 @@ backward (the same two routes), and of forward flash attention from
                 shapes), that call's; then each flash kernel's registers,
                 local (spill) bytes and shared bytes (a kernel that spills
                 fails);
+  flash bwd     the flash backward kernels (three launches a call) at the
+                training paths' shapes — gemma2-9b's global and local
+                layers (1 x 8192, the local one with scores in the
+                softcap's range), starcoder2-3b (2 x 4096, 24 heads over
+                2), hubert-xlarge (8 x 1500, not causal; bf16 and fp32),
+                deepseek-v3's MLA (1 x 4096, D 192, Dv 128, v a view) and
+                starcoder2's as misaligned copies — with the forward's lse
+                held to the plain log-sum-exp, each gradient row by row to
+                the plain backward (2^-6 / 1e-4 of the row's largest value,
+                no less than 2^-8 of the gradient's), two calls bitwise
+                equal, four planted faults (softcap derivative, one head of
+                the group, delta, window) failing at gemma2's local layer;
+                a call's time alone (CUDA graph), with the L2 flushed and
+                per launch, the plain backward's, its bound and the
+                library's backward (SDPA, or compiled flex_attention with a
+                softcap); the kernels' registers and spills.  ``--phase
+                flash_backward`` runs it alone and prints its JSON;
+  train attn    gemma2-9b (2 layers, 1 x 8192), starcoder2-3b (30 layers, 2
+                x 4096; the batch halves above 70 GB), hubert-xlarge (48
+                layers, 8 x 1500 frames) and deepseek-v3 (its first dense
+                layer and the MTP block, 1 x 4096) at their published
+                widths, bf16 compute (gemma2 and deepseek-v3 over fp32
+                master params; starcoder2 and hubert keep their bf16
+                params, whose fp32 MLP bias would lift the residual stream
+                to fp32), AdamW (peak lr 3e-4) with the state donated: a
+                step, a profiled step (flash forward launches twice a block
+                layer under remat, backward calls once a layer, all
+                forward launches on the tensor cores;
+                ms, tokens/s, busy share, peak memory, top kernels), 4
+                steps on one batch in which the loss must fall, every
+                step's integrity equal to the plain hash of its grads, and
+                one state's grads taken twice bitwise equal;
+  train attn    one fp32 AdamW step of 1 x 512 at full width on the card
+  cpu           and on the CPU from the same state — gemma2-9b cut to 2
+                layers with a window of 128, deepseek-v3 cut to its dense
+                layer and MTP block, hubert-xlarge cut to 2 layers — grads
+                within 1e-4 of each leaf's largest; with a planted fault of
+                the backward (dk, dv from one head of gemma2's groups; the
+                causal mask dropped for deepseek, added for hubert) the
+                grads must move past that;
   gemma2        gemma2-9b at full width (42 layers, bf16) from --seed:
                 2 prompts of 8192 tokens prefilled (one flash launch per
                 layer, on the tensor cores) and 32 greedy decode steps,
@@ -2470,6 +2510,678 @@ def flash_attributes() -> list:
     return out
 
 
+# ---------------------- flash attention backward ------------------------- #
+
+# the training paths' attention shapes (1 x 8192 for gemma2, 2 x 4096 for
+# starcoder2, 8 x 1500 frames for hubert, 1 x 4096 for deepseek-v3's MLA),
+# as the layer lays them out, in bf16; gemma2's local layer with scores in
+# the softcap's range (q x 16: the softcap's derivative is then far from
+# 1), where the four planted wrong backwards of ``ref.FAULTS`` must fail
+# the row check; hubert's in fp32; and starcoder2's as contiguous copies
+# 8 bytes past 16-byte alignment (layout "shifted": the forward then takes
+# its CUDA-core kernel, the backward reads them as they are)
+G2T = (1, 16, 8, 8192, 256)
+SC2 = (2, 24, 2, 4096, 128)
+MLA_T = (1, 128, 128, 4096, 192)
+FLASH_BWD_CASES = [
+    flash_case(f"gemma2 global {G2T}", G2T, "bfloat16", layout="bshd",
+               causal=True, cap=50.0),
+    flash_case(f"gemma2 local {G2T} scores x16", G2T, "bfloat16",
+               layout="bshd", q_mul=16.0,
+               faults=("no_cap_grad", "one_head", "no_delta", "no_window"),
+               causal=True, window=4096, cap=50.0),
+    flash_case(f"starcoder2 {SC2}", SC2, "bfloat16", layout="bshd",
+               causal=True),
+    flash_case(f"hubert {HUBERT}", HUBERT, "bfloat16", layout="bshd",
+               causal=False),
+    flash_case(f"mla {MLA_T} dv {MLA_DV}", MLA_T, "bfloat16", layout="mla",
+               dv=MLA_DV, causal=True, scale=1.0 / math.sqrt(MLA_T[4])),
+    flash_case(f"hubert {HUBERT}", HUBERT, "float32", layout="bshd",
+               causal=False),
+    flash_case(f"starcoder2 {SC2} misaligned", SC2, "bfloat16",
+               layout="shifted", causal=True),
+]
+# per row of each gradient, the forward's bounds (FLASH_ROW_TOL) of the
+# row's largest value — but no smaller than 2^-8 of the gradient's largest:
+# dq's row at a query that sees few keys cancels (dP - delta, with o the
+# p-weighted sum of v), and both sides' round-off scales with the products
+# summed, not with the row's result
+FLASH_BWD_ROW_FLOOR = 2.0 ** -8
+# the forward's lse against the plain log-sum-exp of the same inputs:
+# fp32 sums in other orders (and ex2.approx, 2^-22, on the tensor cores)
+FLASH_LSE_TOL = 1e-4
+
+
+def grad_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of max|got - want| / max(max|want row|, floor·max|want|)."""
+    got, want = got.float(), want.float()
+    den = want.abs().amax(-1).clamp_min(FLASH_BWD_ROW_FLOOR * float(
+        want.abs().max())).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got - want).abs().amax(-1) / den).max())
+
+
+def flash_bwd_inputs(case: dict, seed: int):
+    """``flash_inputs`` (layouts "bhsd", "bshd", "mla"; "shifted": bhsd
+    copies 4 elements past 16-byte alignment) and dO [B,H,S,Dv] in the
+    case's dtype, laid out as the layer's grad of o ([B,S,H,Dv] storage)."""
+    if case["layout"] == "shifted":
+        q, k, v = flash_inputs(dict(case, layout="bhsd"), seed)
+
+        def shift(t):
+            buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+            return buf[4:].view(t.shape).copy_(t)
+        q, k, v = shift(q), shift(k), shift(v)
+    else:
+        q, k, v = flash_inputs(case, seed)
+    B, H, _, S, _ = case["shape"]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    do = torch.randn((B, S, H, v.shape[-1]), device=DEV, generator=gen
+                     ).to(q.dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+def plain_by_heads(fn, q, k, *rest, heads: int = 16):
+    """``fn`` (a plain version over q's heads and k's kv heads) over slices
+    of whole groups of at most ``heads`` query heads, concatenated on the
+    head axis: the same function with its [B,h,S,S] scores bounded."""
+    KV = k.shape[1]
+    G = q.shape[1] // KV
+    step = max(1, heads // G)
+    outs = []
+    for a in range(0, KV, step):
+        b = min(a + step, KV)
+        outs.append(fn(q[:, a * G:b * G], k[:, a:b], *(
+            t[:, a * G:b * G] if t.shape[1] == q.shape[1] else t[:, a:b]
+            for t in rest)))
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=1)
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def plain_backward(q, k, v, o, lse, do, kw, fault=None):
+    from repro_torch.kernels.flash_attention import ref
+
+    return plain_by_heads(
+        lambda q_, k_, v_, o_, l_, d_: ref.attention_backward_reference(
+            q_, k_, v_, o_, l_, d_, fault=fault, **kw), q, k, v, o, lse, do)
+
+
+def flash_bwd_bound_ms(shape, kw, dtype, dv=None) -> tuple[float, str]:
+    """Least time for the gradient: q, k, v, o, dO and lse read once and
+    dq, dk, dv written once at the HBM rate, against 2·B·H·(3D + 2Dv)
+    operations per unmasked pair (S recomputed, dP, dV, dQ, dK) at the
+    peak rate for the dtype (bf16 tensor cores; fp32 CUDA cores)."""
+    B, H, KV, S, D = shape
+    dv = dv or D
+    el = 2 if dtype == "bfloat16" else 4
+    n_bytes = el * (2 * B * H * S * D + 2 * B * KV * S * (D + dv)
+                    + 2 * B * H * S * dv) + 4 * B * H * S
+    ops = 2 * B * H * (3 * D + 2 * dv) * attended_pairs(
+        S, kw.get("causal", True), kw.get("window"))
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bwd_launch_ms(fn, calls: int = 3) -> dict:
+    """Each backward launch's mean device time (ms) over ``calls`` calls
+    (torch.profiler, CUDA activity), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"flash_bwd_\w+(<[^>]*>)?", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m.group(0)] = e.self_device_time_total / e.count / 1e3
+    return out
+
+
+def library_backward(q, k, v, do, kw):
+    """The backward alone of one PyTorch call computing the same function
+    (SDPA where there is no softcap and no window; compiled flex_attention
+    otherwise): its forward is run once, and the returned callable runs
+    its backward on ``do``.  A yardstick only; the port never calls it."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if kw.get("cap") is None and kw.get("window") is None:
+        call = "scaled_dot_product_attention backward"
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=kw.get("causal", True), scale=kw.get("scale"),
+            enable_gqa=True)
+    else:
+        call = "flex_attention (compiled) backward"
+        out = flex_library(*leaves, kw)()
+    return call, lambda: torch.autograd.grad(out, leaves, do,
+                                             retain_graph=True)
+
+
+def flash_backward_phase(seed: int) -> dict:
+    """Each case: the forward kernel with its lse (held to the plain
+    log-sum-exp), one backward call (three launches; held row by row to the
+    plain backward on the same o and lse), a second call bitwise equal, the
+    planted faults failing the row check; times of a call alone (CUDA
+    graph), per call with the L2 flushed and per launch, of the plain
+    backward and of the library's backward; the kernels' registers and
+    spills at each head dim."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    # each launch's time first, for every case, before flex_attention's
+    # backward is compiled; a profile of these launches can still come back
+    # without them (every other one did, on the H100), so up to three tries
+    launch_ms = {}
+    for n, case in enumerate(FLASH_BWD_CASES):
+        q, k, v, do = flash_bwd_inputs(case, seed + 100 + n)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                         **case["kw"])
+        for _ in range(3):
+            launch_ms[n] = flash_bwd_launch_ms(
+                lambda: fa.flash_attention_backward_cuda(q, k, v, o, lse, do,
+                                                         **case["kw"]))
+            if launch_ms[n]:
+                break
+        del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    results = {}
+    for n, case in enumerate(FLASH_BWD_CASES):
+        name, shape, kw, dtype = (case[x] for x in ("name", "shape", "kw",
+                                                     "dtype"))
+        q, k, v, do = flash_bwd_inputs(case, seed + 100 + n)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        want_lse = plain_by_heads(
+            lambda q_, k_: ref.attention_lse_reference(q_, k_, **kw), q, k)
+        lse_err = float((lse - want_lse).abs().max())
+        if not torch.allclose(lse, want_lse, atol=FLASH_LSE_TOL, rtol=1e-5):
+            raise AssertionError(f"flash backward {name} {dtype}: lse differs "
+                                 f"from the plain version by {lse_err}")
+        del want_lse
+
+        def call():
+            return fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+        before = (fa.BACKWARD_LAUNCHES, fa.BACKWARD_CALL_LAUNCHES)
+        got = call()
+        moved = (fa.BACKWARD_LAUNCHES - before[0],
+                 fa.BACKWARD_CALL_LAUNCHES - before[1])
+        if moved != (1, 3):
+            raise AssertionError(f"flash backward {name}: launches {moved}, "
+                                 f"expected one call of three")
+        again = call()
+        repeat = all(bitwise_equal(a, b) for a, b in zip(got, again))
+        del again
+        if not repeat:
+            raise AssertionError(f"flash backward {name}: two calls differ")
+        want = plain_backward(q, k, v, o, lse, do, kw)
+        torch.cuda.synchronize()
+        tol = FLASH_ROW_TOL[dtype]
+        errs, abs_errs = {}, {}
+        for gname, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+            if g.shape != t.shape or g.dtype != t.dtype or \
+                    not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"flash backward {name}: {gname} "
+                                     f"{g.dtype} {tuple(g.shape)} not finite "
+                                     f"or not shaped as its input")
+            errs[gname] = grad_row_err(g, w)
+            abs_errs[gname] = float((g.float() - w.float()).abs().max())
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"flash backward {name} {dtype}: row errors "
+                                 f"{errs} (tolerance {tol})")
+        del want
+        fault_errs = {}
+        for fault in case["faults"]:
+            wrong = plain_backward(q, k, v, o, lse, do, kw, fault=fault)
+            fault_errs[fault] = max(grad_row_err(g, w)
+                                    for g, w in zip(got, wrong))
+            del wrong
+            if not fault_errs[fault] > tol:
+                raise AssertionError(f"flash backward {name}: the row check "
+                                     f"cannot tell the kernel from the plain "
+                                     f"backward with {fault} "
+                                     f"({fault_errs[fault]})")
+        del got
+        torch.cuda.empty_cache()
+        big = shape[0] * shape[1] * shape[3] ** 2 >= 16 * 8192 * 4096
+        ms = timed_ms(call, 3 if big else 10, flush)
+        alone = kernel_alone_ms(call, 3 if big else 10)
+        plain = timed_ms(lambda: plain_backward(q, k, v, o, lse, do, kw),
+                         1 if big else 3, flush)
+        library = library_error = lib_call = None
+        try:
+            lib_call, lib = library_backward(q, k, v, do, kw)
+            library = timed_ms(lib, 3 if big else 10, flush)
+            del lib
+        except Exception as e:        # the yardstick only: recorded
+            library_error = f"{type(e).__name__}: {e}"[:300]
+        b, by = flash_bwd_bound_ms(shape, kw, dtype, case["dv"])
+        key = f"{name} {dtype}"
+        results[key] = dict(
+            shape=list(shape), dv=case["dv"] or shape[4], options=kw,
+            dtype=dtype, layout=case["layout"], q_mul=case["q_mul"],
+            row_rel_err=errs, row_tol=tol, max_abs_err=max(abs_errs.values()),
+            abs_err=abs_errs, lse_max_abs_err=lse_err, bitwise_repeat=repeat,
+            fault_row_rel_err=fault_errs, ms=ms, alone_ms=alone,
+            launch_ms=launch_ms[n], plain_ms=plain, bound_ms=b, bound_by=by,
+            library=lib_call, library_ms=library, library_error=library_error)
+        lib_txt = (f"{lib_call} {library:.6f} ms" if library is not None
+                   else f"raised {library_error}")
+        log(f"kernel flash backward {key} {kw} {case['layout']}"
+            + (f" q x{case['q_mul']:g}" if case["q_mul"] != 1.0 else "")
+            + ": row err " + ", ".join(f"{g} {e:.3e}" for g, e in errs.items())
+            + f" (within {tol:.4g}), lse err {lse_err:.3e}, bitwise repeat "
+            f"{repeat}"
+            + "".join(f"; {f} {e:.3e}" for f, e in fault_errs.items())
+            + f"; {ms:.6f} ms a call, {alone:.6f} ms alone, plain "
+            f"{plain:.6f} ms, bound {b:.6f} ms ({by}), library {lib_txt}")
+        log(f"kernel flash backward {key} per launch: " + ", ".join(
+            f"{kn} {t:.6f} ms" for kn, t in launch_ms[n].items()))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    info = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (80, 128, 192, 256):
+            dname = str(dtype).removeprefix("torch.")
+            info[f"{dname} D {D}"] = r = fa.backward_kernel_info(dtype, D)
+            plan = fa.backward_plan(dtype, D)
+            if (r["rows"], r["keys"], r["smem_bytes"]) != \
+                    (plan.rows, plan.keys, plan.smem_bytes):
+                raise AssertionError(f"flash backward plan {plan} differs "
+                                     f"from the card's {r}")
+            log(f"kernel flash backward {dname} D {D}: {r['keys']} keys a "
+                f"tile, {r['smem_bytes']} shared bytes; " + ", ".join(
+                    f"{kn} {r['registers'][kn]} registers "
+                    f"{r['local_bytes'][kn]} spill bytes"
+                    for kn in fa.BWD_KERNELS))
+    results["kernel_info"] = info
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------ training the attention configs ----------------------- #
+
+# (arch, changes to the published config, batch, tokens or frames a
+# sequence, what the changes are): gemma2-9b cut to one block (a local and
+# a global layer) at 8192 tokens, so its window of 4096 bites; starcoder2-3b
+# and hubert-xlarge whole; deepseek-v3 cut to its first dense layer and the
+# MTP block (one MoE layer alone is about 11.5 B params, 184 GB of training
+# state).  gemma2 and deepseek-v3 train fp32 master params under bf16
+# compute; starcoder2 and hubert keep their published bf16 params: their
+# MLP's output bias is a 1-D leaf, which the mixed-precision policy keeps
+# in the param dtype, so fp32 params would lift the residual stream to
+# fp32 from the first layer on (the JAX package's block scan refuses that
+# change of its carry's dtype)
+ATTN_TRAIN = [
+    ("gemma2-9b", dict(n_layers=2, param_dtype="float32"), 1, 8192,
+     ["n_layers 42 -> 2 (one block: a local and a global layer)",
+      "param_dtype bfloat16 -> float32 (fp32 master params, bf16 compute)"]),
+    ("starcoder2-3b", {}, 2, 4096, []),
+    ("hubert-xlarge", {}, 8, 1500, []),
+    ("deepseek-v3-671b", dict(n_layers=1, first_dense_layers=1,
+                              param_dtype="float32"), 1, 4096,
+     ["n_layers 61 -> 1 and first_dense_layers 3 -> 1: the first dense "
+      "layer and the MTP block, no MoE layer",
+      "param_dtype bfloat16 -> float32 (fp32 master params, bf16 compute)"]),
+]
+ATTN_TRAIN_STEPS = 4
+# AdamW at TRAIN_OPT but a peak learning rate of 3e-4, the order of those
+# published for models of these sizes: TRAIN_OPT's 3e-3 (tests/
+# test_trainer.py's, for reduced configs) overshoots at these widths — on
+# hubert-xlarge the loss on one batch went 6.71, 7.50, 7.04, 7.19 over
+# four steps at 3e-3
+ATTN_TRAIN_LR = 3e-4
+PLAIN_HASH_PIECE = 1 << 24          # lanes of a piece of the plain hash
+
+
+def plain_hash(t: torch.Tensor) -> int:
+    """The plain hash (``checksum/ref.py``) of ``t`` on its device, over
+    pieces of PLAIN_HASH_PIECE lanes combined as the hash is blockwise
+    combinable: h(x) = Σ_c h(piece_c)·r^(c·L) mod 2^32 (memory bounded: a
+    grad leaf of gemma2-9b's embedding is 0.9 G lanes)."""
+    from repro_torch.kernels.checksum import ref
+
+    lanes = ref.as_words(t).reshape(-1)
+    total = 0
+    for c, i in enumerate(range(0, lanes.numel(), PLAIN_HASH_PIECE)):
+        h = int(ref.checksum_lanes(lanes[i:i + PLAIN_HASH_PIECE]))
+        total += h * pow(ref.R, c * PLAIN_HASH_PIECE, 1 << 32)
+    return total & ref.MASK
+
+
+def check_integrity(what: str, metrics, grads) -> None:
+    """The step's integrity record equals the plain hash of each grad."""
+    from repro_torch.tree import leaf_paths
+
+    want = [plain_hash(g) for _, g in leaf_paths(grads)]
+    got = metrics["integrity"].tolist()
+    if got != want:
+        raise AssertionError(f"{what}: integrity {got} is not the plain hash "
+                             f"of the grads {want}")
+
+
+def zero_bwd_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    zero_flash_counts()
+    fa.BACKWARD_LAUNCHES = fa.BACKWARD_CALL_LAUNCHES = 0
+    fa.BACKWARD_DO_COPIES = 0
+
+
+def bwd_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    return dict(flash_counts(), backward=fa.BACKWARD_LAUNCHES,
+                backward_kernels=fa.BACKWARD_CALL_LAUNCHES,
+                do_copies=fa.BACKWARD_DO_COPIES)
+
+
+def attention_layers(cfg) -> tuple[int, int]:
+    """(attention layers inside the blocks, which run their forward twice a
+    step under block remat; those outside: the dense prologue, the MTP
+    block)."""
+    inside = cfg.n_blocks * sum(k.mixer == "attn" for k in cfg.block_pattern())
+    return inside, cfg.first_dense_layers + cfg.mtp_depth
+
+
+def journaled_step(state, batch, cfg, opt):
+    """``train_step`` with the journal and the state donated, timed; its
+    integrity held to the plain hash of its grads.  -> (state, loss, ms)."""
+    from repro_torch.train import step as S
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, metrics = S.grads_and_metrics(state["params"], batch, cfg)
+    state, metrics = S.apply_step(state, grads, metrics, opt, journal=True,
+                                  donate=True)
+    loss = float(metrics["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    check_integrity(f"{cfg.name} step {int(state['step'])}", metrics, grads)
+    return state, loss, ms
+
+
+def profiled_attention_step(state, batch, cfg, opt):
+    """One step as ``train_step`` runs it (state donated, journaled), with
+    the flash launches read after the forward and after the backward and
+    the hash launches after the update.  -> (state, counts, metrics,
+    grads)."""
+    from repro_torch.models import model as M
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths, map_with_path
+
+    zero_bwd_counts()
+    zero_hash_counts()
+    leaves = {n: t.detach().requires_grad_(True)
+              for n, t in leaf_paths(state["params"])}
+    loss, metrics = M.forward_train(
+        map_with_path(lambda n, _: leaves[n], state["params"]), cfg, batch)
+    forward = bwd_counts()
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    backward = bwd_counts()
+    by_name = {n: torch.zeros_like(t) if g is None else g     # empty leaves
+               for (n, t), g in zip(leaves.items(), grads)}
+    del leaves, loss
+    grads = map_with_path(lambda n, _: by_name[n], state["params"])
+    state, metrics = S.apply_step(
+        state, grads, {k: v.detach() for k, v in metrics.items()}, opt,
+        journal=True, donate=True)
+    torch.cuda.synchronize()
+    return state, dict(
+        flash_forward=forward["all"],
+        flash_recompute=backward["all"] - forward["all"],
+        flash_tensor_core=backward["tensor_cores"],
+        flash_backward=backward["backward"],
+        flash_backward_kernels=backward["backward_kernels"],
+        do_copies=backward["do_copies"], hash=hash_counts(),
+        loss=float(metrics["loss"])), metrics, grads
+
+
+def attention_train_phase(arch: str, seed: int, card: str) -> dict:
+    """``arch`` at its published widths (cut in depth as ATTN_TRAIN says),
+    bf16 compute (over fp32 master params where ATTN_TRAIN says), AdamW at
+    TRAIN_OPT with a peak rate of ATTN_TRAIN_LR and the state donated, synthetic data from --seed: a step, a profiled step (the flash
+    forward launches — twice a block's attention layer under remat — and
+    the backward calls held to what the config implies, all forward
+    launches on the tensor cores), then ATTN_TRAIN_STEPS steps on one batch
+    in which the loss must fall, every step's integrity equal to the plain
+    hash of its grads; then the grads of one state taken twice, bitwise
+    equal.  The batch halves while the peak passes TRAIN_PEAK_CUT_GB."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.train import check_trainable
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths
+
+    _, cut, batch, seq, cuts = next(a for a in ATTN_TRAIN if a[0] == arch)
+    cfg = replace(get_config(arch), **cut)
+    check_trainable(cfg, DEV, seq)
+    opt = OptConfig(**dict(TRAIN_OPT, lr=ATTN_TRAIN_LR))
+    reduced = [*cuts, "weights random from --seed (init_params)",
+               "synthetic batches (SyntheticDataset)"]
+    inside, outside = attention_layers(cfg)
+    # one hash launch a grad leaf that holds anything (deepseek-v3's cut
+    # has no block: its stacked block leaves are empty)
+    n_leaves = sum(math.prod(s.shape) > 0 for _, s in leaf_paths(
+        S.train_state_specs(cfg, opt)["params"]))
+    out: dict = dict(params=cfg.param_count())
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        data = SyntheticDataset(cfg, DataConfig(batch=batch, seq_len=seq,
+                                                seed=seed))
+        state = S.init_train_state(
+            cfg, opt, torch.Generator(device=DEV).manual_seed(seed + 29), DEV)
+        state, first_loss, _ = journaled_step(state, data.tensors_at(0, DEV),
+                                              cfg, opt)
+        b1 = data.tensors_at(1, DEV)
+        (state, counts, metrics, grads), prof = device_window(
+            lambda: profiled_attention_step(state, b1, cfg, opt))
+        check_integrity(f"{arch} profiled step", metrics, grads)
+        del grads, metrics
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if peak <= TRAIN_PEAK_CUT_GB or batch == 1:
+            break
+        reduced.append(f"batch {batch} -> {batch // 2}: peak {peak:.3f} GB > "
+                       f"{TRAIN_PEAK_CUT_GB} GB")
+        batch //= 2
+        del state, b1
+    out.update(describe(cfg, reduced, card))
+    want = dict(flash_forward=inside + outside, flash_recompute=inside,
+                flash_tensor_core=2 * inside + outside,
+                flash_backward=inside + outside,
+                flash_backward_kernels=3 * (inside + outside))
+    got = {k: counts[k] for k in want}
+    if got != want or counts["hash"]["launches"] != n_leaves:
+        raise AssertionError(f"{arch} profiled step's launches {counts}: "
+                             f"expected {want} and {n_leaves} hash launches")
+    tokens = batch * seq
+    out["profiled_step"] = dict(counts, profile=prof,
+                                step_ms=prof["wall_ms"],
+                                tokens_per_s=tokens / prof["wall_ms"] * 1e3,
+                                peak_memory_gb=peak, batch=batch, seq=seq)
+    log(f"{arch} train profiled step ({batch} x {seq}, {card}): "
+        f"{prof['wall_ms']:.3f} ms ({tokens / prof['wall_ms'] * 1e3:.1f} "
+        f"tokens/s), peak device memory {peak:.3f} GB; flash launches "
+        f"{counts['flash_forward']} forward + {counts['flash_recompute']} "
+        f"remat (all {counts['flash_tensor_core']} on the tensor cores) + "
+        f"{counts['flash_backward']} backward calls "
+        f"({counts['flash_backward_kernels']} kernels, {counts['do_copies']} "
+        f"dO copies); hash launches {counts['hash']}")
+    log_profile(f"{arch} train step", prof)
+
+    # the loss on one batch over ATTN_TRAIN_STEPS steps
+    b2 = data.tensors_at(2, DEV)
+    zero_bwd_counts()
+    losses, ms = [], []
+    for _ in range(ATTN_TRAIN_STEPS):
+        state, loss, t = journaled_step(state, b2, cfg, opt)
+        losses.append(loss)
+        ms.append(t)
+    main = bwd_counts()
+    n = ATTN_TRAIN_STEPS
+    if (main["all"], main["tensor_cores"], main["backward"]) != \
+            (n * (2 * inside + outside), n * (2 * inside + outside),
+             n * (inside + outside)):
+        raise AssertionError(f"{arch} steps' flash launches {main}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: the loss did not fall over "
+                             f"{n} steps on one batch: {losses}")
+
+    # one state's grads twice: bitwise equal
+    g1 = [g.cpu() for _, g in leaf_paths(S.grads_and_metrics(
+        state["params"], b2, cfg)[0])]
+    g2, _ = S.grads_and_metrics(state["params"], b2, cfg)
+    repeat = all(torch.equal(a, b.cpu()) for a, (_, b) in zip(
+        g1, leaf_paths(g2)))
+    del g1, g2
+    if not repeat:
+        raise AssertionError(f"{arch}: two grads of one state differ")
+    med = float(np.median(ms))
+    out.update(losses_first_steps=[first_loss, counts["loss"]],
+               losses=losses, step_ms=ms, step_ms_median=med,
+               tokens_per_s=tokens / med * 1e3, integrity_steps_checked=n + 2,
+               grads_bitwise_repeat=repeat, main_path_counts=main,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{arch} train: {n} steps of {batch} x {seq} on one batch, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({', '.join(f'{x:.4f}' for x in losses)}); "
+        f"median step {med:.3f} ms ({out['tokens_per_s']:.1f} tokens/s); "
+        f"integrity equal to the plain hash at {n + 2} steps; a state's grads "
+        f"twice bitwise equal; flash launches {main}; peak "
+        f"{out['peak_memory_gb']:.3f} GB")
+    del state, b1, b2, data
+    torch.cuda.empty_cache()
+    return out
+
+
+# (arch, cut at full width, what the cut is, a planted fault of the
+# backward the grads must fail on): gemma2-9b's two layers with a window
+# of 128 (it bites at 512 tokens), dk and dv from one head of each group;
+# deepseek-v3's dense layer and MTP block, the backward without the causal
+# mask; hubert-xlarge's two layers, the backward with one
+ATTN_CPU = [
+    ("gemma2-9b", dict(n_layers=2, sliding_window=128),
+     ["n_layers 42 -> 2", "sliding_window 4096 -> 128 (bites at 512 tokens)"],
+     "one_head"),
+    ("deepseek-v3-671b", dict(n_layers=1, first_dense_layers=1),
+     ["n_layers 61 -> 1, first_dense_layers 3 -> 1 (with the MTP block)"],
+     "causal dropped"),
+    ("hubert-xlarge", dict(n_layers=2), ["n_layers 48 -> 2"], "causal added"),
+]
+
+
+@contextmanager
+def planted_backward(fault: str):
+    """The flash backward of the autograd Function made wrong with the real
+    kernel: "one_head" takes dk and dv from the first head of each group
+    (dq stays right), "causal dropped" / "causal added" flips the
+    backward's causal mask."""
+    from repro_torch.kernels.flash_attention import ops
+
+    real = ops.flash_attention_backward_cuda
+
+    def wrong(q, k, v, o, lse, do, **kw):
+        if fault == "one_head":
+            G = q.shape[1] // k.shape[1]
+            dq, _, _ = real(q, k, v, o, lse, do, **kw)
+            _, dk, dv = real(q[:, ::G], k, v, o[:, ::G],
+                             lse[:, ::G].contiguous(), do[:, ::G], **kw)
+            return dq, dk, dv
+        return real(q, k, v, o, lse, do,
+                    **dict(kw, causal=fault == "causal added"))
+    ops.flash_attention_backward_cuda = wrong
+    try:
+        yield
+    finally:
+        ops.flash_attention_backward_cuda = real
+
+
+def attention_card_vs_cpu_phase(arch: str, seed: int) -> dict:
+    """``arch`` at full width cut as ATTN_CPU says, fp32: one AdamW step
+    (donated) of 1 x 512 tokens or frames from the same state on the card
+    (the flash kernels on the CUDA cores) and on the CPU (the port's plain
+    strategies under autograd): loss within 1e-5 relative and every grad
+    leaf within TRAIN_CPU_TOL of its largest magnitude; the card's grads
+    with the planted backward fault must move past that."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths, tree_map
+
+    _, cut, cuts, fault = next(a for a in ATTN_CPU if a[0] == arch)
+    cfg = replace(get_config(arch), param_dtype="float32",
+                  compute_dtype="float32", **cut)
+    opt = OptConfig(**TRAIN_OPT)
+    inside, outside = attention_layers(cfg)
+    # drawn on the card (3.1 G values for deepseek-v3's cut), copied to the
+    # host; each side's step donates its own copy
+    card = S.init_train_state(cfg, opt, torch.Generator(
+        device=DEV).manual_seed(seed + 31), DEV)
+    card["step"] = torch.tensor(2, dtype=torch.int32, device=DEV)
+    host = tree_map(lambda t: t.to("cpu", copy=True), card)
+    batch = SyntheticDataset(cfg, DataConfig(
+        batch=1, seq_len=TRAIN_CPU_TOKENS, seed=seed)).tensors_at(0, "cpu")
+    t0 = time.perf_counter()
+    g_cpu, met = S.grads_and_metrics(host["params"], batch, cfg)
+    S.apply_step(host, g_cpu, met, opt, donate=True)
+    cpu_s = time.perf_counter() - t0
+    loss_cpu = float(met["loss"])
+    g_cpu = dict(leaf_paths(g_cpu))
+    del host
+    on_card = {k: v.to(DEV) for k, v in batch.items()}
+
+    def leaf_errs(grads) -> dict:
+        out = {}
+        for n, g in leaf_paths(grads):
+            want = g_cpu[n]
+            if not want.numel():            # deepseek-v3's empty block leaves
+                continue
+            out[n] = float((g.cpu() - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+        return out
+    with planted_backward(fault):
+        g_fault, _ = S.grads_and_metrics(card["params"], on_card, cfg)
+    fault_err = max(leaf_errs(g_fault).values())
+    del g_fault
+    zero_bwd_counts()
+    g_card, met = S.grads_and_metrics(card["params"], on_card, cfg)
+    S.apply_step(card, g_card, met, opt, donate=True)
+    counts = bwd_counts()
+    if (counts["all"], counts["cuda_cores"], counts["backward"]) != \
+            (2 * inside + outside, 2 * inside + outside, inside + outside):
+        raise AssertionError(f"{arch} fp32 card step's flash launches "
+                             f"{counts}: expected the CUDA-core forward")
+    errs = leaf_errs(g_card)
+    loss_rel = abs(float(met["loss"]) - loss_cpu) / abs(loss_cpu)
+    worst = max(errs, key=errs.get)
+    log(f"{arch} train card vs cpu (fp32, {'; '.join(cuts)}, 1 x "
+        f"{TRAIN_CPU_TOKENS}): loss {float(met['loss']):.7f} / {loss_cpu:.7f} "
+        f"({loss_rel:.3e} relative, tolerance 1e-5); worst grad leaf "
+        f"{errs[worst]:.3e} ({worst}; tolerance {TRAIN_CPU_TOL}); with the "
+        f"backward's {fault}: {fault_err:.3e}; CPU step {cpu_s:.3f} s; flash "
+        f"launches {counts}")
+    if not (loss_rel <= 1e-5 and errs[worst] <= TRAIN_CPU_TOL):
+        raise AssertionError(f"{arch}: card and CPU train steps disagree: "
+                             f"loss {loss_rel:.3e}, {worst} {errs[worst]}")
+    if not fault_err > TRAIN_CPU_TOL:
+        raise AssertionError(f"{arch}: the backward with {fault} passes the "
+                             f"card-vs-CPU check ({fault_err})")
+    del card, g_card, g_cpu
+    torch.cuda.empty_cache()
+    return dict(reduced=cuts, loss_rel_err=loss_rel, worst_grad_leaf=worst,
+                worst_grad_leaf_err=errs[worst], tol=TRAIN_CPU_TOL,
+                planted_fault=fault, planted_fault_grad_err=fault_err,
+                cpu_s=cpu_s, flash_counts=counts)
+
+
 # -------------------------- serving gemma2-9b --------------------------- #
 
 GEMMA_BATCH, GEMMA_PROMPT, GEMMA_DECODE = 2, 8192, 32
@@ -3359,9 +4071,11 @@ def llava_phase(seed: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=["all", "ssd_backward"], default="all",
-                    help="ssd_backward: build, run that phase alone and print "
-                         "its JSON, for work on the SSD backward kernels")
+    ap.add_argument("--phase", choices=["all", "ssd_backward",
+                                        "flash_backward"], default="all",
+                    help="ssd_backward / flash_backward: build, run that "
+                         "phase alone and print its JSON, for work on the "
+                         "SSD or the flash backward kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3381,7 +4095,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
                ssd_scan.BWD_SOURCE, ssd_scan.BWD_TC_SOURCE,
-               flash_attention.SOURCE]
+               flash_attention.SOURCE, flash_attention.BWD_SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
@@ -3393,6 +4107,9 @@ def main() -> int:
 
     if args.phase == "ssd_backward":
         print(json.dumps({"ssd_backward": ssd_backward_phase(args.seed)}))
+        return 0
+    if args.phase == "flash_backward":
+        print(json.dumps({"flash_backward": flash_backward_phase(args.seed)}))
         return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -3440,6 +4157,18 @@ def main() -> int:
             f"{' softcap' if a['softcap'] else ''} ({a['route']}): "
             f"{a['registers']} registers, {a['local_bytes']} local bytes, "
             f"{a['shared_bytes']} shared bytes, {a['threads']} threads")
+    t0 = time.perf_counter()
+    flash_bwd = flash_backward_phase(args.seed)
+    log(f"phase flash backward: {time.perf_counter() - t0:.3f} s")
+    attn_train, attn_cpu = {}, {}
+    for arch, *_ in ATTN_TRAIN:
+        t0 = time.perf_counter()
+        attn_train[arch] = attention_train_phase(arch, args.seed, card)
+        log(f"phase train {arch}: {time.perf_counter() - t0:.3f} s")
+    for arch, *_ in ATTN_CPU:
+        t0 = time.perf_counter()
+        attn_cpu[arch] = attention_card_vs_cpu_phase(arch, args.seed)
+        log(f"phase train card vs cpu {arch}: {time.perf_counter() - t0:.3f} s")
     gemma = gemma2_serving_phase(args.seed)
     gemma_cpu = gemma2_card_vs_cpu_phase(args.seed)
     t0 = time.perf_counter()
@@ -3549,6 +4278,10 @@ def main() -> int:
         - gemma["flash_tensor_core_launches"]),
         "deepseek-v3-671b": deepseek["flash"],
         "hubert-xlarge": hubert["flash"], "llava-next-34b": llava["flash"]}
+    for arch, r in attn_train.items():
+        c = r["main_path_counts"]
+        by_path[f"train {arch}"] = {k: c[k] for k in ("all", "tensor_cores",
+                                                      "cuda_cores")}
 
     def shape_times(key):
         r = flash[key]
@@ -3569,6 +4302,30 @@ def main() -> int:
         mla_shape=shape_times(f"mla {MLA} dv {MLA_DV} bfloat16"),
         hubert_shape=shape_times(f"hubert {HUBERT} bfloat16"),
         llava_shape=shape_times(f"llava {LLAVA} bfloat16")))
+    bwd_at = flash_bwd[f"gemma2 global {G2T} bfloat16"]
+    bwd_cases = {k: r for k, r in flash_bwd.items() if k != "kernel_info"}
+    bwd_by_path = {arch: r["main_path_counts"]["backward"]
+                   for arch, r in attn_train.items()}
+
+    def bwd_times(key):
+        r = flash_bwd[key]
+        return {k: r[k] for k in ("ms", "alone_ms", "launch_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library",
+                                  "library_ms")}
+    kernels.append(dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
+        gradient_of="src/repro/kernels/flash_attention/ref.py:20 (jax.grad; "
+                    "the Pallas kernel has no gradient)",
+        launches=sum(bwd_by_path.values()),
+        kernels_a_call=3, launches_by_path=bwd_by_path,
+        max_abs_err=max(r["max_abs_err"] for r in bwd_cases.values()),
+        ms=bwd_at["alone_ms"], wrapper_ms=bwd_at["ms"],
+        launch_ms=bwd_at["launch_ms"], plain_ms=bwd_at["plain_ms"],
+        bound_ms=bwd_at["bound_ms"], bound_by=bwd_at["bound_by"],
+        library_ms=bwd_at["library_ms"],
+        shapes={k: bwd_times(k) for k in bwd_cases}))
     print(json.dumps({"shapes": kern, "main_path": main, "health": health,
                       "trim_resync": resync, "router_kv": router,
                       "ssd_shapes": ssd,
@@ -3579,7 +4336,10 @@ def main() -> int:
                       "gemma2_card_vs_cpu": gemma_cpu,
                       "deepseek_serving": deepseek,
                       "deepseek_card_vs_cpu": deepseek_cpu,
-                      "hubert": hubert, "llava": llava}))
+                      "hubert": hubert, "llava": llava,
+                      "flash_backward_shapes": flash_bwd,
+                      "attention_train": attn_train,
+                      "attention_train_card_vs_cpu": attn_cpu}))
     print(json.dumps({"flash_kernel_attributes": flash_attrs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,12 @@
 // have head dim D, v and o head dim Dv <= D (MLA's prefill: D = 192 =
 // qk_nope 128 + qk_rope 64, Dv = 128).
 //
+// For training, both kernels also write each row's log-sum-exp, lse_s =
+// m + log l in the natural-log units of the scaled, capped scores, into
+// an fp32 [B,H,S] tensor when the caller passes one (a null pointer for
+// serving: one untaken branch a row in the epilogue).  The backward
+// kernels (flash_attention_bwd.cu) recompute p = exp(x - lse) from it.
+//
 // What bounds it.  At gemma2-9b's prefill (B=2, H=16 over KV=8, S=8192,
 // D=256, causal, bf16) the function needs 4·B·H·D operations per unmasked
 // (query, key) pair — 1.1 TFLOP for a global layer, 1.1 ms on the bf16
@@ -159,6 +165,8 @@ struct Args {
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
+  float* lse;                          // [B,H,S] fp32 (seq stride 1), or null
+  long long l_sb, l_sh;
   int S, D, Dv, rep, nq;               // Dv <= D: v's and o's head dim
   int causal, window;                  // window <= 0: none
   float scale, cap;                    // cap <= 0: none
@@ -349,6 +357,8 @@ flash_fwd_kernel(const Args a) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0)          // log-sum-exp of the row's scores
+      a.lse[b * a.l_sb + h * a.l_sh + qpos] = m[i] + logf(den);
     T* row = og + static_cast<long long>(qpos) * a.o_ss;
 #pragma unroll
     for (int c = 0; c < kNc; ++c)
@@ -389,6 +399,7 @@ constexpr int kTcRows = 128;           // query rows of a block: two consumer wa
 constexpr int kTcThreads = 384;        // producer warpgroup + two consumer warpgroups
 constexpr int kStages = 2;             // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // q/k head dim D, v head dim Dv (both multiples of 16, Dv <= D).  A row
 // is loaded as 64-column boxes of 128 bytes; a box that reaches past the
@@ -415,6 +426,8 @@ struct TcArgs {
   CUtensorMap qmap, kmap, vmap;        // (D, S, heads, batch) views, 128-byte swizzle
   void* o;
   long long o_sb, o_sh, o_ss;
+  float* lse;                          // as Args::lse
+  long long l_sb, l_sh;
   int S, rep, nq, causal, window;
   float scale, cap;
 };
@@ -945,6 +958,11 @@ flash_fwd_wgmma(const __grid_constant__ TcArgs a) {
       const int qpos = ctx.q_row + 8 * r;
       if (qpos >= S) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      // the row's log-sum-exp in the natural-log units of the scaled
+      // scores: m is in the units the weights' exp2 takes before `mul`
+      if (a.lse != nullptr && (t % 4) == 0)
+        a.lse[b * a.l_sb + h * a.l_sh + qpos] =
+            m[r] * ctx.mul * kLn2 + logf(fmaxf(l[r], 1e-30f));
       __nv_bfloat16* row = og + static_cast<long long>(qpos) * a.o_ss + ctx.col0;
 #pragma unroll
       for (int j = 0; j < Dv / 8; ++j)                 // the Dv live columns
@@ -1011,6 +1029,9 @@ int launch_tc(const Args& a, int batch, int heads, int kv_heads, cudaStream_t st
   t.o_sb = a.o_sb;
   t.o_sh = a.o_sh;
   t.o_ss = a.o_ss;
+  t.lse = a.lse;
+  t.l_sb = a.l_sb;
+  t.l_sh = a.l_sh;
   t.S = a.S;
   t.rep = a.rep;
   t.nq = (a.S + kTcRows - 1) / kTcRows;
@@ -1096,6 +1117,10 @@ int tc_info(int capped, int* out) {
 // data pointer and its batch, head and sequence strides in elements (the
 // head dim is contiguous, and every stride and pointer a multiple of four
 // elements).  dtype: 0 for fp32, 1 for bf16, the same for all four.
+// lse, unless null, receives each row's log-sum-exp of its scaled,
+// capped and masked scores (fp32 [batch, heads, seqlen], batch and head
+// strides l_sb and l_sh, sequence stride 1): what the backward kernels
+// (flash_attention_bwd.cu) recompute the softmax from.
 // window <= 0 means no window, cap <= 0 no softcap.  bf16 at the
 // (headdim, vdim) pairs (64, 64), (80, 80), (128, 128), (192, 128) and
 // (256, 256) with 16-byte aligned pointers and strides goes to the
@@ -1109,6 +1134,7 @@ extern "C" int arcadia_flash_attention(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
+    float* lse, long long l_sb, long long l_sh,
     int batch, int heads, int kv_heads, int seqlen, int headdim, int vdim,
     int causal, int window, float scale, float cap, int dtype, void* stream,
     int* route) {
@@ -1120,7 +1146,7 @@ extern "C" int arcadia_flash_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-         seqlen, headdim, vdim, heads / kv_heads, (seqlen + kTile - 1) / kTile,
+         lse, l_sb, l_sh, seqlen, headdim, vdim, heads / kv_heads, (seqlen + kTile - 1) / kTile,
          causal, window, scale, cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *route = 0;

@@ -1,2 +1,2 @@
-"""Forward flash attention: plain version (``ref``), CUDA kernel
-(``flash_attention``) and device routing (``ops``)."""
+"""Flash attention and its gradient: plain versions (``ref``), CUDA
+kernels (``flash_attention``) and device routing (``ops``)."""

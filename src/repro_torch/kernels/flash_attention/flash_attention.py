@@ -1,4 +1,4 @@
-"""CUDA kernels of forward flash attention: bind and launch.
+"""CUDA kernels of flash attention, forward and backward: bind and launch.
 
 The kernels (``csrc/flash_attention.cu``) replace the JAX package's Pallas
 TPU kernel ``_flash_kernel`` (``repro/kernels/flash_attention/
@@ -22,7 +22,17 @@ The source is compiled with ``nvcc`` at first use and bound with
 ``LAUNCHES`` counts the launches of both kernels, ``TENSOR_CORE_LAUNCHES``
 and ``CUDA_CORE_LAUNCHES`` each route's: ``flash_attention_cuda`` adds one
 to ``LAUNCHES`` and to the count of the route the C side reports, right
-after each successful launch, and nowhere else.
+after each successful launch, and nowhere else.  Asked for it
+(``return_lse=True``, training), the forward also writes each row's
+log-sum-exp.
+
+The backward (``csrc/flash_attention_bwd.cu``, ``flash_attention_backward_cuda``)
+is one route, the CUDA cores in fp32, three launches a call (delta = rowsum(dO
+∘ O); dK and dV per kv head and key tile, the group's heads summed in order;
+dQ per head and query tile), no atomics.  ``BACKWARD_LAUNCHES`` counts its
+calls, ``BACKWARD_CALL_LAUNCHES`` the kernels they launched (three each),
+``BACKWARD_DO_COPIES`` the cotangents it had to copy (a dO whose head dim
+is not contiguous or whose strides are not multiples of 4 elements).
 """
 
 from __future__ import annotations
@@ -39,8 +49,13 @@ from .. import nvcc
 LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 CUDA_CORE_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
+BACKWARD_CALL_LAUNCHES = 0
+BACKWARD_DO_COPIES = 0
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
+BWD_SOURCE = nvcc.CSRC / "flash_attention_bwd.cu"
+BWD_KERNELS = ("delta", "dkdv", "dq")     # the three launches of a call
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_SMEM = 232448                          # 227 KB a block, H100
@@ -86,8 +101,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lib.arcadia_flash_attention.argtypes = [
-        p, p, p, p, *[ll] * 12, i, i, i, i, i, i, i, i, f, f, i, p,
-        ctypes.POINTER(i)]
+        p, p, p, p, *[ll] * 12, p, ll, ll, i, i, i, i, i, i, i, i, f, f, i,
+        p, ctypes.POINTER(i)]
     lib.arcadia_flash_attention.restype = ctypes.c_int
     lib.arcadia_flash_kernel_info.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.arcadia_flash_kernel_info.restype = ctypes.c_int
@@ -113,6 +128,68 @@ def kernel_info(dtype: torch.dtype, head_dim: int, capped: bool = False,
                 max_threads=out[8])
 
 
+@dataclass(frozen=True)
+class BackwardPlan:
+    """How the backward kernels serving a head dim tile their work (the
+    same for fp32 and bf16: tiles are staged in fp32)."""
+    rows: int            # query rows of a tile
+    keys: int            # keys of a tile
+    smem_bytes: int      # dynamic shared memory of the dK/dV and dQ launches
+    launches: int        # kernels a call
+
+
+def backward_plan(dtype: torch.dtype, head_dim: int,
+                  v_head_dim: Optional[int] = None) -> BackwardPlan:
+    """The plan of ``csrc/flash_attention_bwd.cu`` (``arcadia_flash_bwd_
+    kernel_info`` reports the same on the card): D rounded up to DM = 32,
+    64, 128 or 256; 64 query rows and Bk keys a tile (32 at DM = 256, else
+    64); fp32 Q and dO tiles [64][DM+4], K and V [Bk][DM+4], P and dS
+    [64][Bk+4], lse and delta [64].  v's head dim shares the DM-wide tiles."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash backward takes fp32 or bf16, got {dtype}")
+    dv = head_dim if v_head_dim is None else v_head_dim
+    if not (0 < dv <= head_dim <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims ({head_dim}, {dv}) not taken")
+    dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
+    keys = 32 if dm == 256 else 64
+    floats = 2 * 64 * (dm + 4) + 2 * keys * (dm + 4) + 2 * 64 * (keys + 4) \
+        + 2 * 64
+    return BackwardPlan(64, keys, floats * 4, len(BWD_KERNELS))
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.arcadia_flash_attention_backward.argtypes = [
+        *[p] * 10, *[ll] * 26, i, i, i, i, i, i, i, i, f, f, i, p]
+    lib.arcadia_flash_attention_backward.restype = ctypes.c_int
+    lib.arcadia_flash_bwd_kernel_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.arcadia_flash_bwd_kernel_info.restype = ctypes.c_int
+
+
+def backward_kernel_info(dtype: torch.dtype, head_dim: int) -> dict:
+    """The plan and ``cudaFuncGetAttributes`` of the backward kernels for
+    (dtype, head dim) on the card: rows, keys, smem_bytes, and registers
+    and local (spill) bytes of each of ``BWD_KERNELS``."""
+    lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+    out = (ctypes.c_int * 9)()
+    err = lib.arcadia_flash_bwd_kernel_info(_DTYPES[dtype], int(head_dim), out)
+    if err != 0:
+        raise RuntimeError(f"flash backward kernel info failed: cudaError_t "
+                           f"{err} ({dtype}, D={head_dim})")
+    return dict(rows=out[0], keys=out[1], smem_bytes=out[2],
+                registers={n: out[3 + 2 * j] for j, n in enumerate(BWD_KERNELS)},
+                local_bytes={n: out[4 + 2 * j]
+                             for j, n in enumerate(BWD_KERNELS)})
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Head dim contiguous, strides and data pointer multiples of 4
+    elements: what the kernels' vector reads need."""
+    return t.stride(-1) == 1 and not any(s % 4 for s in t.stride()[:3]) \
+        and not t.data_ptr() % (4 * t.element_size())
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless the kernel takes q [B,H,S,D], k [B,KV,S,D] and v
     [B,KV,S,Dv] as they are: CUDA tensors of one dtype (fp32 or bf16), KV
@@ -132,8 +209,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or \
-                t.data_ptr() % (4 * t.element_size()):
+        if not _aligned(t):
             raise ValueError(f"flash kernel needs {name} with a contiguous "
                              f"head dim and strides and data aligned to 4 "
                              f"elements, got strides {t.stride()}")
@@ -155,32 +231,43 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _empty_like_q(q: torch.Tensor, Dv: int) -> torch.Tensor:
     """An uninitialised [B,H,S,Dv] tensor whose batch, head and sequence
     dims are laid out in q's order (a layer's [B,S,H,D] view gives a
-    [B,S,H,Dv] buffer seen as [B,H,S,Dv]), dense, head dim contiguous."""
+    [B,S,H,Dv] buffer seen as [B,H,S,Dv]), dense, head dim contiguous.
+    The backward gives each gradient its input's order this way."""
     order = sorted(range(3), key=lambda d: -q.stride(d))   # outermost first
     shape = [q.shape[d] for d in order] + [Dv]
     buf = torch.empty(shape, dtype=q.dtype, device=q.device)
     return buf.permute(*[order.index(d) for d in range(3)], 3)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: Optional[int] = None,
-                         cap: Optional[float] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """Attention of CUDA tensors in ONE kernel launch: the contract of
-    ``ref.attention_reference`` (q [B,H,S,D]; k [B,KV,S,D], v [B,KV,S,Dv]
-    -> [B,H,S,Dv] in q's dtype, its first three dims laid out as q's)."""
-    global LAUNCHES, TENSOR_CORE_LAUNCHES, CUDA_CORE_LAUNCHES
-    _check(q, k, v)
-    B, H, S, D = q.shape
-    Dv = v.shape[-1]
+def _check_options(window, cap) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     if cap is not None and not cap > 0:
         raise ValueError(f"softcap must be positive, got {cap}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         cap: Optional[float] = None,
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Attention of CUDA tensors in ONE kernel launch: the contract of
+    ``ref.attention_reference`` (q [B,H,S,D]; k [B,KV,S,D], v [B,KV,S,Dv]
+    -> [B,H,S,Dv] in q's dtype, its first three dims laid out as q's).
+    With ``return_lse`` -> (out, lse), lse the fp32 [B,H,S] log-sum-exp of
+    each row's scaled, capped and masked scores
+    (``ref.attention_lse_reference``), which the backward takes."""
+    global LAUNCHES, TENSOR_CORE_LAUNCHES, CUDA_CORE_LAUNCHES
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    Dv = v.shape[-1]
+    _check_options(window, cap)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = _empty_like_q(q, Dv)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = nvcc.load(SOURCE, _bind)
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
@@ -188,7 +275,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.arcadia_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], B, H, k.shape[1], S, D, Dv, int(causal),
+            *out.stride()[:3], 0 if lse is None else lse.data_ptr(),
+            H * S, S, B, H, k.shape[1], S, D, Dv, int(causal),
             0 if window is None else int(window), float(scale),
             0.0 if cap is None else float(cap), _DTYPES[q.dtype], stream,
             ctypes.byref(route))
@@ -202,4 +290,64 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         TENSOR_CORE_LAUNCHES += 1
     else:
         CUDA_CORE_LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor, *,
+                                  causal: bool = True,
+                                  window: Optional[int] = None,
+                                  cap: Optional[float] = None,
+                                  scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention_cuda`` at (q, k, v), given its
+    output o [B,H,S,Dv], its ``lse`` and the cotangent ``do`` of o: the
+    contract of ``ref.attention_backward_reference``, in THREE kernel
+    launches.  The gradients have their inputs' shapes, dtypes and
+    memory orders.  q, k, v and o are read through their strides (as
+    ``_check`` takes them); a ``do`` the kernels cannot read in place is
+    copied once (``BACKWARD_DO_COPIES``)."""
+    global BACKWARD_LAUNCHES, BACKWARD_CALL_LAUNCHES, BACKWARD_DO_COPIES
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    KV, Dv = k.shape[1], v.shape[-1]
+    _check_options(window, cap)
+    for name, t in (("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype or \
+                tuple(t.shape) != (B, H, S, Dv):
+            raise ValueError(f"{name} must be a {q.dtype} [B,H,S,Dv] tensor "
+                             f"on {q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    if not _aligned(o):
+        raise ValueError(f"o must have a contiguous head dim and strides "
+                         f"aligned to 4 elements, got {o.stride()}")
+    if lse.device != q.device or lse.dtype != torch.float32 or \
+            tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous fp32 [B,H,S] tensor on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    if not _aligned(do):
+        do = do.contiguous()
+        BACKWARD_DO_COPIES += 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dq = _empty_like_q(q, D)
+    dk = _empty_like_q(k, D)
+    dv = _empty_like_q(v, Dv)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty_like(lse)
+    lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.arcadia_flash_attention_backward(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
+            H * S, S, B, H, KV, S, D, Dv, int(causal),
+            0 if window is None else int(window), float(scale),
+            0.0 if cap is None else float(cap), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash backward launch failed: cudaError_t {err} "
+                           f"(B={B}, H={H}, KV={KV}, S={S}, D={D}, Dv={Dv}, "
+                           f"{q.dtype})")
+    BACKWARD_LAUNCHES += 1
+    BACKWARD_CALL_LAUNCHES += len(BWD_KERNELS)
+    return dq, dk, dv

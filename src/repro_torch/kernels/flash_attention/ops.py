@@ -1,4 +1,4 @@
-"""Routing of forward attention by the tensors' device.
+"""Routing of attention by the tensors' device.
 
 CPU tensors go to the plain PyTorch version (``ref.py``), CUDA tensors to
 the hand-written kernels (``flash_attention.py``: bf16 at the (D, Dv)
@@ -10,6 +10,15 @@ it does not take (a dtype other than fp32 or bf16, a head dim above 256,
 a value head dim above q's, a head dim that is not contiguous), raises.
 The kernels' launch count is ``flash_attention.LAUNCHES``, each route's
 ``TENSOR_CORE_LAUNCHES`` and ``CUDA_CORE_LAUNCHES``.
+
+Where a gradient is needed, attention is ``_Flash``, a
+``torch.autograd.Function`` on either device: on the card its forward is
+the kernel with its per-row log-sum-exp, its backward the backward
+kernels (``flash_attention_backward_cuda``: three launches, counted by
+``flash_attention.BACKWARD_LAUNCHES`` per call); on the CPU the plain
+forward, ``ref.attention_lse_reference`` and
+``ref.attention_backward_reference``, so the CPU tests hold the same
+plumbing (the saved lse, the group sums, the views) to ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -19,7 +28,35 @@ from typing import Optional
 import torch
 
 from . import ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_backward_cuda, \
+    flash_attention_cuda
+
+
+class _Flash(torch.autograd.Function):
+    """Attention with its hand-written gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale):
+        kw = dict(causal=causal, window=window, cap=cap, scale=scale)
+        if q.device.type == "cuda":
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        else:
+            o = ref.attention_reference(q, k, v, **kw)
+            lse = ref.attention_lse_reference(q, k, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            grads = flash_attention_backward_cuda(q, k, v, o, lse, do,
+                                                  **ctx.kw)
+        else:
+            grads = ref.attention_backward_reference(q, k, v, o, lse, do,
+                                                     **ctx.kw)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,12 +64,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     cap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q [B,H,S,D]; k [B,KV,S,D], v [B,KV,S,Dv] with Dv <= D ->
-    [B,H,S,Dv]; query head h reads kv head h // (H // KV)."""
+    [B,H,S,Dv]; query head h reads kv head h // (H // KV).
+    Differentiable on both devices."""
     kind = q.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no attention route for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, causal, window, cap, scale)
     if kind == "cpu":
         return ref.attention_reference(q, k, v, causal=causal, window=window,
                                        cap=cap, scale=scale)
-    if kind == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    cap=cap, scale=scale)
-    raise ValueError(f"no attention route for device {q.device}")
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                cap=cap, scale=scale)

@@ -12,10 +12,13 @@ integrity hashes beside the loss).  Parameters are initialised from
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --reduced --device cpu --steps 20 --batch 4 --seq 64
 
-On the card only attention-free configs train (mamba2-130m): the SSM
-mixer's scan has a backward kernel, attention has none yet, and
-``check_trainable`` refuses an attention config there before anything is
-allocated.  On the CPU every config trains, on the plain versions.
+On the card every config trains whose attention head dims the flash
+kernels take (all ten): the SSM mixer's scan and flash attention each
+have a backward kernel there, and ``check_trainable`` refuses anything
+else before anything is allocated.  Whether a config fits the card is
+another matter (gemma2-9b, starcoder2-3b, hubert-xlarge and deepseek-v3
+cut to one dense layer and its MTP block train in ``chip_smoke.py``).
+On the CPU every config trains, on the plain versions.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..configs import ARCH_NAMES, get_config, reduced_config
 from ..core.replication import build_replica_set
 from ..data import DataConfig, SyntheticDataset
 from ..device import resolve_device
+from ..kernels.flash_attention.flash_attention import MAX_HEAD_DIM
 from ..models.config import ModelConfig
 from ..optim import OptConfig
 from ..train.trainer import Trainer, TrainerConfig
@@ -40,17 +44,23 @@ from ..train.trainer import Trainer, TrainerConfig
 def check_trainable(cfg: ModelConfig, device, seq_len: Optional[int] = None
                     ) -> None:
     """Raise unless the port can train ``cfg`` on ``device``: on the card
-    no attention layer (the flash kernel has no backward yet); with SSM
-    layers, ``seq_len`` at most ``ssm_chunk`` or a multiple of it."""
+    attention head dims the flash kernels take (q/k head dim D <= 256 and
+    v head dim Dv <= D, both multiples of 4); with SSM layers, ``seq_len``
+    at most ``ssm_chunk`` or a multiple of it."""
     kinds = cfg.block_pattern()
     attn = cfg.first_dense_layers > 0 or cfg.mtp_depth > 0 or \
         any(k.mixer == "attn" for k in kinds)
     if torch.device(device).type == "cuda" and attn:
-        raise ValueError(
-            f"{cfg.name} has attention layers: training them on the card "
-            f"needs a flash-attention backward kernel, not written yet "
-            f"(ROADMAP.md, Queue 1 item 4: the flash backward); pass "
-            f"--device cpu")
+        D = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else \
+            cfg.resolved_head_dim
+        Dv = cfg.v_head_dim if cfg.use_mla else D
+        if not (D <= MAX_HEAD_DIM and Dv <= D and D % 4 == 0 and
+                Dv % 4 == 0):
+            raise ValueError(
+                f"{cfg.name}: attention head dims ({D}, {Dv}) are not taken "
+                f"by the flash kernels (D <= {MAX_HEAD_DIM}, Dv <= D, both "
+                f"multiples of 4), which train attention on the card; pass "
+                f"--device cpu")
     q = cfg.ssm_chunk
     if seq_len is not None and any(k.mixer == "ssm" for k in kinds) and \
             seq_len > q and seq_len % q:

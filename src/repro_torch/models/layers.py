@@ -7,7 +7,8 @@ Two kernels sit under these layers.  The mixer's chunked scan goes
 through ``kernels/ssd_scan/ops.ssd``; the prefill attention of a CUDA
 tensor goes through ``kernels/flash_attention/ops.flash_attention``.
 Each routes a CUDA tensor to its hand-written kernel and a CPU tensor to
-its plain version.  On the CPU, ``attention`` picks the JAX package's
+its plain version, and each has a hand-written backward kernel on the
+card.  On the CPU, ``attention`` picks the JAX package's
 strategy by shape (direct, blockwise or sliding), so that each strategy
 can be held against its counterpart.  Decode attention (one query
 against the cache) is the plain direct path on both devices, as in the
@@ -199,24 +200,21 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, q_offset=0,
     """q [B,Sq,K,G,D]; k [B,Sk,K,D], v [B,Sk,K,Dv] -> [B,Sq,K,G,Dv].
 
     A prefill of CUDA tensors (Sq == Sk, no ``kv_len``, no offset) goes to
-    the flash kernel, whatever the shape.  Everything else chooses as the
-    JAX package does: decode or short -> direct; long local -> sliding;
-    long global -> q-chunked lazy softmax.  CPU prefill keeps these
-    strategies rather than the plain version behind ``flash_ops`` so that
-    the CPU parity tests hold each of them to its JAX counterpart, and
-    CPU training differentiates through them.  The flash kernel has no
-    backward yet: a CUDA prefill that needs a gradient raises rather than
-    run the plain strategies on the card."""
+    the flash kernel, whatever the shape; where it needs a gradient
+    (training) it goes through ``flash_ops``' autograd Function, whose
+    forward also writes each row's log-sum-exp and whose backward is the
+    flash backward kernel.  Everything else chooses as the JAX package
+    does: decode or short -> direct; long local -> sliding; long global
+    -> q-chunked lazy softmax.  CPU prefill keeps these strategies rather
+    than the plain version behind ``flash_ops`` so that the CPU parity
+    tests hold each of them to its JAX counterpart, and CPU training
+    differentiates through them with autograd, as the JAX package does
+    with ``jax.grad``."""
     B, Sq, K, G, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cuda" and Sq == Sk and kv_len is None and \
             q_offset == 0:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "training attention on the card needs a flash-attention "
-                "backward kernel, which is not written yet (ROADMAP.md, "
-                "Queue 1 item 4: the flash backward)")
         return _flash_attention(q, k, v, scale=scale, causal=causal,
                                 window=window, cap=cap)
     if Sq == 1 or Sq * Sk <= 2048 * 2048 or kv_len is not None:

@@ -28,9 +28,11 @@ gradients land on the stored leaves; ``cast_params`` is serving's one-off
 cast and training never calls it.  With ``cfg.remat == "block"`` each
 block of a differentiated forward runs under ``torch.utils.checkpoint``
 (non-reentrant): only its input is kept, and the block runs again in the
-backward pass, as ``jax.checkpoint(..., nothing_saveable)`` does.  On the
-card only the SSM mixer has a gradient kernel: attention layers refuse a
-differentiated prefill there (``layers.attention``).
+backward pass, as ``jax.checkpoint(..., nothing_saveable)`` does, so an
+attention layer of a block runs its flash forward twice a step and its
+flash backward once (the dense prologue and the MTP block, outside the
+blocks, once each).  On the card the SSM mixer's scan and the attention
+each have a hand-written gradient kernel.
 """
 
 from __future__ import annotations

@@ -62,21 +62,23 @@ def grads_and_metrics(params, batch: Dict[str, torch.Tensor],
 
 
 def train_step(state, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               opt_cfg: OptConfig, journal: bool = False
+               opt_cfg: OptConfig, journal: bool = False, donate: bool = False
                ) -> Tuple[Any, Dict[str, torch.Tensor]]:
     """One optimizer step -> (new_state, metrics).  Metrics: "ce", "aux",
     "loss" (and "mtp"), "lr", "grad_norm" and, with ``journal``,
-    "integrity" (int64 [n_leaves], one hash per grad leaf)."""
+    "integrity" (int64 [n_leaves], one hash per grad leaf).  With
+    ``donate`` the params and moments of ``state`` are updated in place
+    (``apply_updates``): the caller gives up the old state."""
     grads, metrics = grads_and_metrics(state["params"], batch, cfg)
-    return apply_step(state, grads, metrics, opt_cfg, journal)
+    return apply_step(state, grads, metrics, opt_cfg, journal, donate)
 
 
 def apply_step(state, grads, metrics: Dict[str, torch.Tensor],
-               opt_cfg: OptConfig, journal: bool = False
-               ) -> Tuple[Any, Dict[str, torch.Tensor]]:
+               opt_cfg: OptConfig, journal: bool = False,
+               donate: bool = False) -> Tuple[Any, Dict[str, torch.Tensor]]:
     """The optimizer half of ``train_step``, given the grads."""
     new_params, new_opt, opt_metrics = apply_updates(
-        state["params"], grads, state["opt"], state["step"], opt_cfg)
+        state["params"], grads, state["opt"], state["step"], opt_cfg, donate)
     metrics = {**metrics, **opt_metrics}
     if journal:
         metrics["integrity"] = cksum.tree_checksums(grads)

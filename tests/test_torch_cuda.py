@@ -1351,17 +1351,242 @@ def test_ssd_backward_bf16_off_the_tensor_cores_is_the_cuda_core_result(
         assert max(errs) <= BWD_TOL[torch.bfloat16], errs
 
 
-def test_attention_refuses_a_gradient_on_the_card(cuda_device):
-    """The flash kernel has no backward: a CUDA prefill that needs a
-    gradient raises instead of running the plain strategies."""
+def test_attention_refuses_a_gradient_on_the_card(cuda_device, fp32_exact):
+    """A CUDA prefill that needs a gradient no longer raises: it runs the
+    flash forward with its lse and the flash backward kernels (never the
+    plain strategies on the card), and its grads match the CPU's."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import layers as L
 
-    q = torch.randn(1, 64, 2, 2, 64, device=cuda_device, requires_grad=True)
-    k = torch.randn(1, 64, 2, 64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="flash-attention backward"):
-        L.attention(q, k, k.clone())
+    rng = np.random.default_rng(0)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((1, 64, 2, 2, 64), (1, 64, 2, 64), (1, 64, 2, 64))]
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                  for a in arrs]
+        before = (fa.LAUNCHES, fa.BACKWARD_LAUNCHES)
+        L.attention(*leaves).square().sum().backward()
+        moved = (fa.LAUNCHES - before[0], fa.BACKWARD_LAUNCHES - before[1])
+        assert moved == ((1, 1) if dev != "cpu" else (0, 0)), moved
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     with torch.no_grad():
-        assert L.attention(q, k, k.clone()).shape == (1, 64, 2, 2, 64)
+        assert L.attention(*(torch.from_numpy(a).to(cuda_device)
+                             for a in arrs)).shape == (1, 64, 2, 2, 64)
+
+
+# ------------------------ flash attention backward ------------------------ #
+
+# per row of each gradient, |kernel - plain| over the row's largest |plain|
+# (the forward's bounds) — but no smaller than 2^-8 of the gradient's
+# largest value: dq's row at a query that sees one key cancels to round-off
+# (dP - delta = dO·v - dO·o with o = v), and the round-off of the two sides
+# scales with the products summed, not with the row's result
+BWD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+BWD_ROW_FLOOR = 2.0 ** -8
+BWD_OPTIONS = [dict(causal=True), dict(causal=False),
+               dict(causal=True, window=48), dict(causal=True, cap=30.0),
+               dict(causal=True, window=16, cap=20.0),
+               dict(causal=False, window=40)]
+BWD_PAIRS = [(32, 32), (64, 64), (80, 80), (128, 128), (192, 128),
+             (256, 256), (48, 24)]
+
+
+def grad_row_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    den = want.abs().amax(-1).clamp_min(BWD_ROW_FLOOR * float(
+        want.abs().max())).clamp_min(1e-30)
+    return float(((got - want).abs().amax(-1) / den).max())
+
+
+def flash_bwd_inputs(B, H, KV, S, D, Dv, dtype, seed, device, q_mul=2.0):
+    """q, k, v and dO from numpy's normal draw (q scaled so that a softcap
+    of 20-30 is reached)."""
+    rng = np.random.default_rng(seed)
+    out = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+           .to(device=device, dtype=dtype)
+           for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, Dv),
+                     (B, H, S, Dv))]
+    out[0] = (out[0].float() * q_mul).to(dtype)
+    return out
+
+
+def flash_grads(q, k, v, do, **kw):
+    """o, lse and (dq, dk, dv) through the kernels: one forward launch,
+    one backward call of three launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    before = (fa.LAUNCHES, fa.BACKWARD_LAUNCHES, fa.BACKWARD_CALL_LAUNCHES)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    grads = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert (fa.LAUNCHES - before[0], fa.BACKWARD_LAUNCHES - before[1],
+            fa.BACKWARD_CALL_LAUNCHES - before[2]) == (1, 1, 3)
+    return o, lse, grads
+
+
+def check_backward(q, k, v, do, **kw):
+    """The kernels' gradients against the plain backward on the same
+    inputs (o and lse from the kernel), each row within BWD_ROW_TOL."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    o, lse, grads = flash_grads(q, k, v, do, **kw)
+    want = fa_ref.attention_backward_reference(q, k, v, o, lse, do, **kw)
+    for name, g, w, t in zip(("dq", "dk", "dv"), grads, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = grad_row_err(g, w)
+        assert err <= BWD_ROW_TOL[q.dtype], (name, err, kw)
+    return o, lse, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,Dv", BWD_PAIRS)
+def test_flash_backward_matches_plain_version(cuda_device, fp32_exact, D, Dv,
+                                              dtype):
+    """Every head width the kernels are built for (and MLA's, hubert's and
+    a Dv < D pair off the tensor cores), every option, GQA 4 over 2, a
+    length that no tile divides."""
+    for n, kw in enumerate(BWD_OPTIONS):
+        check_backward(*flash_bwd_inputs(2, 4, 2, 200, D, Dv, dtype, D + n,
+                                   cuda_device), **kw)
+
+
+@pytest.mark.parametrize("S", [2, 31, 65, 129])
+def test_flash_backward_ragged_lengths(cuda_device, fp32_exact, S):
+    """Lengths no tile divides.  Not causal, so that no row sees a single
+    key (whose dq is round-off: see BWD_ROW_FLOOR) at S = 2."""
+    check_backward(*flash_bwd_inputs(1, 4, 1, S, 64, 64, torch.float32, S,
+                                     cuda_device, q_mul=1.0),
+                   causal=False, window=40)
+
+
+def test_flash_backward_of_one_token(cuda_device, fp32_exact):
+    """One token sees one key: p = 1, so dv is the group's sum of dO and
+    dq, dk vanish but for round-off (dP - delta = dO·v - dO·o, o = v)."""
+    q, k, v, do = flash_bwd_inputs(1, 4, 2, 1, 64, 64, torch.float32, 1,
+                                   cuda_device)
+    _, _, (dq, dk, dv) = flash_grads(q, k, v, do, causal=True)
+    torch.testing.assert_close(dv, do.view(1, 2, 2, 1, 64).sum(2), atol=1e-6,
+                               rtol=1e-6)
+    assert float(dq.abs().max()) <= 1e-5 and float(dk.abs().max()) <= 1e-5
+
+
+def test_flash_backward_lse_matches_plain_version(cuda_device, fp32_exact):
+    """Both forward kernels' lse (tensor cores at their pairs in bf16, CUDA
+    cores in fp32) against the plain log-sum-exp of the same scores."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    for dtype, pairs in ((torch.bfloat16, fa.TENSOR_CORE_PAIRS),
+                         (torch.float32, [(64, 64), (256, 256), (192, 128)])):
+        for (D, Dv), kw in zip(pairs, BWD_OPTIONS):
+            q, k, v, _ = flash_bwd_inputs(1, 4, 2, 300, D, Dv, dtype, D,
+                                    cuda_device)
+            before = (fa.TENSOR_CORE_LAUNCHES, fa.CUDA_CORE_LAUNCHES)
+            _, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            route = (fa.TENSOR_CORE_LAUNCHES - before[0],
+                     fa.CUDA_CORE_LAUNCHES - before[1])
+            assert route == ((1, 0) if dtype == torch.bfloat16 else (0, 1))
+            want = fa_ref.attention_lse_reference(q, k, **kw)
+            assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+            torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+def test_flash_forward_unchanged_by_the_lse(cuda_device):
+    """Serving's launch (no lse) and training's give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    for dtype, D, Dv in ((torch.bfloat16, 256, 256), (torch.bfloat16, 192, 128),
+                         (torch.float32, 128, 128)):
+        q, k, v, _ = flash_bwd_inputs(2, 8, 4, 333, D, Dv, dtype, 1, cuda_device)
+        a = fa.flash_attention_cuda(q, k, v, causal=True, window=100, cap=30.0)
+        b, _ = fa.flash_attention_cuda(q, k, v, causal=True, window=100,
+                                       cap=30.0, return_lse=True)
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_repeats_bitwise(cuda_device):
+    q, k, v, do = flash_bwd_inputs(2, 8, 2, 300, 128, 128, torch.bfloat16, 5,
+                             cuda_device)
+    _, _, a = flash_grads(q, k, v, do, causal=True, window=100, cap=30.0)
+    _, _, b = flash_grads(q, k, v, do, causal=True, window=100, cap=30.0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("fault", ["no_cap_grad", "one_head", "no_delta",
+                                   "no_window"])
+def test_flash_backward_planted_faults_fail(cuda_device, fp32_exact, fault):
+    """The row check tells the kernels from each wrong plain backward."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    kw = dict(causal=True, window=48, cap=20.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = flash_bwd_inputs(1, 4, 2, 256, 64, 64, dtype, 9, cuda_device)
+        o, lse, grads = check_backward(q, k, v, do, **kw)
+        wrong = fa_ref.attention_backward_reference(q, k, v, o, lse, do,
+                                                    fault=fault, **kw)
+        assert max(grad_row_err(g, w) for g, w in zip(grads, wrong)) > \
+            BWD_ROW_TOL[dtype]
+
+
+def test_flash_backward_reads_views_and_copies_a_strided_cotangent(
+        cuda_device, fp32_exact):
+    """The layer's permuted views and MLA's value slice go in as they are;
+    the gradients come back in the inputs' memory order; a dO whose head
+    dim is not contiguous is copied once, and counted."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v, do = flash_bwd_inputs(2, 4, 2, 160, 96, 64, torch.bfloat16, 3,
+                             cuda_device)
+    kw = dict(causal=True, window=50)
+    o, lse, want = flash_grads(q, k, v, do, **kw)
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    ks = k.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros(2, 160, 2, 96 + 64, dtype=v.dtype, device=cuda_device)
+    wide[..., 96:] = v.transpose(1, 2)
+    vs = wide[..., 96:].transpose(1, 2)
+    dos = do.transpose(2, 3).contiguous().transpose(2, 3)   # head dim strided
+    copies = fa.BACKWARD_DO_COPIES
+    got = fa.flash_attention_backward_cuda(qs, ks, vs, o, lse, dos, **kw)
+    assert fa.BACKWARD_DO_COPIES == copies + 1
+    assert got[0].stride() == qs.stride() and got[1].stride() == ks.stride()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_kernel_info_matches_the_plan(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (32, 64, 80, 128, 192, 256):
+            info = fa.backward_kernel_info(dtype, D)
+            plan = fa.backward_plan(dtype, D)
+            assert (info["rows"], info["keys"], info["smem_bytes"]) == \
+                (plan.rows, plan.keys, plan.smem_bytes)
+            assert plan.smem_bytes <= fa.MAX_SMEM
+            assert set(info["registers"]) == set(fa.BWD_KERNELS)
+            assert all(0 < r <= 255 for r in info["registers"].values())
+
+
+def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v, do = flash_bwd_inputs(1, 4, 2, 64, 64, 64, torch.float32, 0,
+                             cuda_device)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    before = fa.BACKWARD_LAUNCHES
+    with pytest.raises(ValueError):                   # lse of another shape
+        fa.flash_attention_backward_cuda(q, k, v, o, lse[:, :2], do)
+    with pytest.raises(ValueError):                   # dO of another dtype
+        fa.flash_attention_backward_cuda(q, k, v, o, lse, do.bfloat16())
+    with pytest.raises(ValueError):                   # o's head dim strided
+        fa.flash_attention_backward_cuda(
+            q, k, v, o.transpose(2, 3).contiguous().transpose(2, 3), lse, do)
+    assert fa.BACKWARD_LAUNCHES == before
 
 
 def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,

@@ -38,7 +38,7 @@ from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
                                     ObjectStore, ReplicatedStore)
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import Log, LogConfig, PMEMDevice
 from repro_torch.data import DataConfig, SyntheticDataset
 from repro_torch.kernels.checksum import ops as cksum
@@ -60,6 +60,11 @@ TRAIN_ARCHS = ["mamba2-130m", "qwen2-7b", "gemma2-9b", "deepseek-v3-671b",
 def fp32(cfg):
     return dataclasses.replace(cfg, param_dtype="float32",
                                compute_dtype="float32")
+
+
+def init_params_cpu(cfg):
+    from repro_torch.models.model import init_params
+    return init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 def jax_leaves(tree):
@@ -395,16 +400,57 @@ def test_journaled_step_records_the_grads_hashes():
 
 
 def test_check_trainable_refuses_attention_on_the_card():
-    """Decided from the config alone, before anything is allocated."""
+    """Decided from the config alone, before anything is allocated: the
+    attention configs train on the card now that flash attention has a
+    backward kernel, unless their head dims are ones the flash kernels do
+    not take; the ``ssm_chunk`` rule still refuses on either device."""
     for arch in ("qwen2-7b", "gemma2-9b", "deepseek-v3-671b",
-                 "jamba-1.5-large-398b", "hubert-xlarge"):
-        with pytest.raises(ValueError, match="flash-attention backward"):
-            launch_train.check_trainable(reduced_config(arch), "cuda")
-        launch_train.check_trainable(reduced_config(arch), "cpu")
+                 "jamba-1.5-large-398b", "hubert-xlarge", "starcoder2-3b"):
+        for device in ("cuda", "cpu"):
+            launch_train.check_trainable(reduced_config(arch), device)
+            launch_train.check_trainable(get_config(arch), device)
+    wide = dataclasses.replace(reduced_config("qwen2-7b"), head_dim=288)
+    with pytest.raises(ValueError, match="not taken by the flash kernels"):
+        launch_train.check_trainable(wide, "cuda")
+    launch_train.check_trainable(wide, "cpu")
     launch_train.check_trainable(reduced_config("mamba2-130m"), "cuda", 4096)
-    with pytest.raises(ValueError, match="ssm_chunk"):
-        launch_train.check_trainable(reduced_config("mamba2-130m"), "cpu",
-                                     300)
+    for device in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="ssm_chunk"):
+            launch_train.check_trainable(reduced_config("mamba2-130m"),
+                                         device, 300)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_donated_update_is_bitwise_the_functional_one(monkeypatch, name):
+    """``apply_updates(..., donate=True)`` writes each leaf's new values
+    into its old tensors (AdamW in pieces, here of 1000 elements, so that
+    leaves straddle pieces) and gives the functional update's bits."""
+    from repro_torch.optim import optimizer as topt
+
+    monkeypatch.setattr(topt, "DONATE_PIECE", 1000)
+    cfg = fp32(reduced_config("qwen2-7b"))
+    ocfg = OptConfig(name=name, lr=1e-2, warmup_steps=2, decay_steps=50,
+                     clip_norm=0.5)
+    gen = torch.Generator().manual_seed(3)
+    params = {n: torch.randn(t.shape, generator=gen)
+              for n, t in leaf_paths(init_params_cpu(cfg))}
+    grads = {n: torch.randn(t.shape, generator=gen) for n, t in params.items()}
+    state = init_opt_state(params, ocfg)
+    state = {n: {k: v.abs() * 1e-3 + torch.rand(v.shape, generator=gen) * 1e-4
+                 for k, v in s.items()} for n, s in state.items()}
+    step = torch.tensor(7, dtype=torch.int32)
+    want_p, want_s, want_m = apply_updates(params, grads, state, step, ocfg)
+    ptrs = {n: t.data_ptr() for n, t in params.items()}
+    got_p, got_s, got_m = apply_updates(params, grads, state, step, ocfg,
+                                        donate=True)
+    assert all(got_p[n] is params[n] for n in params)
+    assert all(got_s[n][k] is state[n][k] for n in state for k in state[n])
+    assert {n: t.data_ptr() for n, t in got_p.items()} == ptrs
+    for n in want_p:
+        assert torch.equal(got_p[n], want_p[n]), n
+        for k in want_s[n]:
+            assert torch.equal(got_s[n][k], want_s[n][k]), (n, k)
+    assert torch.equal(got_m["grad_norm"], want_m["grad_norm"])
 
 
 def test_launcher_trains_on_the_cpu(capsys):
