@@ -151,7 +151,10 @@ from ``src/repro_torch/csrc``
                 shapes), that call's; then each flash kernel's registers,
                 local (spill) bytes and shared bytes (a kernel that spills
                 fails);
-  flash bwd     the flash backward kernels (three launches a call) at the
+  flash bwd     the flash backward kernels (three launches a call; the
+                route ``backward_route`` picks asserted per case: the
+                tensor cores for the bf16 cases, the CUDA cores for fp32
+                and the misaligned copies) at the
                 training paths' shapes — gemma2-9b's global and local
                 layers (1 x 8192, the local one with scores in the
                 softcap's range), starcoder2-3b (2 x 4096, 24 heads over
@@ -159,14 +162,16 @@ from ``src/repro_torch/csrc``
                 deepseek-v3's MLA (1 x 4096, D 192, Dv 128, v a view) and
                 starcoder2's as misaligned copies — with the forward's lse
                 held to the plain log-sum-exp, each gradient row by row to
-                the plain backward (2^-6 / 1e-4 of the row's largest value,
+                the plain backward and, on the tensor cores, to its mirror
+                (2^-6 / 1e-4 of the row's largest value,
                 no less than 2^-8 of the gradient's), two calls bitwise
                 equal, four planted faults (softcap derivative, one head of
                 the group, delta, window) failing at gemma2's local layer;
                 a call's time alone (CUDA graph), with the L2 flushed and
                 per launch, the plain backward's, its bound and the
                 library's backward (SDPA, or compiled flex_attention with a
-                softcap); the kernels' registers and spills.  ``--phase
+                softcap); both routes' registers and spills (a spill
+                fails).  ``--phase
                 flash_backward`` runs it alone and prints its JSON;
   train attn    gemma2-9b (2 layers, 1 x 8192), starcoder2-3b (30 layers, 2
                 x 4096; the batch halves above 70 GB), hubert-xlarge (48
@@ -178,7 +183,7 @@ from ``src/repro_torch/csrc``
                 to fp32), AdamW (peak lr 3e-4) with the state donated: a
                 step, a profiled step (flash forward launches twice a block
                 layer under remat, backward calls once a layer, all
-                forward launches on the tensor cores;
+                forward launches and backward calls on the tensor cores;
                 ms, tokens/s, busy share, peak memory, top kernels), 4
                 steps on one batch in which the loss must fall, every
                 step's integrity equal to the plain hash of its grads, and
@@ -2523,23 +2528,25 @@ def flash_attributes() -> list:
 G2T = (1, 16, 8, 8192, 256)
 SC2 = (2, 24, 2, 4096, 128)
 MLA_T = (1, 128, 128, 4096, 192)
+TC, CC = "tensor_cores", "cuda_cores"
 FLASH_BWD_CASES = [
     flash_case(f"gemma2 global {G2T}", G2T, "bfloat16", layout="bshd",
-               causal=True, cap=50.0),
+               route=TC, causal=True, cap=50.0),
     flash_case(f"gemma2 local {G2T} scores x16", G2T, "bfloat16",
                layout="bshd", q_mul=16.0,
                faults=("no_cap_grad", "one_head", "no_delta", "no_window"),
-               causal=True, window=4096, cap=50.0),
+               route=TC, causal=True, window=4096, cap=50.0),
     flash_case(f"starcoder2 {SC2}", SC2, "bfloat16", layout="bshd",
-               causal=True),
+               route=TC, causal=True),
     flash_case(f"hubert {HUBERT}", HUBERT, "bfloat16", layout="bshd",
-               causal=False),
+               route=TC, causal=False),
     flash_case(f"mla {MLA_T} dv {MLA_DV}", MLA_T, "bfloat16", layout="mla",
-               dv=MLA_DV, causal=True, scale=1.0 / math.sqrt(MLA_T[4])),
+               dv=MLA_DV, route=TC, causal=True,
+               scale=1.0 / math.sqrt(MLA_T[4])),
     flash_case(f"hubert {HUBERT}", HUBERT, "float32", layout="bshd",
-               causal=False),
+               route=CC, causal=False),
     flash_case(f"starcoder2 {SC2} misaligned", SC2, "bfloat16",
-               layout="shifted", causal=True),
+               layout="shifted", route=CC, causal=True),
 ]
 # per row of each gradient, the forward's bounds (FLASH_ROW_TOL) of the
 # row's largest value — but no smaller than 2^-8 of the gradient's largest:
@@ -2598,12 +2605,16 @@ def plain_by_heads(fn, q, k, *rest, heads: int = 16):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-def plain_backward(q, k, v, o, lse, do, kw, fault=None):
+def plain_backward(q, k, v, o, lse, do, kw, fault=None, mirror=False):
+    """The plain backward (``mirror``: the tensor-core route's CPU mirror,
+    dS rounded to bf16 where it meets Q and K) over slices of heads."""
     from repro_torch.kernels.flash_attention import ref
 
+    fn = ref.attention_backward_tc_reference if mirror else \
+        ref.attention_backward_reference
     return plain_by_heads(
-        lambda q_, k_, v_, o_, l_, d_: ref.attention_backward_reference(
-            q_, k_, v_, o_, l_, d_, fault=fault, **kw), q, k, v, o, lse, do)
+        lambda q_, k_, v_, o_, l_, d_: fn(q_, k_, v_, o_, l_, d_, fault=fault,
+                                          **kw), q, k, v, o, lse, do)
 
 
 def flash_bwd_bound_ms(shape, kw, dtype, dv=None) -> tuple[float, str]:
@@ -2663,12 +2674,14 @@ def library_backward(q, k, v, do, kw):
 
 def flash_backward_phase(seed: int) -> dict:
     """Each case: the forward kernel with its lse (held to the plain
-    log-sum-exp), one backward call (three launches; held row by row to the
-    plain backward on the same o and lse), a second call bitwise equal, the
-    planted faults failing the row check; times of a call alone (CUDA
-    graph), per call with the L2 flushed and per launch, of the plain
-    backward and of the library's backward; the kernels' registers and
-    spills at each head dim."""
+    log-sum-exp), the backward's route (the case's, by ``backward_route``
+    and by the route counters), one backward call (three launches; held row
+    by row to the plain backward on the same o and lse and, on the tensor
+    cores, to the mirror), a second call bitwise equal, the planted faults
+    failing the row check (against the mirror on the tensor cores); times
+    of a call alone (CUDA graph), per call with the L2 flushed and per
+    launch, of the plain backward and of the library's backward; both
+    routes' registers and spills at each head dim, none spilling."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref
 
@@ -2705,13 +2718,23 @@ def flash_backward_phase(seed: int) -> dict:
 
         def call():
             return fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
-        before = (fa.BACKWARD_LAUNCHES, fa.BACKWARD_CALL_LAUNCHES)
+        route = fa.backward_route(q, k, v, o, do)
+        if route != case["route"]:
+            raise AssertionError(f"flash backward {name} {dtype}: route "
+                                 f"{route}, expected {case['route']}")
+        tc = route == "tensor_cores"
+
+        def counts():
+            return (fa.BACKWARD_LAUNCHES, fa.BACKWARD_CALL_LAUNCHES,
+                    fa.BACKWARD_TENSOR_CORE_LAUNCHES,
+                    fa.BACKWARD_CUDA_CORE_LAUNCHES)
+        before = counts()
         got = call()
-        moved = (fa.BACKWARD_LAUNCHES - before[0],
-                 fa.BACKWARD_CALL_LAUNCHES - before[1])
-        if moved != (1, 3):
+        moved = tuple(a - b for a, b in zip(counts(), before))
+        if moved != (1, fa.backward_plan(q.dtype, shape[4], v.shape[-1],
+                                         route).launches, int(tc), int(not tc)):
             raise AssertionError(f"flash backward {name}: launches {moved}, "
-                                 f"expected one call of three")
+                                 f"expected one {route} call of three")
         again = call()
         repeat = all(bitwise_equal(a, b) for a, b in zip(got, again))
         del again
@@ -2720,7 +2743,7 @@ def flash_backward_phase(seed: int) -> dict:
         want = plain_backward(q, k, v, o, lse, do, kw)
         torch.cuda.synchronize()
         tol = FLASH_ROW_TOL[dtype]
-        errs, abs_errs = {}, {}
+        errs, abs_errs, mirror_errs = {}, {}, {}
         for gname, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
             if g.shape != t.shape or g.dtype != t.dtype or \
                     not bool(torch.isfinite(g).all()):
@@ -2729,13 +2752,20 @@ def flash_backward_phase(seed: int) -> dict:
                                      f"or not shaped as its input")
             errs[gname] = grad_row_err(g, w)
             abs_errs[gname] = float((g.float() - w.float()).abs().max())
-        if not max(errs.values()) <= tol:
-            raise AssertionError(f"flash backward {name} {dtype}: row errors "
-                                 f"{errs} (tolerance {tol})")
         del want
+        if tc:
+            mirror = plain_backward(q, k, v, o, lse, do, kw, mirror=True)
+            mirror_errs = {gname: grad_row_err(g, w) for gname, g, w in
+                           zip(("dq", "dk", "dv"), got, mirror)}
+            del mirror
+        if not max([*errs.values(), *mirror_errs.values()]) <= tol:
+            raise AssertionError(f"flash backward {name} {dtype}: row errors "
+                                 f"{errs}, against the mirror {mirror_errs} "
+                                 f"(tolerance {tol})")
         fault_errs = {}
         for fault in case["faults"]:
-            wrong = plain_backward(q, k, v, o, lse, do, kw, fault=fault)
+            wrong = plain_backward(q, k, v, o, lse, do, kw, fault=fault,
+                                   mirror=tc)
             fault_errs[fault] = max(grad_row_err(g, w)
                                     for g, w in zip(got, wrong))
             del wrong
@@ -2763,16 +2793,22 @@ def flash_backward_phase(seed: int) -> dict:
         results[key] = dict(
             shape=list(shape), dv=case["dv"] or shape[4], options=kw,
             dtype=dtype, layout=case["layout"], q_mul=case["q_mul"],
-            row_rel_err=errs, row_tol=tol, max_abs_err=max(abs_errs.values()),
+            route=route, row_rel_err=errs, mirror_row_rel_err=mirror_errs,
+            row_tol=tol, max_abs_err=max(abs_errs.values()),
             abs_err=abs_errs, lse_max_abs_err=lse_err, bitwise_repeat=repeat,
             fault_row_rel_err=fault_errs, ms=ms, alone_ms=alone,
             launch_ms=launch_ms[n], plain_ms=plain, bound_ms=b, bound_by=by,
+            executed_over_needed=fa.backward_executed_ops(
+                q.dtype, shape[4], case["dv"] or shape[4], route) / (
+                2 * (3 * shape[4] + 2 * (case["dv"] or shape[4]))),
             library=lib_call, library_ms=library, library_error=library_error)
         lib_txt = (f"{lib_call} {library:.6f} ms" if library is not None
                    else f"raised {library_error}")
         log(f"kernel flash backward {key} {kw} {case['layout']}"
             + (f" q x{case['q_mul']:g}" if case["q_mul"] != 1.0 else "")
-            + ": row err " + ", ".join(f"{g} {e:.3e}" for g, e in errs.items())
+            + f" ({route}): row err "
+            + ", ".join(f"{g} {e:.3e}" for g, e in errs.items())
+            + "".join(f"; mirror {g} {e:.3e}" for g, e in mirror_errs.items())
             + f" (within {tol:.4g}), lse err {lse_err:.3e}, bitwise repeat "
             f"{repeat}"
             + "".join(f"; {f} {e:.3e}" for f, e in fault_errs.items())
@@ -2783,20 +2819,29 @@ def flash_backward_phase(seed: int) -> dict:
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     info = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for D in (80, 128, 192, 256):
+    pairs = {80: 80, 128: 128, 192: 128, 256: 256}
+    for dtype, route in ((torch.bfloat16, TC), (torch.bfloat16, CC),
+                         (torch.float32, CC)):
+        for D, dv in pairs.items():
             dname = str(dtype).removeprefix("torch.")
-            info[f"{dname} D {D}"] = r = fa.backward_kernel_info(dtype, D)
-            plan = fa.backward_plan(dtype, D)
-            if (r["rows"], r["keys"], r["smem_bytes"]) != \
-                    (plan.rows, plan.keys, plan.smem_bytes):
+            info[f"{dname} D {D} Dv {dv} {route}"] = r = \
+                fa.backward_kernel_info(dtype, D, dv, route=route)
+            plan = fa.backward_plan(dtype, D, dv, route=route)
+            fields = ("route", "rows", "keys", "smem_bytes", "dq_rows",
+                      "dq_smem_bytes", "dq_stages")
+            if tuple(r[f] for f in fields) != \
+                    tuple(getattr(plan, f) for f in fields):
                 raise AssertionError(f"flash backward plan {plan} differs "
                                      f"from the card's {r}")
-            log(f"kernel flash backward {dname} D {D}: {r['keys']} keys a "
-                f"tile, {r['smem_bytes']} shared bytes; " + ", ".join(
+            log(f"kernel flash backward {dname} D {D} Dv {dv} ({route}): "
+                f"{r['keys']} keys a dK/dV block, {r['smem_bytes']} / "
+                f"{r['dq_smem_bytes']} shared bytes (dK/dV / dQ); " + ", ".join(
                     f"{kn} {r['registers'][kn]} registers "
                     f"{r['local_bytes'][kn]} spill bytes"
                     for kn in fa.BWD_KERNELS))
+            if any(r["local_bytes"].values()):
+                raise AssertionError(f"flash backward {dname} D {D} Dv {dv} "
+                                     f"({route}) spills: {r}")
     results["kernel_info"] = info
     torch.cuda.empty_cache()
     return results
@@ -2868,6 +2913,7 @@ def zero_bwd_counts() -> None:
 
     zero_flash_counts()
     fa.BACKWARD_LAUNCHES = fa.BACKWARD_CALL_LAUNCHES = 0
+    fa.BACKWARD_TENSOR_CORE_LAUNCHES = fa.BACKWARD_CUDA_CORE_LAUNCHES = 0
     fa.BACKWARD_DO_COPIES = 0
 
 
@@ -2875,6 +2921,8 @@ def bwd_counts() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     return dict(flash_counts(), backward=fa.BACKWARD_LAUNCHES,
+                backward_tensor_cores=fa.BACKWARD_TENSOR_CORE_LAUNCHES,
+                backward_cuda_cores=fa.BACKWARD_CUDA_CORE_LAUNCHES,
                 backward_kernels=fa.BACKWARD_CALL_LAUNCHES,
                 do_copies=fa.BACKWARD_DO_COPIES)
 
@@ -2934,6 +2982,7 @@ def profiled_attention_step(state, batch, cfg, opt):
         flash_recompute=backward["all"] - forward["all"],
         flash_tensor_core=backward["tensor_cores"],
         flash_backward=backward["backward"],
+        flash_backward_tensor_core=backward["backward_tensor_cores"],
         flash_backward_kernels=backward["backward_kernels"],
         do_copies=backward["do_copies"], hash=hash_counts(),
         loss=float(metrics["loss"])), metrics, grads
@@ -2995,6 +3044,7 @@ def attention_train_phase(arch: str, seed: int, card: str) -> dict:
     want = dict(flash_forward=inside + outside, flash_recompute=inside,
                 flash_tensor_core=2 * inside + outside,
                 flash_backward=inside + outside,
+                flash_backward_tensor_core=inside + outside,
                 flash_backward_kernels=3 * (inside + outside))
     got = {k: counts[k] for k in want}
     if got != want or counts["hash"]["launches"] != n_leaves:
@@ -3011,6 +3061,7 @@ def attention_train_phase(arch: str, seed: int, card: str) -> dict:
         f"{counts['flash_forward']} forward + {counts['flash_recompute']} "
         f"remat (all {counts['flash_tensor_core']} on the tensor cores) + "
         f"{counts['flash_backward']} backward calls "
+        f"({counts['flash_backward_tensor_core']} on the tensor cores) "
         f"({counts['flash_backward_kernels']} kernels, {counts['do_copies']} "
         f"dO copies); hash launches {counts['hash']}")
     log_profile(f"{arch} train step", prof)
@@ -3025,9 +3076,10 @@ def attention_train_phase(arch: str, seed: int, card: str) -> dict:
         ms.append(t)
     main = bwd_counts()
     n = ATTN_TRAIN_STEPS
-    if (main["all"], main["tensor_cores"], main["backward"]) != \
+    if (main["all"], main["tensor_cores"], main["backward"],
+            main["backward_tensor_cores"]) != \
             (n * (2 * inside + outside), n * (2 * inside + outside),
-             n * (inside + outside)):
+             n * (inside + outside), n * (inside + outside)):
         raise AssertionError(f"{arch} steps' flash launches {main}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"{arch}: the loss did not fall over "
@@ -3155,10 +3207,13 @@ def attention_card_vs_cpu_phase(arch: str, seed: int) -> dict:
     g_card, met = S.grads_and_metrics(card["params"], on_card, cfg)
     S.apply_step(card, g_card, met, opt, donate=True)
     counts = bwd_counts()
-    if (counts["all"], counts["cuda_cores"], counts["backward"]) != \
-            (2 * inside + outside, 2 * inside + outside, inside + outside):
+    if (counts["all"], counts["cuda_cores"], counts["backward"],
+            counts["backward_cuda_cores"]) != \
+            (2 * inside + outside, 2 * inside + outside, inside + outside,
+             inside + outside):
         raise AssertionError(f"{arch} fp32 card step's flash launches "
-                             f"{counts}: expected the CUDA-core forward")
+                             f"{counts}: expected the CUDA-core forward and "
+                             f"backward")
     errs = leaf_errs(g_card)
     loss_rel = abs(float(met["loss"]) - loss_cpu) / abs(loss_cpu)
     worst = max(errs, key=errs.get)
@@ -3201,9 +3256,10 @@ GEMMA_TEACHER_TOL = 5e-2
 
 def device_window(fn):
     """Run ``fn`` under torch.profiler: (its result, the window's wall ms,
-    the device (kernel) ms, their ratio, and the five kernels that took
-    the most device time).  Kernel times are the profiler's CUDA events
-    only, so no op's time is counted twice."""
+    the device (kernel) ms, their ratio, the five kernels that took the
+    most device time, and the device ms and launches of the flash
+    backward's kernels (``flash_bwd`` in the name)).  Kernel times are the
+    profiler's CUDA events only, so no op's time is counted twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3218,10 +3274,13 @@ def device_window(fn):
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    bwd = [e for e in kernels if "flash_bwd" in e.key]
     return result, dict(
         wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
         top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
-                          count=e.count) for e in top])
+                          count=e.count) for e in top],
+        flash_backward_ms=sum(e.self_device_time_total for e in bwd) / 1e3,
+        flash_backward_launches=sum(e.count for e in bwd))
 
 
 def gemma2_serving_phase(seed: int) -> dict:
@@ -3451,7 +3510,9 @@ def expect_flash(counts: dict, n: int, route: str, what: str) -> None:
 
 def log_profile(what: str, w: dict) -> None:
     log(f"{what} under the profiler: wall {w['wall_ms']:.3f} ms, device "
-        f"{w['device_ms']:.3f} ms (busy {w['busy_share']:.4f}); top: "
+        f"{w['device_ms']:.3f} ms (busy {w['busy_share']:.4f}); flash "
+        f"backward {w['flash_backward_ms']:.3f} ms in "
+        f"{w['flash_backward_launches']} launches; top: "
         + "; ".join(f"{k['name'][:48]} {k['ms']:.3f} ms x{k['count']}"
                     for k in w["top_kernels"]))
 
@@ -4095,7 +4156,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
                ssd_scan.BWD_SOURCE, ssd_scan.BWD_TC_SOURCE,
-               flash_attention.SOURCE, flash_attention.BWD_SOURCE]
+               flash_attention.SOURCE, flash_attention.BWD_SOURCE,
+               flash_attention.BWD_TC_SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
@@ -4303,29 +4365,53 @@ def main() -> int:
         hubert_shape=shape_times(f"hubert {HUBERT} bfloat16"),
         llava_shape=shape_times(f"llava {LLAVA} bfloat16")))
     bwd_at = flash_bwd[f"gemma2 global {G2T} bfloat16"]
+    bwd_cc = flash_bwd[f"hubert {HUBERT} float32"]
+    bwd_cc16 = flash_bwd[f"starcoder2 {SC2} misaligned bfloat16"]
     bwd_cases = {k: r for k, r in flash_bwd.items() if k != "kernel_info"}
-    bwd_by_path = {arch: r["main_path_counts"]["backward"]
+    bwd_by_path = {arch: r["main_path_counts"]["backward_tensor_cores"]
                    for arch, r in attn_train.items()}
+    bwd_cc_by_path = {f"{arch} card vs cpu": r["flash_counts"][
+        "backward_cuda_cores"] for arch, r in attn_cpu.items()}
+    gradient_of = ("src/repro/kernels/flash_attention/ref.py:20 (jax.grad; "
+                   "the Pallas kernel has no gradient)")
 
     def bwd_times(key):
         r = flash_bwd[key]
-        return {k: r[k] for k in ("ms", "alone_ms", "launch_ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library",
+        return {k: r[k] for k in ("route", "ms", "alone_ms", "launch_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "executed_over_needed", "library",
                                   "library_ms")}
     kernels.append(dict(
         name="flash_attention_backward", route="cuda",
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        backward_route="tensor_cores",
+        source="src/repro_torch/csrc/flash_attention_bwd_tc.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
-        gradient_of="src/repro/kernels/flash_attention/ref.py:20 (jax.grad; "
-                    "the Pallas kernel has no gradient)",
-        launches=sum(bwd_by_path.values()),
+        gradient_of=gradient_of, launches=sum(bwd_by_path.values()),
         kernels_a_call=3, launches_by_path=bwd_by_path,
-        max_abs_err=max(r["max_abs_err"] for r in bwd_cases.values()),
+        max_abs_err=max(r["max_abs_err"] for r in bwd_cases.values()
+                        if r["route"] == "tensor_cores"),
         ms=bwd_at["alone_ms"], wrapper_ms=bwd_at["ms"],
         launch_ms=bwd_at["launch_ms"], plain_ms=bwd_at["plain_ms"],
         bound_ms=bwd_at["bound_ms"], bound_by=bwd_at["bound_by"],
         library_ms=bwd_at["library_ms"],
-        shapes={k: bwd_times(k) for k in bwd_cases}))
+        shapes={k: bwd_times(k) for k, r in bwd_cases.items()
+                if r["route"] == "tensor_cores"}))
+    kernels.append(dict(
+        name="flash_attention_backward_cuda_cores", route="cuda",
+        backward_route="cuda_cores",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
+        gradient_of=gradient_of, launches=sum(bwd_cc_by_path.values()),
+        kernels_a_call=3, launches_by_path=bwd_cc_by_path,
+        max_abs_err=max(r["max_abs_err"] for r in bwd_cases.values()
+                        if r["route"] == "cuda_cores"),
+        ms=bwd_cc["alone_ms"], wrapper_ms=bwd_cc["ms"],
+        launch_ms=bwd_cc["launch_ms"], plain_ms=bwd_cc["plain_ms"],
+        bound_ms=bwd_cc["bound_ms"], bound_by=bwd_cc["bound_by"],
+        library_ms=bwd_cc["library_ms"],
+        bf16_ms=bwd_cc16["alone_ms"], bf16_wrapper_ms=bwd_cc16["ms"],
+        shapes={k: bwd_times(k) for k, r in bwd_cases.items()
+                if r["route"] == "cuda_cores"}))
     print(json.dumps({"shapes": kern, "main_path": main, "health": health,
                       "trim_resync": resync, "router_kv": router,
                       "ssd_shapes": ssd,

@@ -26,13 +26,27 @@ after each successful launch, and nowhere else.  Asked for it
 (``return_lse=True``, training), the forward also writes each row's
 log-sum-exp.
 
-The backward (``csrc/flash_attention_bwd.cu``, ``flash_attention_backward_cuda``)
-is one route, the CUDA cores in fp32, three launches a call (delta = rowsum(dO
-∘ O); dK and dV per kv head and key tile, the group's heads summed in order;
-dQ per head and query tile), no atomics.  ``BACKWARD_LAUNCHES`` counts its
-calls, ``BACKWARD_CALL_LAUNCHES`` the kernels they launched (three each),
-``BACKWARD_DO_COPIES`` the cotangents it had to copy (a dO whose head dim
-is not contiguous or whose strides are not multiples of 4 elements).
+The backward (``flash_attention_backward_cuda``) has two routes, chosen by
+``backward_route`` from dtype, head dims and alignment before any launch,
+three launches a call each (delta = rowsum(dO ∘ O); dK and dV per kv head
+and key tile, the group's heads summed in order; dQ per head and query
+tile), no atomics:
+
+* ``"tensor_cores"`` (``csrc/flash_attention_bwd_tc.cu``) — bf16 at the
+  pairs of ``TENSOR_CORE_PAIRS`` with q, k, v and o 16-byte aligned
+  (pointers and strides): every product on wgmma (bf16 operands, fp32
+  sums), dS rounded to bf16 where it meets Q and K
+  (``ref.attention_backward_tc_reference`` mirrors that rounding);
+* ``"cuda_cores"`` (``csrc/flash_attention_bwd.cu``) — fp32, bf16 at other
+  pairs and bf16 views that are not 16-byte aligned: fp32 products.
+
+``BACKWARD_LAUNCHES`` counts its calls, ``BACKWARD_TENSOR_CORE_LAUNCHES``
+and ``BACKWARD_CUDA_CORE_LAUNCHES`` each route's calls,
+``BACKWARD_CALL_LAUNCHES`` the kernels they launched (three each),
+``BACKWARD_DO_COPIES`` the cotangents it had to copy (a dO the route cannot
+read in place: for the CUDA cores a head dim that is not contiguous or
+strides that are not multiples of 4 elements; for the tensor cores, TMA's
+16-byte rule).
 """
 
 from __future__ import annotations
@@ -50,11 +64,14 @@ LAUNCHES = 0
 TENSOR_CORE_LAUNCHES = 0
 CUDA_CORE_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+BACKWARD_TENSOR_CORE_LAUNCHES = 0
+BACKWARD_CUDA_CORE_LAUNCHES = 0
 BACKWARD_CALL_LAUNCHES = 0
 BACKWARD_DO_COPIES = 0
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
 BWD_SOURCE = nvcc.CSRC / "flash_attention_bwd.cu"
+BWD_TC_SOURCE = nvcc.CSRC / "flash_attention_bwd_tc.cu"
 BWD_KERNELS = ("delta", "dkdv", "dq")     # the three launches of a call
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -130,31 +147,84 @@ def kernel_info(dtype: torch.dtype, head_dim: int, capped: bool = False,
 
 @dataclass(frozen=True)
 class BackwardPlan:
-    """How the backward kernels serving a head dim tile their work (the
-    same for fp32 and bf16: tiles are staged in fp32)."""
-    rows: int            # query rows of a tile
-    keys: int            # keys of a tile
-    smem_bytes: int      # dynamic shared memory of the dK/dV and dQ launches
+    """How the backward kernels serving a (dtype, D, Dv) tile their work."""
+    route: str
+    rows: int            # query rows of a dK/dV step
+    keys: int            # keys of a dK/dV block
+    smem_bytes: int      # dynamic shared memory of the dK/dV launch
     launches: int        # kernels a call
+    dq_rows: int         # query rows of a dQ block
+    dq_keys: int         # keys of a dQ step
+    dq_smem_bytes: int   # dynamic shared memory of the dQ launch
+    dq_stages: int       # K/V tiles in flight in the dQ launch
+
+
+def _tc_pair(dtype: torch.dtype, head_dim: int, v_head_dim: int) -> bool:
+    return dtype == torch.bfloat16 and (head_dim, v_head_dim) in \
+        TENSOR_CORE_PAIRS
 
 
 def backward_plan(dtype: torch.dtype, head_dim: int,
-                  v_head_dim: Optional[int] = None) -> BackwardPlan:
-    """The plan of ``csrc/flash_attention_bwd.cu`` (``arcadia_flash_bwd_
-    kernel_info`` reports the same on the card): D rounded up to DM = 32,
-    64, 128 or 256; 64 query rows and Bk keys a tile (32 at DM = 256, else
-    64); fp32 Q and dO tiles [64][DM+4], K and V [Bk][DM+4], P and dS
-    [64][Bk+4], lse and delta [64].  v's head dim shares the DM-wide tiles."""
+                  v_head_dim: Optional[int] = None,
+                  route: Optional[str] = None) -> BackwardPlan:
+    """The plan of the backward route that serves (dtype, D, Dv (D unless
+    given)) for 16-byte aligned inputs, or of ``route`` where given
+    (``arcadia_flash_bwd_kernel_info`` / ``arcadia_flash_bwd_tc_kernel_info``
+    report the same on the card).
+
+    Tensor cores (bf16 at a pair of ``TENSOR_CORE_PAIRS``): bf16 tiles of
+    64-column boxes of 128 bytes (D = 80 fills two), 1 KB to align them to
+    the swizzle and 128 B of mbarriers; dK/dV: K and V tiles of 64 keys
+    plus two stages of Q and dO tiles of 64 queries; dQ: Q and dO of 128
+    rows plus two stages of K and V tiles of 64 keys, one where two do not
+    fit in 227 KB (D = 256).  CUDA cores (the same for fp32 and bf16:
+    tiles are staged in fp32): D rounded up to DM = 32, 64, 128 or 256; 64
+    query rows and Bk keys a tile (32 at DM = 256, else 64); fp32 Q and dO
+    tiles [64][DM+4], K and V [Bk][DM+4], P and dS [64][Bk+4], lse and
+    delta [64]; v's head dim shares the DM-wide tiles."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash backward takes fp32 or bf16, got {dtype}")
     dv = head_dim if v_head_dim is None else v_head_dim
     if not (0 < dv <= head_dim <= MAX_HEAD_DIM):
         raise ValueError(f"head dims ({head_dim}, {dv}) not taken")
+    tc = _tc_pair(dtype, head_dim, dv)
+    route = route or ("tensor_cores" if tc else "cuda_cores")
+    if route not in ROUTES or (route == "tensor_cores" and not tc):
+        raise ValueError(f"no {route} backward for {dtype} ({head_dim}, {dv})")
+    if route == "tensor_cores":
+        k_tile = -(-head_dim // 64) * 64 * 128       # a [64, D] tile's bytes
+        v_tile = -(-dv // 64) * 64 * 128
+        dkdv = 1024 + 3 * (k_tile + v_tile) + 128
+        stages = 2 if 1024 + 4 * (k_tile + v_tile) + 128 <= MAX_SMEM else 1
+        dq = 1024 + (2 + stages) * (k_tile + v_tile) + 128
+        return BackwardPlan(route, 64, 64, dkdv, len(BWD_KERNELS), 128, 64,
+                            dq, stages)
     dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
     keys = 32 if dm == 256 else 64
     floats = 2 * 64 * (dm + 4) + 2 * keys * (dm + 4) + 2 * 64 * (keys + 4) \
         + 2 * 64
-    return BackwardPlan(64, keys, floats * 4, len(BWD_KERNELS))
+    return BackwardPlan(route, 64, keys, floats * 4, len(BWD_KERNELS), 64,
+                        keys, floats * 4, 1)
+
+
+def backward_executed_ops(dtype: torch.dtype, head_dim: int,
+                          v_head_dim: Optional[int] = None,
+                          route: Optional[str] = None) -> int:
+    """Operations the backward route serving (dtype, D, Dv), or ``route``,
+    executes per attended (query, key) pair, where the function needs
+    2·(3D + 2Dv).
+    Tensor cores: Sᵀ twice, dPᵀ, dV and dK in the dK/dV launch and S, dP
+    and dQ in the dQ launch, with dV's, dK's and dQ's widths rounded up to
+    64-column boxes (D', Dv'): 2·(3D + 2Dv + Dv' + 2D').  CUDA cores: S and
+    dP in both launches, dV, dK and dQ at D rounded up to DM = 32, 64, 128
+    or 256: 2·(2D + 2Dv + 3DM)."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    plan = backward_plan(dtype, head_dim, dv, route)
+    if plan.route == "tensor_cores":
+        wide, wide_v = -(-head_dim // 64) * 64, -(-dv // 64) * 64
+        return 2 * (3 * head_dim + 2 * dv + wide_v + 2 * wide)
+    dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
+    return 2 * (2 * head_dim + 2 * dv + 3 * dm)
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -167,20 +237,78 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.arcadia_flash_bwd_kernel_info.restype = ctypes.c_int
 
 
-def backward_kernel_info(dtype: torch.dtype, head_dim: int) -> dict:
-    """The plan and ``cudaFuncGetAttributes`` of the backward kernels for
-    (dtype, head dim) on the card: rows, keys, smem_bytes, and registers
-    and local (spill) bytes of each of ``BWD_KERNELS``."""
-    lib = nvcc.load(BWD_SOURCE, _bind_bwd)
-    out = (ctypes.c_int * 9)()
-    err = lib.arcadia_flash_bwd_kernel_info(_DTYPES[dtype], int(head_dim), out)
+def _bind_bwd_tc(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.arcadia_flash_attention_backward_tc.argtypes = [
+        *[p] * 10, *[ll] * 26, i, i, i, i, i, i, i, i, f, f, p]
+    lib.arcadia_flash_attention_backward_tc.restype = ctypes.c_int
+    lib.arcadia_flash_bwd_tc_kernel_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.arcadia_flash_bwd_tc_kernel_info.restype = ctypes.c_int
+
+
+def backward_kernel_info(dtype: torch.dtype, head_dim: int,
+                         v_head_dim: Optional[int] = None,
+                         route: Optional[str] = None) -> dict:
+    """The plan and ``cudaFuncGetAttributes`` of the backward kernels of
+    the route that serves (dtype, D, Dv (D unless given)), or of ``route``,
+    on the card: the fields of ``BackwardPlan`` (as the card reports them)
+    and the registers and local (spill) bytes of each of ``BWD_KERNELS``
+    (on the tensor cores the larger of the instantiations with and without
+    a softcap)."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    plan = backward_plan(dtype, head_dim, dv, route)
+    if plan.route == "tensor_cores":
+        lib = nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc)
+        out = (ctypes.c_int * 12)()
+        err = lib.arcadia_flash_bwd_tc_kernel_info(int(head_dim), int(dv), out)
+        fields = dict(rows=out[0], keys=out[1], smem_bytes=out[2],
+                      dq_rows=out[3], dq_keys=out[1], dq_smem_bytes=out[4],
+                      dq_stages=out[5])
+        regs = out[6:12]
+    else:
+        lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+        out = (ctypes.c_int * 9)()
+        err = lib.arcadia_flash_bwd_kernel_info(_DTYPES[dtype], int(head_dim),
+                                                out)
+        fields = dict(rows=out[0], keys=out[1], smem_bytes=out[2],
+                      dq_rows=out[0], dq_keys=out[1], dq_smem_bytes=out[2],
+                      dq_stages=1)
+        regs = out[3:9]
     if err != 0:
         raise RuntimeError(f"flash backward kernel info failed: cudaError_t "
-                           f"{err} ({dtype}, D={head_dim})")
-    return dict(rows=out[0], keys=out[1], smem_bytes=out[2],
-                registers={n: out[3 + 2 * j] for j, n in enumerate(BWD_KERNELS)},
-                local_bytes={n: out[4 + 2 * j]
+                           f"{err} ({dtype}, D={head_dim}, Dv={dv}, "
+                           f"{plan.route})")
+    return dict(route=plan.route, launches=len(BWD_KERNELS), **fields,
+                registers={n: regs[2 * j] for j, n in enumerate(BWD_KERNELS)},
+                local_bytes={n: regs[2 * j + 1]
                              for j, n in enumerate(BWD_KERNELS)})
+
+
+def _tma_aligned(t: torch.Tensor) -> bool:
+    """Head dim contiguous, data pointer and the other strides 16-byte
+    aligned: what TMA reads."""
+    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+        and not t.data_ptr() % 16
+
+
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, do: torch.Tensor) -> str:
+    """The backward kernels that take these inputs: a function of dtype,
+    shape, strides and pointer alignment only (it runs on CPU tensors too).
+    "tensor_cores" for bf16 q, k, v, o and do at a (D, Dv) pair of
+    ``TENSOR_CORE_PAIRS`` with q, k, v and o 16-byte aligned (pointers and
+    strides, TMA's rule, the head dim contiguous); else "cuda_cores".  A
+    ``do`` that TMA cannot read is copied once by the caller, so its own
+    alignment does not choose the route."""
+    ts = (q, k, v, o, do)
+    if any(t.dtype != torch.bfloat16 or t.dim() != 4 for t in ts):
+        return "cuda_cores"
+    if not _tc_pair(q.dtype, q.shape[-1], v.shape[-1]):
+        return "cuda_cores"
+    if not all(_tma_aligned(t) for t in (q, k, v, o)):
+        return "cuda_cores"
+    return "tensor_cores"
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -302,12 +430,16 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   scale: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention_cuda`` at (q, k, v), given its
     output o [B,H,S,Dv], its ``lse`` and the cotangent ``do`` of o: the
-    contract of ``ref.attention_backward_reference``, in THREE kernel
-    launches.  The gradients have their inputs' shapes, dtypes and
-    memory orders.  q, k, v and o are read through their strides (as
-    ``_check`` takes them); a ``do`` the kernels cannot read in place is
-    copied once (``BACKWARD_DO_COPIES``)."""
-    global BACKWARD_LAUNCHES, BACKWARD_CALL_LAUNCHES, BACKWARD_DO_COPIES
+    contract of ``ref.attention_backward_reference`` (on the tensor cores
+    with dS rounded to bf16 where it meets Q and K, as
+    ``ref.attention_backward_tc_reference``), in THREE kernel launches of
+    the route ``backward_route`` chooses.  The gradients have their inputs'
+    shapes, dtypes and memory orders.  q, k, v and o are read through their
+    strides (as ``_check`` takes them); a ``do`` the route cannot read in
+    place is copied once (``BACKWARD_DO_COPIES``).  A build or launch
+    failure raises; nothing falls back to the other route."""
+    global BACKWARD_LAUNCHES, BACKWARD_CALL_LAUNCHES, BACKWARD_DO_COPIES, \
+        BACKWARD_TENSOR_CORE_LAUNCHES, BACKWARD_CUDA_CORE_LAUNCHES
     _check(q, k, v)
     B, H, S, D = q.shape
     KV, Dv = k.shape[1], v.shape[-1]
@@ -325,7 +457,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
             tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [B,H,S] tensor on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
-    if not _aligned(do):
+    route = backward_route(q, k, v, o, do)
+    tc = route == "tensor_cores"
+    if not (_tma_aligned(do) if tc else _aligned(do)):
         do = do.contiguous()
         BACKWARD_DO_COPIES += 1
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -335,19 +469,30 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty_like(lse)
-    lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+    lib = nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc) if tc else \
+        nvcc.load(BWD_SOURCE, _bind_bwd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.arcadia_flash_attention_backward(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-            *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
-            H * S, S, B, H, KV, S, D, Dv, int(causal),
-            0 if window is None else int(window), float(scale),
-            0.0 if cap is None else float(cap), _DTYPES[q.dtype], stream)
+        args = (*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
+                                         dv)),
+                *(s for t in (q, k, v, o, do, dq, dk, dv)
+                  for s in t.stride()[:3]),
+                H * S, S, B, H, KV, S, D, Dv, int(causal),
+                0 if window is None else int(window), float(scale),
+                0.0 if cap is None else float(cap))
+        if tc:
+            err = lib.arcadia_flash_attention_backward_tc(*args, stream)
+        else:
+            err = lib.arcadia_flash_attention_backward(
+                *args, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash backward launch failed: cudaError_t {err} "
                            f"(B={B}, H={H}, KV={KV}, S={S}, D={D}, Dv={Dv}, "
-                           f"{q.dtype})")
+                           f"{q.dtype}, {route})")
     BACKWARD_LAUNCHES += 1
     BACKWARD_CALL_LAUNCHES += len(BWD_KERNELS)
+    if tc:
+        BACKWARD_TENSOR_CORE_LAUNCHES += 1
+    else:
+        BACKWARD_CUDA_CORE_LAUNCHES += 1
     return dq, dk, dv

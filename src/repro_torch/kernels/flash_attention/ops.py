@@ -14,8 +14,12 @@ The kernels' launch count is ``flash_attention.LAUNCHES``, each route's
 Where a gradient is needed, attention is ``_Flash``, a
 ``torch.autograd.Function`` on either device: on the card its forward is
 the kernel with its per-row log-sum-exp, its backward the backward
-kernels (``flash_attention_backward_cuda``: three launches, counted by
-``flash_attention.BACKWARD_LAUNCHES`` per call); on the CPU the plain
+kernels (``flash_attention_backward_cuda``: three launches on the route
+``backward_route`` picks — the tensor cores for bf16 at the tensor-core
+pairs with aligned views, else the CUDA cores — counted by
+``flash_attention.BACKWARD_LAUNCHES`` per call and
+``BACKWARD_TENSOR_CORE_LAUNCHES`` / ``BACKWARD_CUDA_CORE_LAUNCHES`` per
+route); on the CPU the plain
 forward, ``ref.attention_lse_reference`` and
 ``ref.attention_backward_reference``, so the CPU tests hold the same
 plumbing (the saved lse, the group sums, the views) to ``jax.grad``.

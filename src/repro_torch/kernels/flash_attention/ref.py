@@ -20,6 +20,9 @@ softcap), dq = scale·dS·K, dk = scale·dSᵀ·Q and dv = bf(p)ᵀ·dO, dk and 
 summed over each kv head's G query heads in head order; bf() rounds p to
 v's dtype where it meets dO, as the kernels do.  Its ``fault`` argument
 plants one of four wrong backwards the checks must tell apart.
+``attention_backward_tc_reference`` is the same with the one rounding the
+tensor-core backward adds: dS rounded to q's dtype where it meets K (dq)
+and Q (dk), as that kernel's products take bf16 operands.
 """
 
 from __future__ import annotations
@@ -106,6 +109,27 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     """(dq, dk, dv) of ``attention_reference`` at (q, k, v), given its
     output o [B,H,S,Dv], its ``lse`` [B,H,S] and the cotangent ``do`` of
     o, each gradient in its input's dtype (see the module note)."""
+    return _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
+                     round_ds=False)
+
+
+def attention_backward_tc_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, o: torch.Tensor,
+                                    lse: torch.Tensor, do: torch.Tensor, *,
+                                    causal: bool = True,
+                                    window: Optional[int] = None,
+                                    cap: Optional[float] = None,
+                                    scale: Optional[float] = None,
+                                    fault: Optional[str] = None):
+    """``attention_backward_reference`` with dS rounded to q's dtype
+    before dq = scale·dS·K and dk = scale·dSᵀ·Q: the CPU mirror of the
+    tensor-core backward (``csrc/flash_attention_bwd_tc.cu``)."""
+    return _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
+                     round_ds=True)
+
+
+def _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
+              round_ds: bool):
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
     B, H, S, D = q.shape
@@ -126,6 +150,8 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     ds = p * (torch.einsum("bhqd,bhtd->bhqt", dof, vv) - delta)
     if cap is not None and fault != "no_cap_grad":
         ds = ds * (1.0 - (s / cap) ** 2)
+    if round_ds:
+        ds = ds.to(q.dtype).to(acc)
     dq = scale * torch.einsum("bhqt,bhtd->bhqd", ds, kk)
     dk = scale * torch.einsum("bhqt,bhqd->bhtd", ds, q.to(acc))
     dv = torch.einsum("bhqt,bhqd->bhtd", p.to(v.dtype).to(acc), dof)

@@ -298,8 +298,13 @@ def test_train_step_through_the_flash_function_matches_jax(monkeypatch, arch,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_plan_fits_shared_memory_at_every_head_dim(dtype):
+    """The CUDA-core plan at every head dim (the plan of the route that
+    serves it, but for bf16 at a tensor-core pair, where it is asked for by
+    name); the tensor-core plans have their own test below."""
     for D in range(4, 257, 4):
-        plan = fa.backward_plan(dtype, D)
+        tc = dtype == torch.bfloat16 and (D, D) in fa.TENSOR_CORE_PAIRS
+        plan = fa.backward_plan(dtype, D, route="cuda_cores" if tc else None)
+        assert plan.route == "cuda_cores"
         assert plan.smem_bytes <= fa.MAX_SMEM, (D, plan)
         assert plan.rows == 64 and plan.launches == 3
         assert plan.keys == (32 if D > 128 else 64)

@@ -1589,6 +1589,182 @@ def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
     assert fa.BACKWARD_LAUNCHES == before
 
 
+# ------------------ flash backward on the tensor cores -------------------- #
+
+def flash_bwd_route_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    return (fa.BACKWARD_TENSOR_CORE_LAUNCHES, fa.BACKWARD_CUDA_CORE_LAUNCHES)
+
+
+def shifted_copy(t, by=4):
+    """A copy of ``t`` whose data starts ``by`` elements past a 16-byte
+    boundary: its values, not TMA-aligned."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    return buf[by:].view(t.shape).copy_(t)
+
+
+def check_tc_backward(q, k, v, do, **kw):
+    """One backward call on the tensor-core route (its counter moves by
+    one, the CUDA cores' not at all) against the plain backward and the
+    mirror, each row within BWD_ROW_TOL; a second call repeats it
+    bitwise."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert fa.backward_route(q, k, v, o, do) == "tensor_cores"
+    tc, cc = flash_bwd_route_counts()
+    got = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert flash_bwd_route_counts() == (tc + 1, cc)
+    again = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    for g, h, t in zip(got, again, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, h)
+    for want in (fa_ref.attention_backward_reference(q, k, v, o, lse, do, **kw),
+                 fa_ref.attention_backward_tc_reference(q, k, v, o, lse, do,
+                                                        **kw)):
+        errs = [grad_row_err(g, w) for g, w in zip(got, want)]
+        assert max(errs) <= BWD_ROW_TOL[torch.bfloat16], (errs, kw)
+    return o, lse, got
+
+
+TC_PAIRS = [(64, 64), (80, 80), (128, 128), (192, 128), (256, 256)]
+
+
+@pytest.mark.parametrize("D,Dv", TC_PAIRS)
+def test_flash_backward_tensor_cores_match_plain_and_mirror(cuda_device,
+                                                            fp32_exact, D, Dv):
+    """Each tensor-core pair with every option of BWD_OPTIONS, GQA 4 over
+    2 and a length (200) that no tile divides."""
+    for n, kw in enumerate(BWD_OPTIONS):
+        check_tc_backward(*flash_bwd_inputs(2, 4, 2, 200, D, Dv,
+                                            torch.bfloat16, 7 * D + n,
+                                            cuda_device), **kw)
+
+
+@pytest.mark.parametrize("S", [2, 31, 64, 65, 129, 300])
+def test_flash_backward_tensor_cores_ragged_lengths(cuda_device, fp32_exact,
+                                                     S):
+    """Lengths no tile divides, not causal so that no row sees a single key
+    (whose dq is round-off: see BWD_ROW_FLOOR)."""
+    for D, Dv in ((128, 128), (80, 80)):
+        check_tc_backward(*flash_bwd_inputs(1, 4, 1, S, D, Dv, torch.bfloat16,
+                                            S + D, cuda_device, q_mul=1.0),
+                          causal=False, window=40)
+
+
+@pytest.mark.parametrize("fault", ["no_cap_grad", "one_head", "no_delta",
+                                   "no_window"])
+def test_flash_backward_tensor_cores_planted_faults_fail(cuda_device,
+                                                         fp32_exact, fault):
+    """The row check tells the tensor-core gradient from the mirror with
+    each planted fault, at gemma2's pair and MLA's."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    kw = dict(causal=True, window=48, cap=20.0)
+    for D, Dv in ((256, 256), (192, 128)):
+        q, k, v, do = flash_bwd_inputs(1, 4, 2, 256, D, Dv, torch.bfloat16, 9,
+                                       cuda_device)
+        o, lse, got = check_tc_backward(q, k, v, do, **kw)
+        wrong = fa_ref.attention_backward_tc_reference(q, k, v, o, lse, do,
+                                                       fault=fault, **kw)
+        assert max(grad_row_err(g, w) for g, w in zip(got, wrong)) > \
+            BWD_ROW_TOL[torch.bfloat16]
+
+
+def test_flash_backward_tensor_cores_read_views_and_copy_a_strided_do(
+        cuda_device, fp32_exact):
+    """The layer's [B,S,H,D] views, MLA's value slice ([..., 128:] of its
+    key/value expansion) and hubert's D 80 go in as they are and give the
+    bits of contiguous copies; the gradients come back in the inputs'
+    memory order; a dO TMA cannot read (head dim strided) is copied once."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    for D, Dv in ((192, 128), (80, 80), (256, 256)):
+        q, k, v, do = flash_bwd_inputs(2, 4, 2, 160, D, Dv, torch.bfloat16,
+                                       D, cuda_device)
+        kw = dict(causal=True, window=50)
+        _, _, want = check_tc_backward(q, k, v, do, **kw)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+        ks = k.transpose(1, 2).contiguous().transpose(1, 2)
+        wide = torch.zeros(2, 160, 2, 128 + Dv, dtype=v.dtype,
+                           device=cuda_device)
+        wide[..., 128:] = v.transpose(1, 2)
+        vs = wide[..., 128:].transpose(1, 2)
+        dos = do.transpose(2, 3).contiguous().transpose(2, 3)
+        assert fa.backward_route(qs, ks, vs, o, dos) == "tensor_cores"
+        copies, (tc, cc) = fa.BACKWARD_DO_COPIES, flash_bwd_route_counts()
+        got = fa.flash_attention_backward_cuda(qs, ks, vs, o, lse, dos, **kw)
+        assert fa.BACKWARD_DO_COPIES == copies + 1
+        assert flash_bwd_route_counts() == (tc + 1, cc)
+        assert got[0].stride() == qs.stride() and \
+            got[1].stride() == ks.stride()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_flash_backward_bf16_off_the_tensor_cores_is_the_cuda_core_result(
+        cuda_device, fp32_exact):
+    """bf16 at a tensor-core pair whose q, or k and v, lie 8 bytes off
+    16-byte alignment take the CUDA-core route and give the same bits
+    either way, within the row check of the tensor-core gradient of the
+    same values and of the plain backward; so do bf16 at another pair."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    kw = dict(causal=True, window=100, cap=30.0)
+    q, k, v, do = flash_bwd_inputs(1, 4, 2, 256, 128, 128, torch.bfloat16, 4,
+                                   cuda_device)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    oq, ok_, ov = shifted_copy(q), shifted_copy(k), shifted_copy(v)
+    assert fa.backward_route(oq, k, v, o, do) == "cuda_cores"
+    assert fa.backward_route(q, ok_, ov, o, do) == "cuda_cores"
+    tc, cc = flash_bwd_route_counts()
+    g1 = fa.flash_attention_backward_cuda(oq, k, v, o, lse, do, **kw)
+    g2 = fa.flash_attention_backward_cuda(q, ok_, ov, o, lse, do, **kw)
+    assert flash_bwd_route_counts() == (tc, cc + 2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    on_tc = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert flash_bwd_route_counts() == (tc + 1, cc + 2)
+    for want in (on_tc, fa_ref.attention_backward_reference(q, k, v, o, lse,
+                                                            do, **kw)):
+        errs = [grad_row_err(g, w) for g, w in zip(g1, want)]
+        assert max(errs) <= BWD_ROW_TOL[torch.bfloat16], errs
+    q, k, v, do = flash_bwd_inputs(1, 4, 2, 128, 96, 64, torch.bfloat16, 4,
+                                   cuda_device)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    assert fa.backward_route(q, k, v, o, do) == "cuda_cores"
+    fa.flash_attention_backward_cuda(q, k, v, o, lse, do)
+    assert flash_bwd_route_counts() == (tc + 1, cc + 3)
+
+
+def test_flash_backward_tc_kernel_info_matches_the_plan(cuda_device):
+    """At every tensor-core pair: the card's plan is the host's, and no
+    instantiation of either route spills."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    for D, Dv in TC_PAIRS:
+        for route in ("tensor_cores", "cuda_cores"):
+            info = fa.backward_kernel_info(torch.bfloat16, D, Dv, route=route)
+            plan = fa.backward_plan(torch.bfloat16, D, Dv, route=route)
+            assert info["route"] == plan.route == route
+            assert {f: info[f] for f in ("rows", "keys", "smem_bytes",
+                                         "dq_rows", "dq_smem_bytes",
+                                         "dq_stages")} == \
+                {f: getattr(plan, f) for f in ("rows", "keys", "smem_bytes",
+                                               "dq_rows", "dq_smem_bytes",
+                                               "dq_stages")}
+            assert max(plan.smem_bytes, plan.dq_smem_bytes) <= fa.MAX_SMEM
+            assert all(0 < r <= 255 for r in info["registers"].values())
+            assert all(b == 0 for b in info["local_bytes"].values()), info
+        assert fa.backward_kernel_info(torch.bfloat16, D, Dv)["route"] == \
+            "tensor_cores"
+
+
 def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,
                                                        fp32_exact):
     """mamba2-130m (reduced) in fp32: one journaled train step on the card
