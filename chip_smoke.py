@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port of the Arcadia log on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--phase ssd_backward|flash_backward]
+    python3 chip_smoke.py [--seed N]
+        [--phase ssd_backward|flash_backward|distributed]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
 Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
@@ -242,7 +243,21 @@ from ``src/repro_torch/csrc``
                 bf16: 2 prompts of 2880 patch embeddings + 1216 tokens
                 prefilled (2 flash launches, tensor cores) and 8 decode
                 steps; finite logits, and other patches must move the
-                token positions' logits by more than 0.05.
+                token positions' logits by more than 0.05;
+  distributed   the distributed layer over a one-rank NCCL group (no byte
+                crosses a link): one MoE layer of moonshot-v1-16b-a3b at
+                its published width (64 experts, top-6, 8 x 4096 tokens,
+                a 1 GB dispatch buffer) through expert parallelism and
+                NCCL's all-to-all, forward and backward, bitwise the dense
+                path's y and aux, its grads within 2^-7 of each leaf's
+                largest (bitwise reported); the int8 compressed all-reduce
+                of that layer's wi gradient in fp32 (369 M values), bitwise
+                the plain quantize-dequantize and within 0.02 of exact; a
+                one-stage pipeline of mamba2-130m's 24 blocks, 4
+                microbatches of 2 x 4096, bitwise the stack run on each in
+                turn, with 96 SSD scans on the tensor cores (set to 0 just
+                before and read just after).  ``--phase distributed`` runs
+                it alone and prints its JSON.
 
 Each model path prints its configuration, a ``reduced`` list of every cut
 from the published config, the card's name and power limit, and its peak
@@ -281,6 +296,8 @@ os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
 os.environ.setdefault("TRITON_CACHE_DIR",
                       str(ROOT / "src" / "repro_torch" / "_build" / "triton"))
 os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+# the distributed phase's one-rank NCCL group never leaves this host
+os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -4129,14 +4146,202 @@ def llava_phase(seed: int, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# the distributed layer on one card: a one-rank NCCL group
+# --------------------------------------------------------------------- #
+
+EP_TOKENS = (8, 4096)               # moonshot's MoE layer: 32,768 tokens
+EP_GRAD_ROW_TOL = 2.0 ** -7         # a grad leaf, EP vs dense, of its max
+COMPRESS_TOL = 0.02                 # tests/test_distributed.py's bound
+PIPE_MICRO, PIPE_MB = 4, (2, 4096)  # mamba2-130m: 4 microbatches of 2 x 4096
+
+
+def timed_call(fn):
+    """(result, ms) of one call, synchronised on both ends."""
+    sync = torch.cuda.synchronize if DEV == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def distributed_phase(seed: int, card: str) -> dict:
+    """The distributed layer over a one-rank NCCL group (HashStore, rank 0,
+    world 1; destroyed at the end, so no later code sees it).  At one rank
+    every collective runs its NCCL path and moves no byte over a link: no
+    bandwidth is claimed from it.
+
+    EP: one MoE layer of moonshot-v1-16b-a3b at its published width (D
+    2048, 64 experts, top-6, F 1408, capacity factor 1.25, bf16), 8 x 4096
+    tokens, through ``set_moe_ep`` on the (1, 1) mesh and NCCL's
+    all-to-all, forward and backward, against the dense ``moe_ffn`` on the
+    same inputs: at one rank the buckets and drops are the dense path's and
+    so are the products, so y and aux must be bitwise equal; the grads of
+    x, router, wi and wo within 2^-7 of each leaf's largest value (bitwise
+    reported).  Compressed all-reduce: that layer's wi gradient in fp32
+    (369 M values) through ``quantized_allreduce`` over NCCL, bitwise equal
+    to the plain quantize-dequantize and within 0.02 of exact relative to
+    its largest value.  Pipeline: ``pipeline_forward`` at one stage whose
+    stage is mamba2-130m's 24-block stack at full width in bf16, 4
+    microbatches of 2 x 4096, bitwise equal to the stack run on each in
+    turn, with 96 SSD scans on the tensor-core route."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import one_rank_group
+    from repro_torch.distributed.compression import (
+        compressed_psum_reference, quantized_allreduce)
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    out = {"card": card}
+    with one_rank_group(DEV):
+        mesh = make_smoke_mesh(device_type=DEV)
+        if tuple(mesh.shape) != (1, 1):
+            raise AssertionError(f"smoke mesh on one card: {mesh}")
+
+        # ---- EP vs dense at moonshot's width -------------------------- #
+        cfg = get_config("moonshot-v1-16b-a3b")
+        out["ep_config"] = describe(cfg, ["one MoE layer of 48, alone"],
+                                    card)["config"]
+        D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        bf16 = dict(device=DEV, dtype=torch.bfloat16)
+
+        def draw(*shape, std=0.02):
+            return (torch.randn(shape, generator=gen, device=DEV)
+                    * std).to(torch.bfloat16)
+        x = draw(*EP_TOKENS, D, std=1.0)
+        p = {"router": draw(D, E), "experts": {"wi": draw(E, D, 2, F_),
+                                               "wo": draw(E, F_, D)}}
+        gy = draw(*EP_TOKENS, D, std=1.0)
+
+        def layer(ep: bool):
+            leaves = [x.clone().requires_grad_(True)] + [
+                t.clone().requires_grad_(True) for t in
+                (p["router"], p["experts"]["wi"], p["experts"]["wo"])]
+            q = {"router": leaves[1], "experts": {"wi": leaves[2],
+                                                  "wo": leaves[3]}}
+            L.set_moe_ep(mesh, ("data", "model") if ep else None)
+            try:
+                y, aux = L.moe_ffn(leaves[0], q, cfg)
+                grads = torch.autograd.grad(
+                    (y.float() * gy.float()).sum() + aux, leaves)
+            finally:
+                L.set_moe_ep(None, None)
+            return y.detach(), aux.detach(), grads
+        runs = {}
+        for ep in (False, True, False, True):     # warm, then timed
+            runs[ep] = timed_call(lambda: layer(ep))
+        (yd, auxd, gd), dense_ms = runs[False]
+        (ye, auxe, ge), ep_ms = runs[True]
+        C = math.ceil(EP_TOKENS[0] * EP_TOKENS[1] * cfg.experts_per_token
+                      / E * cfg.capacity_factor)
+        if not (bitwise_equal(ye, yd) and bitwise_equal(auxe, auxd)):
+            raise AssertionError(
+                f"EP over NCCL at one rank: y max diff "
+                f"{float((ye.float() - yd.float()).abs().max())}, aux "
+                f"{float(auxe)} vs {float(auxd)}: not the dense path's bits")
+        grad_err, grad_bitwise = {}, {}
+        for name, a, b in zip(("x", "router", "wi", "wo"), ge, gd):
+            err = float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30))
+            grad_err[name], grad_bitwise[name] = err, bitwise_equal(a, b)
+            if not err <= EP_GRAD_ROW_TOL:
+                raise AssertionError(f"EP grad of {name}: {err} of its max "
+                                     f"(tolerance {EP_GRAD_ROW_TOL})")
+        out["ep"] = dict(tokens=list(EP_TOKENS), capacity=C,
+                         dispatch_buffer_bytes=E * C * D * 2,
+                         experts_bytes=(p["experts"]["wi"].numel()
+                                        + p["experts"]["wo"].numel()) * 2,
+                         y_bitwise=True, aux=float(auxe),
+                         grad_rel_err=grad_err, grad_bitwise=grad_bitwise,
+                         dense_ms=dense_ms, ep_ms=ep_ms)
+        log(f"distributed EP (moonshot MoE layer, {EP_TOKENS} tokens, C "
+            f"{C}): y and aux bitwise the dense path's, grads {grad_err} "
+            f"(bitwise {grad_bitwise}); forward + backward dense "
+            f"{dense_ms:.3f} ms, EP over NCCL {ep_ms:.3f} ms; {card}")
+
+        # ---- the compressed all-reduce on that layer's wi gradient ---- #
+        g = ge[2].float()
+        del runs, ge, gd
+        for _ in range(2):                          # warm, then timed
+            got, comp_ms = timed_call(lambda: quantized_allreduce(g, mesh,
+                                                                  "data"))
+            plain, plain_ms = timed_call(
+                lambda: compressed_psum_reference([g]))
+        if not bitwise_equal(got, plain):
+            raise AssertionError("compressed all-reduce over NCCL is not "
+                                 "the plain quantize-dequantize")
+        rel = float((got - g).abs().max() / g.abs().max())
+        if not rel < COMPRESS_TOL:
+            raise AssertionError(f"compressed all-reduce: {rel} of the "
+                                 f"largest value (bound {COMPRESS_TOL})")
+        out["compressed_allreduce"] = dict(
+            values=g.numel(), bitwise_plain=True, rel_err=rel,
+            ms=comp_ms, plain_ms=plain_ms)
+        log(f"distributed compressed all-reduce ({g.numel()} fp32 values): "
+            f"bitwise the plain version, {rel:.3e} of the largest value; "
+            f"{comp_ms:.3f} ms, plain {plain_ms:.3f} ms; {card}")
+        del g, got, plain
+
+        # ---- a one-stage pipeline of mamba2-130m's stack -------------- #
+        mcfg = get_config("mamba2-130m")
+        params = M.cast_params(M.init_params(mcfg, gen, device=DEV), mcfg)
+        blocks = params["blocks"]
+
+        def stage_fn(bp, h):
+            for b in range(mcfg.n_blocks):
+                h, _, _ = M.apply_block(tree_map(lambda t: t[b], bp), h,
+                                        mcfg)
+            return h
+        xs = torch.randn((PIPE_MICRO, *PIPE_MB, mcfg.d_model), generator=gen,
+                         **bf16)
+        def pipeline():
+            return pipeline_forward(stage_fn, tree_map(lambda t: t[None],
+                                                       blocks), xs,
+                                    mesh=mesh, axis="data",
+                                    n_micro=PIPE_MICRO)
+        with torch.no_grad():
+            for _ in range(2):                      # warm, then timed
+                want, seq_ms = timed_call(lambda: torch.stack(
+                    [stage_fn(blocks, xs[i]) for i in range(PIPE_MICRO)]))
+                zero_ssd_counts()
+                got, pipe_ms = timed_call(pipeline)
+                counts = ssd_counts()
+        if not bitwise_equal(got, want):
+            raise AssertionError("one-stage pipeline is not the stack run "
+                                 "on each microbatch in turn")
+        n_scans = PIPE_MICRO * mcfg.n_blocks
+        if counts["forward"] != n_scans or \
+                counts["tensor_cores"] != n_scans:
+            raise AssertionError(f"pipeline: SSD launches {counts}, expected "
+                                 f"{n_scans} on the tensor cores")
+        out["pipeline"] = dict(
+            config=describe(mcfg, [], card)["config"], stages=1,
+            micro=PIPE_MICRO, microbatch=list(PIPE_MB), bitwise=True,
+            hop="local copy (one stage)", ssd_launches=counts["forward"],
+            ssd_tensor_core_launches=counts["tensor_cores"],
+            ms=pipe_ms, sequential_ms=seq_ms)
+        log(f"distributed pipeline (mamba2-130m, 1 stage, {PIPE_MICRO} x "
+            f"{PIPE_MB}): bitwise the sequential run, {counts['forward']} SSD "
+            f"scans on the tensor cores; {pipe_ms:.3f} ms, sequential "
+            f"{seq_ms:.3f} ms; {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=["all", "ssd_backward",
-                                        "flash_backward"], default="all",
-                    help="ssd_backward / flash_backward: build, run that "
-                         "phase alone and print its JSON, for work on the "
-                         "SSD or the flash backward kernels")
+                                        "flash_backward", "distributed"],
+                    default="all",
+                    help="ssd_backward / flash_backward / distributed: "
+                         "build, run that phase alone and print its JSON, "
+                         "for work on the SSD or the flash backward kernels "
+                         "or the distributed layer")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4172,6 +4377,12 @@ def main() -> int:
         return 0
     if args.phase == "flash_backward":
         print(json.dumps({"flash_backward": flash_backward_phase(args.seed)}))
+        return 0
+    if args.phase == "distributed":
+        t0 = time.perf_counter()
+        dist_out = distributed_phase(args.seed, card)
+        log(f"phase distributed: {time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"distributed": dist_out}))
         return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4245,6 +4456,11 @@ def main() -> int:
     t0 = time.perf_counter()
     llava = llava_phase(args.seed, card)
     log(f"phase llava-next-34b: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    distributed = distributed_phase(args.seed, card)
+    distributed["phase_s"] = time.perf_counter() - t0
+    log(f"phase distributed: {distributed['phase_s']:.3f} s")
 
     at = kern[f"batch({main_rows},259) 1GiB ring"]
     new_paths = [health["scrub_launches"], health["second_pass_launches"],
@@ -4277,20 +4493,24 @@ def main() -> int:
     serve_at = ssd[f"ssd{SSD_SERVE} bfloat16 mixer views"]
     turns = serve_at["layouts"]
     train_ssd = train["main_path_counts"]["ssd"]
+    pipe = distributed["pipeline"]
     kernels.append(dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan_tc.cu",
         cuda_core_source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
-        launches=serving["ssd_launches"] + train_ssd["forward"],
+        launches=(serving["ssd_launches"] + train_ssd["forward"]
+                  + pipe["ssd_launches"]),
         launches_by_route={
             "tensor_cores": (serving["ssd_tensor_core_launches"]
-                             + train_ssd["tensor_cores"]),
+                             + train_ssd["tensor_cores"]
+                             + pipe["ssd_tensor_core_launches"]),
             "cuda_cores": (serving["ssd_launches"]
                            - serving["ssd_tensor_core_launches"]
                            + train_ssd["cuda_cores"])},
         launches_by_path={"serving": serving["ssd_launches"],
-                          "train": train_ssd["forward"]},
+                          "train": train_ssd["forward"],
+                          "pipeline": pipe["ssd_launches"]},
         max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
         ms=float(np.median(turns["mixer views"]["alone_ms"])),
         wrapper_ms=serve_at["ms"],
@@ -4425,7 +4645,8 @@ def main() -> int:
                       "hubert": hubert, "llava": llava,
                       "flash_backward_shapes": flash_bwd,
                       "attention_train": attn_train,
-                      "attention_train_card_vs_cpu": attn_cpu}))
+                      "attention_train_card_vs_cpu": attn_cpu,
+                      "distributed": distributed}))
     print(json.dumps({"flash_kernel_attributes": flash_attrs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,8 +24,8 @@ The JAX package's manager over the port's ``Log``.  A state is a tree of
 torch tensors and/or numpy arrays and scalars (``repro_torch.tree``),
 walked in ``jax.tree_util``'s order with its leaf names, so shard keys
 and manifests are the JAX package's byte for byte.  Restore gives each
-leaf in the template's kind: a tensor on the template tensor's device,
-or a numpy array.
+leaf in the template's kind: a tensor on the template tensor's device
+(a DTensor on the template's mesh and placements), or a numpy array.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..core.log import Log, LogFullError
 from ..tree import leaf_paths, map_with_path, tree_map
@@ -59,7 +60,11 @@ class CheckpointConfig:
 
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
     """(host array, dtype name) of a leaf; a bf16 tensor gives its uint16
-    words and the name "bfloat16" (what the JAX package records)."""
+    words and the name "bfloat16" (what the JAX package records).  A
+    DTensor leaf is gathered whole first (a collective: every rank of its
+    mesh saves)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -71,12 +76,18 @@ def _host_array(leaf) -> Tuple[np.ndarray, str]:
 
 
 def _like(template, full: np.ndarray, dtype: str):
-    """A restored leaf in the template leaf's kind."""
+    """A restored leaf in the template leaf's kind; a DTensor template's
+    mesh and placements lay it out (the elastic restore onto another
+    mesh)."""
     if not isinstance(template, torch.Tensor):
         return full
     t = torch.from_numpy(full.copy())
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
+    if isinstance(template, DTensor):
+        mesh = template.device_mesh
+        return distribute_tensor(t.to(mesh.device_type), mesh,
+                                 template.placements)
     return t.to(template.device)
 
 

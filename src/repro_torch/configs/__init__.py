@@ -1,14 +1,15 @@
 """Architecture registry: the ten configs of the JAX package (copied as
-data) and their reduced smoke-test variants.
-
-``input_specs`` (the dry run's input stand-ins) is not ported yet: it
-waits for the ``launch/dryrun`` slice (ROADMAP Queue 1).
+data), their reduced smoke-test variants, and ``input_specs``: the
+unallocated inputs (``TensorSpec`` trees) of one (arch × shape) cell, which
+the dry run and the sharding rules read.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import torch
 
 from ..models.config import (InputShape, ModelConfig, SHAPES,
                              applicable_shapes)
@@ -67,5 +68,59 @@ def reduced_config(name: str) -> ModelConfig:
     return replace(cfg, **kw)
 
 
+# ---------------------------------------------------------------------- #
+# input specs per (arch × shape)
+# ---------------------------------------------------------------------- #
+
+def input_specs(cfg: ModelConfig, shape: InputShape | str,
+                per_pod_batch: Optional[int] = None) -> Dict[str, Any]:
+    """``TensorSpec`` stand-ins for one (arch × shape) cell.
+
+    Returns {"batch": {...}, "cache": ... | None, "index": ... | None,
+    "kind": "train"|"serve"}.  ``per_pod_batch`` overrides the global
+    batch (multi-pod runs split the global batch across pods only for
+    data; the dry run keeps the global batch and shards it).
+    """
+    from ..models import model as M
+    from ..models.layers import TensorSpec, torch_dtype
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B = per_pod_batch or shape.global_batch
+    S = shape.seq_len
+    emb_dt = torch_dtype(cfg.compute_dtype)
+
+    def spec(*dims, dtype=torch.int32):
+        return TensorSpec(tuple(dims), dtype)
+
+    def token_batch(seq, with_labels):
+        b: Dict[str, Any] = {}
+        if cfg.input_kind == "frames":
+            b["frames"] = spec(B, seq, cfg.frontend_dim, dtype=emb_dt)
+        elif cfg.input_kind == "tokens+patches":
+            npatch = min(cfg.n_patches, max(seq - 1, 0)) if seq > 1 else 0
+            if npatch and seq > npatch:
+                b["patches"] = spec(B, npatch, cfg.frontend_dim, dtype=emb_dt)
+                b["tokens"] = spec(B, seq - npatch)
+            else:
+                b["tokens"] = spec(B, seq)
+        else:
+            b["tokens"] = spec(B, seq)
+        if with_labels:
+            b["labels"] = spec(B, seq)
+        return b
+
+    if shape.kind == "train":
+        return {"kind": "train", "batch": token_batch(S, True),
+                "cache": None, "index": None}
+    if shape.kind == "prefill":
+        cache = M.cache_specs(cfg, B, S) if cfg.causal else None
+        return {"kind": "serve", "batch": token_batch(S, False),
+                "cache": cache,
+                "index": spec() if cache is not None else None}
+    # decode: one new token against a seq_len-deep cache
+    return {"kind": "serve", "batch": {"tokens": spec(B, 1)},
+            "cache": M.cache_specs(cfg, B, S), "index": spec()}
+
+
 __all__ = ["ARCHS", "ARCH_NAMES", "get_config", "reduced_config",
-           "InputShape", "ModelConfig", "SHAPES", "applicable_shapes"]
+           "input_specs", "InputShape", "ModelConfig", "SHAPES", "applicable_shapes"]

@@ -14,18 +14,20 @@ can be held against its counterpart.  Decode attention (one query
 against the cache) is the plain direct path on both devices, as in the
 JAX package (MLA's absorbed decode attends in its latent space there).
 The MoE layer's expert products are batched matmuls, as the JAX package
-leaves them to XLA; its expert-parallel path (``set_moe_ep``) is not
-ported yet (ROADMAP Queue 1).
+leaves them to XLA; with ``set_moe_ep`` its dispatch runs expert-parallel,
+as two all-to-alls over a process group (NCCL on the card, gloo on the
+CPU).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.ssd_scan import ops as ssd_ops
@@ -471,64 +473,241 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(x, p, cfg: ModelConfig):
-    """Sort-based dropped-token MoE (the JAX package's ``moe_ffn`` without
-    its expert-parallel path).  Returns (y, aux_loss).
-
-    Router logits in fp32, softmax, top-k with renormalised gates; the
-    T·K (token, expert) pairs sorted by expert (stably) fill per-expert
-    buckets of capacity C = max(1, ceil(T·K/E·capacity_factor)), a pair
-    whose slot is C or more dropped; batched expert SwiGLU over [E,C,D];
-    each kept output times its gate goes back to its token.  The combine
-    adds a token's K contributions (zero where dropped) one by one in
-    ascending expert order, in x's dtype — the order of the JAX package's
-    scatter-add, and the same on every run (no atomics); plus the shared
-    experts and the switch-style load-balance loss."""
-    B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
-    T = B * S
-    xt = x.reshape(T, D)
-    logits = torch.matmul(xt.float(), p["router"].float())   # [T,E] fp32
+def _route(xt, router, K: int):
+    """Router logits in fp32, softmax, top-k with renormalised gates.
+    xt [T,D] -> probs [T,E], gate [T,K], gidx [T,K]."""
+    logits = torch.matmul(xt.float(), router.float())        # [T,E] fp32
     probs = torch.softmax(logits, dim=-1)
-    gate, gidx = top_k(probs, K)                             # [T,K]
+    gate, gidx = top_k(probs, K)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate, gidx
 
+
+def _dispatch(gidx, E: int, C: int):
+    """The T·K (token, expert) pairs sorted by expert (stably) into
+    per-expert buckets of C slots.  Returns (order, sorted_e, tok, slot,
+    keep): the sort, each sorted pair's expert and token, its row
+    e·C + position in the flattened [E·C] buffer, and whether it fits.  A
+    pair at position C or more is dropped: its slot is the row E·C, one
+    past the buffer, which the scatter writes and the gather never reads
+    (JAX's ``mode="drop"`` / ``mode="fill"`` as masks, so every shape is
+    static)."""
     flat_e = gidx.reshape(-1)                                # [T*K]
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    tok = order // K
-    starts = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
-    pos = torch.arange(T * K, device=x.device) - starts[sorted_e]
-    C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    tok = order // gidx.shape[1]
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=gidx.device))
+    pos = torch.arange(flat_e.numel(), device=gidx.device) - starts[sorted_e]
     keep = pos < C
+    slot = torch.where(keep, sorted_e * C + pos, E * C)
+    return order, sorted_e, tok, slot, keep
 
-    buf = x.new_zeros((E, C, D))
-    buf[sorted_e[keep], pos[keep]] = xt[tok[keep]]           # unique slots
-    F_ = p["experts"]["wo"].shape[1]
-    h = torch.bmm(buf, p["experts"]["wi"].reshape(E, D, 2 * F_).to(x.dtype)
-                  ).view(E, C, 2, F_)
-    act = F.silu(h[..., 0, :].float()).to(x.dtype) * h[..., 1, :]
-    out_buf = torch.bmm(act, p["experts"]["wo"].to(x.dtype))  # [E,C,D]
 
-    contrib = x.new_zeros((T * K, D))
-    contrib[keep] = out_buf[sorted_e[keep], pos[keep]]
-    contrib = contrib * gate.reshape(-1)[order][:, None].to(x.dtype)
-    # each token's K rows of contrib, in ascending expert order
+def _scatter(xt, tok, slot, rows: int):
+    """[rows, D] buffer with token ``tok[i]`` at row ``slot[i]``, zero
+    elsewhere; dropped pairs land on a spare last row, cut off."""
+    buf = xt.new_zeros((rows + 1, xt.shape[1]))
+    buf[slot] = xt[tok]                  # unique rows, but for the spare
+    return buf[:rows]
+
+
+def _gather(out_flat, slot, keep):
+    """Each sorted pair's expert output (row ``slot``), zero where dropped."""
+    rows = out_flat.shape[0]
+    return torch.where(keep[:, None], out_flat[slot.clamp(max=rows - 1)],
+                       torch.zeros((), dtype=out_flat.dtype,
+                                   device=out_flat.device))
+
+
+def _experts(h, wi, wo):
+    """Batched expert SwiGLU: h [E,N,D] -> [E,N,D]."""
+    E, _, D = h.shape
+    F_ = wo.shape[1]
+    a = torch.bmm(h, wi.reshape(E, D, 2 * F_).to(h.dtype)
+                  ).view(E, h.shape[1], 2, F_)
+    act = F.silu(a[..., 0, :].float()).to(h.dtype) * a[..., 1, :]
+    return torch.bmm(act, wo.to(h.dtype))
+
+
+def _combine(contrib, gate, order, gidx):
+    """Each kept output times its gate back to its token: a token's K
+    contributions (zero where dropped) added one by one in ascending
+    expert order, in contrib's dtype — the order of the JAX package's
+    scatter-add, and the same on every run (no atomics).  contrib [T·K,D]
+    in sorted order -> y [T,D]."""
+    T, K = gidx.shape
+    contrib = contrib * gate.reshape(-1)[order][:, None].to(contrib.dtype)
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=x.device)
+    inv[order] = torch.arange(T * K, device=order.device)
     rows = inv.view(T, K).gather(1, torch.argsort(gidx, dim=-1, stable=True))
     per_tok = contrib[rows]                                  # [T,K,D]
     y = per_tok[:, 0]
     for j in range(1, K):
         y = y + per_tok[:, j]
-    y = y.reshape(B, S, D)
+    return y
+
+
+def _expert_counts(gidx, E: int):
+    """How many (token, expert) pairs chose each expert (int64 [E])."""
+    flat_e = gidx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=gidx.device
+                       ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+# -- expert parallelism (all-to-all dispatch) --------------------------- #
+# Set by the launcher: (mesh, axes) where experts are sharded over the
+# flattened ``axes`` (data-major order, matching lax.all_to_all), with the
+# flattened process group, made at first use.
+_EP_STATE: Optional[Dict[str, Any]] = None
+
+
+def set_moe_ep(mesh, axes: Optional[Tuple[str, ...]]) -> None:
+    """Turn expert parallelism on over ``axes`` of ``mesh`` (a
+    ``DeviceMesh``; every rank calls this), or off with ``axes=None``."""
+    global _EP_STATE
+    _EP_STATE = {"mesh": mesh, "axes": tuple(axes), "group": None} \
+        if axes else None
+
+
+def _moe_ep_applicable(x, cfg: ModelConfig) -> bool:
+    if _EP_STATE is None:
+        return False
+    mesh, axes = _EP_STATE["mesh"], _EP_STATE["axes"]
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if any(a not in sizes for a in axes):
+        return False
+    d0, m = sizes[axes[0]], sizes[axes[1]]
+    B, S, _ = x.shape
+    return (B % d0 == 0 and S % m == 0 and
+            cfg.n_experts % (d0 * m) == 0)
+
+
+def _ep_group():
+    if _EP_STATE["group"] is None:
+        mesh, axes = _EP_STATE["mesh"], _EP_STATE["axes"]
+        _EP_STATE["group"] = mesh[axes]._flatten().get_group()
+    return _EP_STATE["group"]
+
+
+def _on_mesh(t, mesh, layout, grad_layout=None):
+    """This rank's block of ``t`` laid out as ``layout``: a DTensor is
+    redistributed to it (shard_map's ``in_specs``), a plain tensor is taken
+    as the same value on every rank.  Gradients flow back in ``t``'s kind
+    (a plain tensor's grad is whole on every rank); ``grad_layout`` names
+    the placements of the local gradient (Partial for a replicated weight
+    that each rank applies to its own tokens)."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, layout).to_local(grad_placements=grad_layout)
+
+
+def _moe_ffn_ep(x, p, cfg: ModelConfig):
+    """Expert-parallel MoE over the flattened (data, model) group of R
+    ranks: each rank routes its own tokens [B/Dz, S/Mz, D], keeps E/R
+    experts, and two differentiable ``all_to_all_single``s carry the
+    dispatch buffer [R, E/R·C, D] there and back (C from the local token
+    count).  x and the params may be DTensors on the EP mesh or plain
+    tensors holding the same value on every rank; y comes back in x's kind.
+    The load-balance loss needs the global mean of the router
+    probabilities and the global expert counts: both are all-reduced, so
+    every rank's aux is the dense path's.  Returns (y, aux)."""
+    import torch.distributed as dist
+    import torch.distributed.nn.functional as dnn
+
+    mesh, axes = _EP_STATE["mesh"], _EP_STATE["axes"]
+    group = _ep_group()
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    Dz, Mz = sizes[axes[0]], sizes[axes[1]]
+    R = Dz * Mz
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    E_loc = E // R
+    T, T_loc = B * S, (B // Dz) * (S // Mz)
+    C = max(1, int(math.ceil(T_loc * K / E * cfg.capacity_factor)))
+
+    def layout(**dims):
+        out = [Replicate()] * mesh.ndim
+        for a, d in dims.items():
+            out[names.index(a)] = Shard(d)
+        return out
+    x_lay = layout(**{axes[0]: 0, axes[1]: 1})
+    expert_lay = layout(**{axes[0]: 0, axes[1]: 0})     # data-major
+    partial = [Partial() if a in axes else Replicate() for a in names]
+    xl = _on_mesh(x, mesh, x_lay)
+    router = _on_mesh(p["router"], mesh, [Replicate()] * mesh.ndim, partial)
+    wi = _on_mesh(p["experts"]["wi"], mesh, expert_lay)
+    wo = _on_mesh(p["experts"]["wo"], mesh, expert_lay)
+
+    xt = xl.reshape(T_loc, D)
+    probs, gate, gidx = _route(xt, router, K)
+    order, sorted_e, tok, slot, keep = _dispatch(gidx, E, C)
+    # slot = e·C + pos = dest·(E_loc·C) + (e mod E_loc)·C + pos: the send
+    # buffer's R chunks, chunk r for rank r
+    send = _scatter(xt, tok, slot, E * C)
+    recv = dnn.all_to_all_single(torch.empty_like(send), send, group=group)
+    h = recv.view(R, E_loc, C, D).transpose(0, 1).reshape(E_loc, R * C, D)
+    o = _experts(h, wi, wo)
+    outb = o.view(E_loc, R, C, D).transpose(0, 1).reshape(E * C, D)
+    back = dnn.all_to_all_single(torch.empty_like(outb), outb, group=group)
+    y = _combine(_gather(back, slot, keep), gate, order, gidx)
+    y = y.reshape(xl.shape)
+    if cfg.n_shared_experts:
+        shared = {k: _on_mesh(v, mesh, [Replicate()] * mesh.ndim, partial)
+                  for k, v in p["shared"].items()}
+        y = y + mlp(xl, shared, cfg)
+    y = DTensor.from_local(y, mesh, x_lay, run_check=False)
+    if not isinstance(x, DTensor):
+        y = y.full_tensor()
+
+    # switch-style load-balance auxiliary over every rank's tokens
+    me = DTensor.from_local(probs.mean(dim=0) * (T_loc / T), mesh, partial,
+                            run_check=False).full_tensor()
+    counts = _expert_counts(gidx, E)
+    dist.all_reduce(counts, group=group)
+    aux = cfg.router_aux_weight * E * torch.sum(me * (counts.float()
+                                                      / (T * K)))
+    if isinstance(x, DTensor):
+        aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return y, aux
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """Sort-based dropped-token MoE (the JAX package's ``moe_ffn``).
+    Returns (y, aux_loss).
+
+    Router logits in fp32, softmax, top-k with renormalised gates; the
+    T·K (token, expert) pairs sorted by expert (stably) fill per-expert
+    buckets of capacity C = max(1, ceil(T·K/E·capacity_factor)), a pair
+    whose slot is C or more dropped; batched expert SwiGLU over [E,C,D];
+    each kept output times its gate goes back to its token (``_combine``);
+    plus the shared experts and the switch-style load-balance loss.  Every
+    shape is static (drops through a spare row and masks), so the layer
+    also runs on fake tensors (the dry run).  With EP enabled
+    (``set_moe_ep``) and a compatible shape, dispatch runs as all-to-alls
+    over the EP group instead (``_moe_ffn_ep``)."""
+    if _moe_ep_applicable(x, cfg):
+        return _moe_ffn_ep(x, p, cfg)
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, D)
+    probs, gate, gidx = _route(xt, p["router"], K)
+    C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    order, sorted_e, tok, slot, keep = _dispatch(gidx, E, C)
+    buf = _scatter(xt, tok, slot, E * C).view(E, C, D)
+    out_buf = _experts(buf, p["experts"]["wi"], p["experts"]["wo"])
+    contrib = _gather(out_buf.view(E * C, D), slot, keep)
+    y = _combine(contrib, gate, order, gidx).reshape(B, S, D)
 
     if cfg.n_shared_experts:
         y = y + mlp(x, p["shared"], cfg)
 
     # switch-style load-balance auxiliary
     me = probs.mean(dim=0)                                   # [E]
-    ce = torch.bincount(flat_e, minlength=E).float() / (T * K)
+    ce = _expert_counts(gidx, E).float() / (T * K)
     aux = cfg.router_aux_weight * E * torch.sum(me * ce)
     return y, aux
 

@@ -14,6 +14,7 @@ Public entry points:
   cache_specs(cfg, batch, max_len) / init_cache(...)
   serve_step(params, cfg, batch, cache, index) — prefill & decode
   forward_train(params, cfg, batch)       — (loss, metrics), differentiable
+  set_activation_spec(spec)               — the residual stream's sharding
 
 Every layer of the ten configs runs here: GQA attention (with gemma2's
 local/global alternation, softcaps and post-norms, and command-r's
@@ -38,12 +39,14 @@ each have a hand-written gradient kernel.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.sharding import placements
 from ..tree import leaf_paths, map_with_path, tree_map
 from . import layers as L
 from .config import LayerKind, ModelConfig
@@ -52,6 +55,27 @@ from .layers import TensorSpec, torch_dtype
 Params = Dict[str, Any]
 
 _FP32_KEYS = ("norm", "a_log", "dt_bias", "d_skip")
+
+# Activation-sharding constraint for the residual stream [B, S, D].
+# Set by the launcher so model code stays mesh-agnostic; None = leave the
+# residual stream as it comes.
+_ACT_SPEC: Optional[Tuple] = None
+
+
+def set_activation_spec(spec) -> None:
+    """spec: a JAX-shaped spec (``distributed.sharding``) for [batch, seq,
+    d_model] activations, or None to disable.  Applied to the residual
+    stream at the embed boundary and at every block boundary: a DTensor
+    residual stream is redistributed to it there (the JAX package's
+    ``with_sharding_constraint``)."""
+    global _ACT_SPEC
+    _ACT_SPEC = None if spec is None else tuple(spec)
+
+
+def _constrain(h):
+    if _ACT_SPEC is None or not isinstance(h, DTensor):
+        return h
+    return h.redistribute(h.device_mesh, placements(_ACT_SPEC, h.device_mesh))
 
 
 # ---------------------------------------------------------------------- #
@@ -297,6 +321,7 @@ def _run_stack(params: Params, cfg: ModelConfig, h, cache, index):
         bp = map_with_path(lambda n, _: slices[n][b], params["blocks"])
         bc = None if cache is None else \
             tree_map(lambda t: t[b], cache["blocks"])
+        h = _constrain(h)
         if remat:
             h, aux = checkpoint(_remat_block, bp, h, cfg,
                                 use_reentrant=False)
@@ -304,6 +329,7 @@ def _run_stack(params: Params, cfg: ModelConfig, h, cache, index):
             h, ncs, aux = apply_block(bp, h, cfg, bc, index)
             if cache is not None:
                 _write_into(bc, ncs)
+        h = _constrain(h)
         aux_total = aux_total + aux
     return h, cache, aux_total
 
@@ -365,7 +391,7 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
     """Training forward: (scalar fp32 loss, metrics {"ce", "aux", "loss"}
     and "mtp" where the config predicts a second token).  The loss is
     ce + 0.3·mtp + the MoE routers' auxiliary loss."""
-    h = _embed_inputs(params, cfg, batch)
+    h = _constrain(_embed_inputs(params, cfg, batch))
     h, _, aux = _run_stack(params, cfg, h, cache=None, index=None)
     loss = cross_entropy(_logits(params, cfg, h), batch["labels"])
     metrics = {"ce": loss, "aux": aux}
@@ -411,6 +437,6 @@ def serve_step(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     return _logits(params, cfg, h), new_cache
 
 
-__all__ = ["param_specs", "init_params", "cast_params", "cache_specs",
+__all__ = ["param_specs", "init_params", "set_activation_spec", "cast_params", "cache_specs",
            "init_cache", "apply_block", "serve_step", "cross_entropy",
            "forward_train"]

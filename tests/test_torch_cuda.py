@@ -1812,3 +1812,106 @@ def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,
         tol = 1e-4 * (pp - old[n]).abs().max() + 2 * 2.0 ** -23 * \
             pp.abs().max()
         assert float(((pc.cpu() - pp).abs() * keep).max()) <= float(tol), n
+
+
+# ---------------------------------------------------------------------- #
+# the distributed layer over a one-rank NCCL group
+# ---------------------------------------------------------------------- #
+
+@pytest.fixture
+def nccl_mesh(cuda_device, monkeypatch):
+    """A one-rank NCCL group and its (1, 1) smoke mesh, destroyed after; its
+    bootstrap stays on the loopback."""
+    from repro_torch.distributed import one_rank_group
+    from repro_torch.launch.mesh import make_smoke_mesh
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    with one_rank_group("cuda"):
+        yield make_smoke_mesh(device_type="cuda")
+
+
+def test_make_smoke_mesh_on_one_card(nccl_mesh):
+    import torch.distributed as dist
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert nccl_mesh.device_type == "cuda"
+    assert tuple(nccl_mesh.shape) == (1, 1)
+    assert nccl_mesh.mesh_dim_names == ("data", "model")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_rank_nccl_ep_equals_dense(nccl_mesh, dtype):
+    """Reduced moonshot at capacity factor 1.25 (tokens dropped): at one
+    rank the EP path's buckets, drops and products are the dense path's,
+    so y and aux are bitwise equal and so are the grads of x, router, wi
+    and wo."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(reduced_config("moonshot-v1-16b-a3b"),
+                              capacity_factor=1.25)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def draw(*shape, std=0.1):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                ).to(dtype)
+    base = [draw(4, 64, D, std=1.0), draw(D, E), draw(E, D, 2, F_),
+            draw(E, F_, D)]
+    gy = draw(4, 64, D, std=1.0)
+
+    def run(ep):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        p = {"router": leaves[1], "experts": {"wi": leaves[2],
+                                              "wo": leaves[3]}}
+        L.set_moe_ep(nccl_mesh, ("data", "model") if ep else None)
+        try:
+            y, aux = L.moe_ffn(leaves[0], p, cfg)
+            grads = torch.autograd.grad((y.float() * gy.float()).sum() + aux,
+                                        leaves)
+        finally:
+            L.set_moe_ep(None, None)
+        return [y, aux, *grads]
+    for a, b in zip(run(True), run(False)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_compression_equals_plain_on_the_card(nccl_mesh):
+    from repro_torch.distributed.compression import (
+        compressed_psum_reference, quantized_allreduce)
+    g = torch.randn(1 << 20, generator=torch.Generator(device="cuda")
+                    .manual_seed(1), device="cuda")
+    got = quantized_allreduce(g, nccl_mesh, "data")
+    assert torch.equal(got, compressed_psum_reference([g]))
+    assert float((got - g).abs().max() / g.abs().max()) < 0.02
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in (2, 2)]
+    assert torch.equal(quantized_allreduce(g, nccl_mesh, "data", gens[0]),
+                       compressed_psum_reference([g], [gens[1]]))
+
+
+def test_one_stage_pipeline_equals_sequential(nccl_mesh):
+    """Reduced mamba2 in bf16 as one stage: bitwise the stack on each
+    microbatch in turn, one scan kernel launch a block and microbatch."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduced_config("mamba2-130m"), ssm_chunk=64,
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    blocks = M.cast_params(M.init_params(cfg, gen, device="cuda"),
+                           cfg)["blocks"]
+
+    def stage(bp, h):
+        for b in range(cfg.n_blocks):
+            h, _, _ = M.apply_block(tree_map(lambda t: t[b], bp), h, cfg)
+        return h
+    xs = torch.randn((3, 2, 128, cfg.d_model), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = torch.stack([stage(blocks, x) for x in xs])
+        before = ssd_scan.LAUNCHES
+        got = pipeline_forward(stage, tree_map(lambda t: t[None], blocks),
+                               xs, mesh=nccl_mesh, axis="data", n_micro=3)
+    assert torch.equal(got, want)
+    assert ssd_scan.LAUNCHES - before == 3 * cfg.n_blocks
