@@ -211,8 +211,10 @@ def build_cell(cfg: ModelConfig, shape_name: str, mesh,
 # ---------------------------------------------------------------------- #
 
 class _OpBytes(TorchDispatchMode):
-    """Σ of every operator's tensor inputs and outputs in bytes (views
-    excluded), and the last operator dispatched (named when a run
+    """Σ of every operator's tensor inputs and outputs in bytes (views and
+    ``prim`` metadata queries such as ``prim.device`` excluded: they move
+    no data, and autograd asks a tensor's device tens of thousands of
+    times a step), and the last operator dispatched (named when a run
     fails)."""
 
     def __init__(self):
@@ -221,6 +223,8 @@ class _OpBytes(TorchDispatchMode):
         self.last_op = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "prim":
+            return func(*args, **(kwargs or {}))
         self.last_op = str(func)
         out = func(*args, **(kwargs or {}))
         if not func.is_view:

@@ -112,7 +112,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_NAMES)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--batch", type=int, default=4)

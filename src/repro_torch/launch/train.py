@@ -70,7 +70,7 @@ def check_trainable(cfg: ModelConfig, device, seq_len: Optional[int] = None
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_NAMES)
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale config (CPU-runnable)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -1814,6 +1814,96 @@ def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,
         assert float(((pc.cpu() - pp).abs() * keep).max()) <= float(tol), n
 
 
+
+def test_init_peak_is_params_and_one_block_slice(cuda_device):
+    """moonshot-v1-16b-a3b at its published widths cut to 4 layers (14 GB
+    in bf16): ``init_params`` on the card peaks at most its param bytes,
+    one block's slice of its largest leaf in fp32 (64 experts' wi of one
+    layer, 1.48 GB) and 1 GiB above what was allocated before it."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaf_paths
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=4)
+    specs = M.param_specs(cfg)
+    nbytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                 for _, s in leaf_paths(specs))
+    piece = 4 * max(math.prod(s.shape[1:])
+                    for _, s in leaf_paths(specs["blocks"]))
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    assert torch.cuda.memory_allocated() - start == nbytes
+    assert peak <= nbytes + piece + (1 << 30), (peak, nbytes, piece)
+    wi = params["blocks"]["l0"]["ffn"]["experts"]["wi"]
+    assert wi.dtype == torch.bfloat16 and not torch.equal(wi[0], wi[1])
+    del params
+    torch.cuda.empty_cache()
+
+
+def test_piecewise_adafactor_step_on_the_card_matches_the_cpu(
+        cuda_device, fp32_exact, monkeypatch):
+    """qwen2-7b (reduced, 3 blocks, fp32): one journaled Adafactor step on
+    the card and on the CPU from the same state, in pieces of 2048
+    elements (the stacked MLP leaf [3, 128, 2, 256] splits into 4 rows a
+    piece): the loss within 1e-5; then the update alone from the CPU's
+    grads on both devices (Adafactor's update is linear in g, so the grads'
+    own card-vs-CPU distance would pass into it where a row or column is
+    small): the grad norm within 1e-6, each new moment leaf within 1e-5 of
+    its largest, each new param leaf within 1e-5 of its largest update
+    plus two fp32 spacings of its largest value; the donated update on the
+    card bitwise the functional one."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim import optimizer as topt
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths, tree_map
+
+    monkeypatch.setattr(topt, "PIECE", 2048)
+    cfg = dataclasses.replace(reduced_config("qwen2-7b"), n_layers=3)
+    opt = OptConfig(name="adafactor", lr=3e-3, warmup_steps=2,
+                    decay_steps=1000)
+    host = S.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                              device="cpu")
+    host["step"] = torch.tensor(2, dtype=torch.int32)
+    card = tree_map(lambda t: t.to(cuda_device), host)
+    batch = SyntheticDataset(cfg, DataConfig(batch=2, seq_len=256)
+                             ).tensors_at(0, "cpu")
+    on_card = {k: v.to(cuda_device) for k, v in batch.items()}
+    _, met_card = S.train_step(card, on_card, cfg, opt, journal=True)
+    g_cpu, met = S.grads_and_metrics(host["params"], batch, cfg)
+    new_cpu, met_cpu = S.apply_step(host, g_cpu, met, opt)
+    assert float(met_card["loss"]) == pytest.approx(float(met_cpu["loss"]),
+                                                    rel=1e-5)
+    grads = tree_map(lambda t: t.to(cuda_device), g_cpu)
+    new_card, met_same = S.apply_step(card, grads, met, opt)
+    assert float(met_same["grad_norm"]) == pytest.approx(
+        float(met_cpu["grad_norm"]), rel=1e-6)
+    for (n, mc), (_, mp) in zip(leaf_paths(new_card["opt"]),
+                                leaf_paths(new_cpu["opt"])):
+        assert float((mc.cpu() - mp).abs().max()) <= \
+            1e-5 * float(mp.abs().max()), n
+    old = dict(leaf_paths(host["params"]))
+    for (n, pc), (_, pp) in zip(leaf_paths(new_card["params"]),
+                                leaf_paths(new_cpu["params"])):
+        tol = 1e-5 * (pp - old[n]).abs().max() + 2 * 2.0 ** -23 * \
+            pp.abs().max()
+        assert float((pc.cpu() - pp).abs().max()) <= float(tol), n
+    got, _ = S.apply_step(card, grads, met, opt, donate=True)
+    for (n, a), (_, b) in zip(leaf_paths((got["params"], got["opt"])),
+                              leaf_paths((new_card["params"],
+                                          new_card["opt"]))):
+        assert torch.equal(a, b), n
+
 # ---------------------------------------------------------------------- #
 # the distributed layer over a one-rank NCCL group
 # ---------------------------------------------------------------------- #

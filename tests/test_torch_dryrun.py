@@ -15,7 +15,10 @@ import textwrap
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 120
+# a subprocess's limit: the qwen2-7b train_4k fake run takes about 45 s on
+# an idle 8-core host and several times that beside five other busy test
+# workers
+TIMEOUT = 600
 
 
 def run(code: str, **env) -> dict:

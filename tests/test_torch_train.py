@@ -423,11 +423,11 @@ def test_check_trainable_refuses_attention_on_the_card():
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])
 def test_donated_update_is_bitwise_the_functional_one(monkeypatch, name):
     """``apply_updates(..., donate=True)`` writes each leaf's new values
-    into its old tensors (AdamW in pieces, here of 1000 elements, so that
+    into its old tensors (in pieces, here of 1000 elements, so that
     leaves straddle pieces) and gives the functional update's bits."""
     from repro_torch.optim import optimizer as topt
 
-    monkeypatch.setattr(topt, "DONATE_PIECE", 1000)
+    monkeypatch.setattr(topt, "PIECE", 1000)
     cfg = fp32(reduced_config("qwen2-7b"))
     ocfg = OptConfig(name=name, lr=1e-2, warmup_steps=2, decay_steps=50,
                      clip_norm=0.5)
