@@ -298,3 +298,32 @@ def test_skip_for_shapes_the_config_does_not_take():
     """)
     assert r["status"] == "skip"
     assert math.isfinite(len(r["reason"]))
+
+
+def test_op_bytes_leave_out_views_and_metadata_queries():
+    """The fake run's byte count on a known sequence: a product counts its
+    operands and its result once; a view and ``prim.device`` (a metadata
+    query autograd makes tens of thousands of times a step, which the
+    dispatch mode sees twice per call here) count nothing."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.dryrun import _OpBytes
+
+    seen = []
+
+    class Seen(_OpBytes):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    with FakeTensorMode():
+        a, b = torch.zeros(64, 32), torch.zeros(32, 16)
+        ops = Seen()
+        with ops:
+            c = a @ b
+            c.t()
+            assert torch.ops.prim.device.default(c) == torch.device("cpu")
+    assert "prim.device.default" in seen and "aten.t.default" in seen
+    assert ops.bytes == (64 * 32 + 32 * 16 + 64 * 16) * 4
+    assert ops.last_op == "aten.t.default"

@@ -11,7 +11,8 @@ parity (``tests/test_torch_train.py``: rtol 1e-6, atol 1e-6), with
 functional one.  A reduced qwen2-7b Adafactor train step is held to the
 JAX step at ``forward_train``'s tolerances (loss 1e-5, each leaf 5e-5 of
 its largest magnitude; param elements whose grad is round-off are not
-compared, as in ``chip_smoke.py``'s card-vs-CPU steps).
+compared), and the update from JAX's grads, given to both optimizers,
+is held on every element.
 """
 
 import dataclasses
@@ -36,7 +37,7 @@ from repro_torch.models.convert import params_from_numpy, \
     train_state_from_numpy
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 from repro_torch.optim import optimizer as topt
-from repro_torch.train.step import train_step
+from repro_torch.train.step import apply_step, train_step
 from repro_torch.tree import leaf_paths
 
 # a stacked block leaf [n_blocks, rows, 2, cols] as qwen2's ffn.wi, a
@@ -208,14 +209,16 @@ def test_reduced_qwen2_adafactor_step_matches_jax(monkeypatch):
     want = jax_leaves({"params": jnew["params"], "opt": jnew["opt"]})
     got = dict(leaf_paths({"params": new["params"], "opt": new["opt"]}))
     assert got.keys() == want.keys()
-    # A param element whose grad is below 1e-3 of its leaf's largest (and
-    # not zero) is not compared: Adafactor divides a row by its own RMS, so
-    # a row of round-off grads (the key bias along rope's slowest pairs,
-    # which barely turn over 32 positions) moves by round-off's sign.
-    # chip_smoke.py's card-vs-CPU steps skip the same elements.
-    jgrads = jax_leaves(jax.jit(jax.grad(lambda p: JM.forward_train(
-        p, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})[0]))(
-        jstate["params"]))
+    # Each side's step differentiates on its own, so a param element whose
+    # grad is below 1e-3 of its leaf's largest (and not zero) is not
+    # compared here: Adafactor divides a row by its own RMS, so a row of
+    # round-off grads (the key bias along rope's slowest pairs, which
+    # barely turn over 32 positions) moves by round-off's sign.  The
+    # update from the same grads is held below on every element.
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jg = jax.jit(jax.grad(lambda p: JM.forward_train(p, jcfg, jbatch)[0]))(
+        jstate["params"])
+    jgrads = jax_leaves(jg)
     skipped = 0
     for n, w in want.items():
         err = np.abs(got[n].numpy() - w)
@@ -228,6 +231,27 @@ def test_reduced_qwen2_adafactor_step_matches_jax(monkeypatch):
         assert err <= 5e-5, (n, err)
     assert skipped < 0.05 * sum(w.size for n, w in want.items()
                                 if n.startswith("['params']"))
+    # the update alone from JAX's grads on both sides, every element: a
+    # param within 5e-5 of its leaf's largest update plus two fp32 spacings
+    # of its largest value (p - lr·u rounds to p's spacing), a moment
+    # within 5e-5 of its leaf's largest magnitude
+    jp, js, _ = jax.jit(lambda p, g, s, k: jopt.apply_updates(
+        p, g, s, k, JOptConfig(**okw)))(jstate["params"], jg, jstate["opt"],
+                                        jstate["step"])
+    same, _ = apply_step(state, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jg), device="cpu"), met,
+        OptConfig(**okw))
+    old = jax_leaves(jstate["params"])
+    got = dict(leaf_paths({"params": same["params"], "opt": same["opt"]}))
+    for n, w in jax_leaves({"params": jp, "opt": js}).items():
+        err = float(np.abs(got[n].numpy() - w).max())
+        if n.startswith("['params']"):
+            o = old[n[len("['params']"):]]
+            top = np.float32(np.abs(w).max())
+            assert err <= 5e-5 * float(np.abs(w - o).max()) + \
+                2 * float(np.spacing(top)), (n, err)
+        else:
+            assert err <= 5e-5 * max(float(np.abs(w).max()), 1e-30), (n, err)
     # the factored second moment of the stacked MLP leaf is in the state
     assert any("vc" in n and got[n].dim() == 3 for n in got)
 

@@ -5,15 +5,12 @@
 
 Trains mamba2-130m at its published widths (8 x 4096 tokens a step from
 the synthetic pipeline, AdamW with chip_smoke.py's schedule, the state
-functional as ``Trainer`` runs it) for 12 steps from each seed and rate,
-with the params drawn two ways from the same seed: ``init_params`` (one
-block's slice at a time) and the whole-leaf draws it replaced (each leaf
-in one fp32 call, kept here only for this comparison).  Prints each run's
-losses and whether the mean of the last four falls below the mean of the
-first four, chip_smoke.py's check of the training path.  On the CPU both
-schemes give the same bits; on the card the generator's stream depends on
-how a leaf is split, so the two are different draws of one distribution.
-Needs a card (about 2 minutes for the defaults).
+functional as ``Trainer`` runs it, params from ``init_params``) for 12
+steps from each seed and rate.  Prints each run's losses and whether the
+mean of the last four falls below the mean of the first four,
+chip_smoke.py's check of the training path (its readings are in the
+comment on ``TRAIN_LR`` there).  Needs a card (about a minute for the
+defaults).
 """
 
 from __future__ import annotations
@@ -36,35 +33,6 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.train import step as S  # noqa: E402
-from repro_torch.tree import leaf_paths, map_with_path  # noqa: E402
-
-
-def whole_leaf_params(cfg, gen: torch.Generator, device: str):
-    """``init_params`` as it drew before per-block draws: the same
-    distributions, each leaf in one fp32 call."""
-    f32 = dict(dtype=torch.float32, device=device)
-
-    def uniform(shape, lo, hi):
-        return torch.rand(shape, generator=gen, **f32) * (hi - lo) + lo
-
-    def init(name, spec):
-        name, shape, dtype = name.lower(), spec.shape, spec.dtype
-        if "a_log" in name:
-            return torch.log(uniform(shape, 1.0, 16.0))
-        if "dt_bias" in name:
-            u = uniform(shape, 1e-3, 1e-1)
-            return u + torch.log(-torch.expm1(-u))
-        if "d_skip" in name:
-            return torch.ones(shape, **f32)
-        if name.endswith("['b']") or "ln" in name or "norm" in name:
-            return torch.zeros(shape, dtype=dtype, device=device)
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        scale = 0.02 if fan_in <= 0 else min(0.02, fan_in ** -0.5)
-        return torch.randn(shape, generator=gen, **f32).mul_(scale).to(dtype)
-
-    specs = M.param_specs(cfg)
-    values = {n: init(n, s) for n, s in leaf_paths(specs)}
-    return map_with_path(lambda n, _: values[n], specs)
 
 
 def main() -> int:
@@ -82,30 +50,27 @@ def main() -> int:
     cfg = get_config("mamba2-130m")
     for lr in (float(r) for r in args.rates.split(",")):
         for seed in (int(s) for s in args.seeds.split(",")):
-            for scheme in ("per-block", "whole-leaf"):
-                opt = OptConfig(name="adamw", lr=lr, warmup_steps=2,
-                                decay_steps=1000, clip_norm=1.0)
-                gen = torch.Generator(device="cuda").manual_seed(seed)
-                params = M.init_params(cfg, gen, "cuda") \
-                    if scheme == "per-block" \
-                    else whole_leaf_params(cfg, gen, "cuda")
-                state = {"params": params, "opt": init_opt_state(params, opt),
-                         "step": torch.zeros((), dtype=torch.int32,
-                                             device="cuda")}
-                data = SyntheticDataset(cfg, DataConfig(batch=8,
-                                                        seq_len=4096))
-                losses = []
-                for s in range(12):
-                    state, met = S.train_step(state, data.tensors_at(
-                        s, "cuda"), cfg, opt, journal=True)
-                    losses.append(float(met["loss"]))
-                first, last = np.mean(losses[:4]), np.mean(losses[-4:])
-                print(f"lr {lr:g} seed {seed} {scheme}: "
-                      f"{[round(x, 3) for x in losses]}; first four "
-                      f"{first:.4f}, last four {last:.4f}, falls "
-                      f"{bool(last < first)}", flush=True)
-                del state, params
-                torch.cuda.empty_cache()
+            opt = OptConfig(name="adamw", lr=lr, warmup_steps=2,
+                            decay_steps=1000, clip_norm=1.0)
+            params = M.init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(seed), "cuda")
+            state = {"params": params, "opt": init_opt_state(params, opt),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device="cuda")}
+            data = SyntheticDataset(cfg, DataConfig(batch=8,
+                                                    seq_len=4096))
+            losses = []
+            for s in range(12):
+                state, met = S.train_step(state, data.tensors_at(
+                    s, "cuda"), cfg, opt, journal=True)
+                losses.append(float(met["loss"]))
+            first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+            print(f"lr {lr:g} seed {seed}: "
+                  f"{[round(x, 3) for x in losses]}; first four "
+                  f"{first:.4f}, last four {last:.4f}, falls "
+                  f"{bool(last < first)}", flush=True)
+            del state, params
+            torch.cuda.empty_cache()
     return 0
 
 
