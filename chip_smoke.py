@@ -13,11 +13,13 @@ from ``src/repro_torch/csrc``
   kernel        the hash against its plain PyTorch version, bit-exact, at
                 every listed shape, each on the route its row length picks
                 (one warp a row up to 4096 lanes, block chunks and atomics
-                above), with the wrapper's median time, the short-row
-                kernel's time alone (100 launches replayed from a CUDA
-                graph), the plain version's time and the HBM bound; and the
-                log's per-wave hash of a pinned (64, 259) matrix by host
-                clock, with the device operations it issues;
+                above), with the wrapper's median time, its time alone
+                (launches replayed from a CUDA graph; on the long-row
+                route also the kernel without its memset and cast), the
+                plain version's time and the HBM bound, also at qwen2-7b's
+                7.60 GB wi grad as one row; and the log's per-wave hash of
+                a pinned (64, 259) matrix by host clock, with the device
+                operations it issues;
   main path     a replicated log (local primary + 2 backups, W = 2 of 3)
                 with a 1 GiB ring of 1 KiB records hashed by the kernel
                 (phash threshold 256 B), filled with batched appends until
@@ -111,12 +113,12 @@ from ``src/repro_torch/csrc``
                 launches on the tensor cores and none on the CUDA cores,
                 one hash launch
                 per grad leaf; ms, tokens/s, peak memory, busy share, top
-                kernels), then 12 steps through the journaled, checkpointed
+                kernels), then 8 steps through the journaled, checkpointed
                 trainer (checkpoint every 4, F = 4, manifests and journal
                 on a replicated log with 1 backup at W = 2, checkpoints on 2
                 in-memory stores at W = 2) and a second deployment that
-                stops after step 8, restores and finishes: the loss finite
-                and falling, the resumed steps 9-12 within rtol 1e-5 of the
+                stops after step 4, restores and finishes: the loss finite
+                and falling, the resumed steps 5-8 within rtol 1e-5 of the
                 uninterrupted run, every step's integrity equal to the
                 plain hash of its grads on the CPU;
   train cpu     mamba2-130m at full width cut to 2 layers, fp32: one AdamW
@@ -193,8 +195,8 @@ from ``src/repro_torch/csrc``
   train attn    the fp32 grads of 1 x 256 at full width on the card and
   cpu           on the CPU from the same state — gemma2-9b cut to 2
                 layers with a window of 128, deepseek-v3 cut to its dense
-                layer and MTP block, hubert-xlarge, qwen2-7b,
-                command-r-35b and moonshot-v1-16b-a3b cut to 2 layers —
+                layer and MTP block, hubert-xlarge cut to 2 layers,
+                qwen2-7b, command-r-35b and moonshot-v1-16b-a3b to 1 —
                 within 1e-4 of each leaf's largest, then a donated AdamW
                 step on the card; with a planted fault of the backward
                 (dk, dv from one head of a group for gemma2, qwen2 and
@@ -284,12 +286,23 @@ from ``src/repro_torch/csrc``
                 within 3%; the card's allocated
                 bytes back at their start after each; then qwen2-7b trained
                 whole through launch/train.py's main (Adafactor, 1 x 4096,
-                3 journaled steps): finite losses, every journal record
+                5 journaled steps): finite losses, every journal record
                 durable, each step's integrity equal to the plain hash of
                 its grads, the hash reading each grad in place, the flash
                 forward, backward and hash launches counted, the peak under
-                the card's memory.  ``--phase whole_models`` runs it alone
-                and prints its JSON.
+                the card's memory; then the checkpointing trainer on the
+                same run: the step-3 checkpoint of the whole 23.17 GB state
+                by save_async behind step 3 to two FileStore replicas (a
+                chunk a stacked layer) with the manifest in a replicated
+                log, a crash after step 3 (the log's devices as their media
+                holds them), one byte of the largest shard flipped on
+                replica 0, the log rebuilt by quorum recovery and a fresh
+                trainer restoring step 3 (every leaf's plain hash the
+                saved one's, replica 0 read-repaired), re-seating the data
+                from the journal and running steps 3 and 4 (losses within
+                1e-5, every final leaf's hash the 5-step run's); the stall,
+                save and restore times, host memory and disk reported.
+                ``--phase whole_models`` runs it alone and prints its JSON.
 
 Each model path prints its configuration, a ``reduced`` list of every cut
 from the published config, the card's name and power limit, and its peak
@@ -477,17 +490,19 @@ def kernel_phase(gen: torch.Generator, main_rows: int) -> dict:
             raise AssertionError(f"{name}: kernel differs from plain version")
         big = rows * lanes > (1 << 24)
         ms = timed_ms(lambda: ops.tensor_checksum_batch(mat), 20, flush)
-        alone = kernel_alone_ms(lambda: checksum.checksum_rows_cuda(mat),
-                                100) if route == "short_rows" else None
+        alone, only = hash_alone_ms(mat, 100)
         plain = timed_ms(lambda: ref.checksum_lanes_2d(mat), 5 if big else 20,
                          flush)
         b, by = bound_ms(rows, lanes)
         results[name] = dict(shape=[rows, lanes], route=route, max_abs_err=err,
-                             ms=ms, kernel_alone_ms=alone, plain_ms=plain,
+                             ms=ms, kernel_alone_ms=alone,
+                             long_row_kernel_ms=only, plain_ms=plain,
                              bound_ms=b, bound_by=by)
-        alone_txt = "" if alone is None else f"kernel alone {alone:.6f} ms, "
-        log(f"kernel {name} ({route}): exact, {alone_txt}wrapper {ms:.6f} ms, "
-            f"plain {plain:.6f} ms, bound {b:.6f} ms ({by})")
+        only_txt = "" if only is None else \
+            f" (the kernel without its memset and cast {only:.6f} ms)"
+        log(f"kernel {name} ({route}): exact, kernel alone {alone:.6f} ms"
+            f"{only_txt}, wrapper {ms:.6f} ms, plain {plain:.6f} ms, bound "
+            f"{b:.6f} ms ({by})")
         del mat, got, want
     wave = log_wave_hash(WAVE, 259)
     results["log wave hash (64,259)"] = wave
@@ -508,15 +523,82 @@ def kernel_phase(gen: torch.Generator, main_rows: int) -> dict:
             raise AssertionError(f"{name}: kernel differs from plain version")
         lanes = (x.numel() * x.element_size() + 3) // 4
         ms = timed_ms(lambda: ops.tensor_checksum(x), 20, flush)
+        alone, only = hash_alone_ms(ref.as_words(x).view(1, -1), 20)
         plain = timed_ms(lambda: ref.tensor_checksum(x), 5, flush)
         b, by = bound_ms(1, lanes)
         results[name] = dict(shape=list(x.shape), max_abs_err=err, ms=ms,
+                             kernel_alone_ms=alone, long_row_kernel_ms=only,
                              plain_ms=plain, bound_ms=b, bound_by=by)
-        log(f"kernel {name}: exact, {ms:.6f} ms, plain {plain:.6f} ms, "
-            f"bound {b:.6f} ms ({by})")
+        log(f"kernel {name}: exact, kernel alone {alone:.6f} ms (without its "
+            f"memset and cast {only:.6f} ms), wrapper {ms:.6f} ms, plain "
+            f"{plain:.6f} ms, bound {b:.6f} ms ({by})")
         del x
+    results["qwen2-7b wi grad"] = widest_grad_hash(gen, flush)
     torch.cuda.empty_cache()
     return results
+
+
+def long_row_kernel(mat: torch.Tensor, out: torch.Tensor) -> None:
+    """The long-row kernel by itself on ``mat``, adding into ``out`` (int32
+    [rows]) on the current stream: no memset, no cast, and no count (a
+    timing's launch)."""
+    from repro_torch.kernels.checksum import checksum
+
+    rows, lanes = mat.shape
+    err = checksum._fn("arcadia_checksum_rows")(
+        mat.data_ptr(), out.data_ptr(), rows, lanes,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"long-row kernel launch failed: cudaError_t {err}")
+
+
+def hash_alone_ms(mat: torch.Tensor, launches: int):
+    """(the hash wrapper's device time alone, the long-row kernel's by
+    itself or None on the short-row route): ``launches`` calls replayed
+    from a CUDA graph (``kernel_alone_ms``).  On the long-row route the
+    wrapper is a memset, the kernel and a cast."""
+    from repro_torch.kernels.checksum import checksum
+
+    alone = kernel_alone_ms(lambda: checksum.checksum_rows_cuda(mat),
+                            launches)
+    if checksum.route(mat.shape[1]) == "short_rows":
+        return alone, None
+    out = torch.zeros(mat.shape[0], dtype=torch.int32, device=mat.device)
+    return alone, kernel_alone_ms(lambda: long_row_kernel(mat, out), launches)
+
+
+def widest_grad_hash(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """The hash of qwen2-7b's largest grad leaf (the stacked wi, bf16) as
+    the journaled step hashes it, one row of all its lanes, on the
+    long-row kernel: exact against the plain hash in pieces
+    (``plain_hash``), timed alone and by itself (5 launches), by wrapper
+    and against its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.checksum import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaf_paths
+
+    path, spec = max(leaf_paths(M.param_specs(get_config("qwen2-7b"))),
+                     key=lambda kv: math.prod(kv[1].shape))
+    x = torch.empty(spec.shape, dtype=spec.dtype, device=DEV)
+    x.view(torch.int16).random_(-2 ** 15, 2 ** 15, generator=gen)
+    words = ref.as_words(x).view(1, -1)
+    lanes = words.shape[1]
+    err = abs(int(ops.tensor_checksum(x)) - plain_hash(x))
+    if err:
+        raise AssertionError(f"qwen2-7b {path} grad: kernel differs from the "
+                             f"plain hash")
+    ms = timed_ms(lambda: ops.tensor_checksum(x), 5, flush)
+    alone, only = hash_alone_ms(words, 5)
+    b, by = bound_ms(1, lanes)
+    log(f"kernel qwen2-7b {path} grad {list(spec.shape)} {spec.dtype} as one "
+        f"row of {lanes} lanes ({-(-lanes // 4096)} blocks into one word): "
+        f"exact, kernel alone {alone:.6f} ms (without its memset and cast "
+        f"{only:.6f} ms), wrapper {ms:.6f} ms, bound {b:.6f} ms ({by})")
+    del x, words
+    return dict(leaf=path, shape=list(spec.shape), lanes=lanes, max_abs_err=err,
+                ms=ms, kernel_alone_ms=alone, long_row_kernel_ms=only,
+                bound_ms=b, bound_by=by)
 
 
 def payload(i: int, base: bytes) -> bytes:
@@ -1779,7 +1861,9 @@ def ssd_backward_phase(seed: int) -> dict:
 # ------------------------ training mamba2-130m -------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 4096
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_F, TRAIN_CRASH = 12, 4, 4, 8
+# tests/test_trainer.py runs 12 steps with the crash after 8; 8 and 4 here
+# keep the script inside its time limit
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_F, TRAIN_CRASH = 8, 4, 4, 4
 TRAIN_PEAK_CUT_GB = 70.0
 # tests/test_trainer.py's optimizer
 TRAIN_OPT = dict(name="adamw", lr=3e-3, warmup_steps=2, decay_steps=1000,
@@ -1894,10 +1978,10 @@ def profiled_train_step(state, batch, cfg, opt_cfg):
 def train_phase(seed: int, card: str) -> dict:
     """mamba2-130m at its published widths and depth, bf16 compute over fp32
     master params, 8 x 4096 tokens a step from the synthetic pipeline,
-    AdamW: a profiled step, then tests/test_trainer.py's schedule through
-    the journaled, checkpointed trainer — 12 steps (a checkpoint every 4, F
-    = 4) and a second deployment that stops after step 8, restores in a
-    fresh trainer and finishes — with the manifests and journal on a
+    AdamW: a profiled step, then tests/test_trainer.py's schedule cut to 8
+    steps through the journaled, checkpointed trainer (a checkpoint every
+    4, F = 4) and a second deployment that stops after step 4, restores in
+    a fresh trainer and finishes — with the manifests and journal on a
     replicated log (local+remote, 1 backup, W = 2) and the checkpoints on 2
     in-memory stores at W = 2; every step journaled with its grads' hashes."""
     from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
@@ -1915,7 +1999,9 @@ def train_phase(seed: int, card: str) -> dict:
     check_trainable(cfg, DEV, TRAIN_SEQ)
     opt = OptConfig(**dict(TRAIN_OPT, lr=TRAIN_LR))
     reduced = ["weights random from --seed (init_params)",
-               "synthetic Markov tokens (SyntheticDataset)"]
+               "synthetic Markov tokens (SyntheticDataset)",
+               f"tests/test_trainer.py's 12 steps -> {TRAIN_STEPS}, the crash "
+               f"after 8 -> {TRAIN_CRASH} (the script's time limit)"]
     out: dict = {}
 
     # the profiled step: the second of two from a fresh state
@@ -3175,8 +3261,10 @@ def attention_train_phase(arch: str, seed: int, card: str) -> dict:
 # layers with a window of 128 (it bites at 256 tokens), dk and dv from one
 # head of each group; deepseek-v3's dense layer and MTP block, the
 # backward without the causal mask; hubert-xlarge's two layers, the
-# backward with one; qwen2-7b's and command-r's two layers, one head's dk
-# and dv; moonshot's two layers (one head a group), no causal mask
+# backward with one; qwen2-7b's and command-r's one layer, one head's dk
+# and dv; moonshot's one layer (one head a group), no causal mask.  The
+# last three took two layers until the checkpointing trainer joined the
+# script; one each keeps it inside its time limit
 ATTN_CPU = [
     ("gemma2-9b", dict(n_layers=2, sliding_window=128),
      ["n_layers 42 -> 2", "sliding_window 4096 -> 128 (bites at 256 tokens)"],
@@ -3185,10 +3273,10 @@ ATTN_CPU = [
      ["n_layers 61 -> 1, first_dense_layers 3 -> 1 (with the MTP block)"],
      "causal dropped"),
     ("hubert-xlarge", dict(n_layers=2), ["n_layers 48 -> 2"], "causal added"),
-    ("qwen2-7b", dict(n_layers=2), ["n_layers 28 -> 2"], "one_head",
+    ("qwen2-7b", dict(n_layers=1), ["n_layers 28 -> 1"], "one_head",
      "adafactor"),
-    ("command-r-35b", dict(n_layers=2), ["n_layers 40 -> 2"], "one_head"),
-    ("moonshot-v1-16b-a3b", dict(n_layers=2), ["n_layers 48 -> 2"],
+    ("command-r-35b", dict(n_layers=1), ["n_layers 40 -> 1"], "one_head"),
+    ("moonshot-v1-16b-a3b", dict(n_layers=1), ["n_layers 48 -> 1"],
      "causal dropped"),
 ]
 # tokens or frames of the step (cut from 512 when three configs joined, to
@@ -4356,9 +4444,28 @@ WHOLE_DECODE_FAULTS = ("rope_off_by_one", "cache_slot_early")
 # paths' router difference at that row (a rounding tie), and at most
 # WHOLE_MAX_FLIPS of the 192.
 WHOLE_MAX_FLIPS = 8
+# qwen2-7b trained whole: the reference run by launch/train.py's main
+# (no checkpoint: --ckpt-every beyond the steps), then the checkpointing
+# deployment the launcher builds with --store-dir, driven through Trainer
+# (the launcher shuts its log down at exit, and a restart needs it): the
+# log local+remote with 1 backup at W = 2, WHOLE_STORE_REPLICAS FileStore
+# replicas at W = 2 under WHOLE_STORE_DIR (in the checkout, removed at the
+# phase's end; its disk must hold the replicas' state bytes times
+# WHOLE_DISK_SLACK), each leaf saved in a chunk a stacked layer (a shard's
+# frame has a u32 payload length: the launcher's one chunk a leaf cannot
+# hold the 7.60 GB wi), force frequency F = WHOLE_JOURNAL_F, the trainer's
+# default asynchronous checkpoint every WHOLE_CKPT_EVERY steps, a crash
+# after WHOLE_FIRST_LIFE steps and a second life to WHOLE_TRAIN_STEPS.
+WHOLE_TRAIN_STEPS = 5
 WHOLE_TRAIN_ARGS = ["--arch", "qwen2-7b", "--optimizer", "adafactor",
-                    "--batch", "1", "--seq", "4096", "--steps", "3",
-                    "--ckpt-every", "4"]
+                    "--batch", "1", "--seq", "4096",
+                    "--steps", str(WHOLE_TRAIN_STEPS), "--ckpt-every", "6"]
+WHOLE_CKPT_EVERY = 3
+WHOLE_FIRST_LIFE = 4
+WHOLE_JOURNAL_F = 4
+WHOLE_STORE_REPLICAS = 2
+WHOLE_STORE_DIR = ROOT / "_whole_ckpt"
+WHOLE_DISK_SLACK = 1.1
 
 
 def param_bytes(cfg) -> tuple[int, int]:
@@ -4866,41 +4973,68 @@ def serve_whole(arch: str, batch: int, positions: int, seed: int,
 
 
 def whole_train(seed: int, card: str) -> dict:
-    """``train_whole``, then the card's allocated bytes back at their
-    start."""
+    """``train_whole`` (the reference run), then ``checkpoint_restart``
+    held to it; the card's allocated bytes back at their start after
+    each."""
     start = torch.cuda.memory_allocated()
-    out = train_whole(seed, card)
+    out, ref_run = train_whole(seed, card)
     freed_to(start, "qwen2-7b whole train")
+    t0 = time.perf_counter()
+    out["checkpoint_restart"] = checkpoint_restart(seed, card, ref_run, start)
+    del ref_run
+    freed_to(start, "qwen2-7b checkpointing trainer")
+    out["checkpoint_restart"]["phase_s"] = time.perf_counter() - t0
+    log(f"phase whole qwen2-7b checkpointing trainer: "
+        f"{out['checkpoint_restart']['phase_s']:.3f} s")
     return out
 
 
-def train_whole(seed: int, card: str) -> dict:
-    """qwen2-7b whole through ``launch/train.py``'s ``main`` with
-    WHOLE_TRAIN_ARGS (Adafactor, 1 x 4096, the journal through the
-    replicated log, no checkpoint): the trainer's step wrapped to time it
-    and to hold each step's integrity record to the plain hash of its
-    grads on the card; finite losses, every journal record durable, the
-    flash forward, backward and hash launches counted, the peak under the
-    card's memory."""
-    import io
-    from contextlib import redirect_stdout
+def leaf_hashes(tree) -> dict:
+    """{leaf path: plain hash} of every leaf of ``tree``, on its device."""
+    from repro_torch.tree import leaf_paths
 
+    return {p: plain_hash(t) for p, t in leaf_paths(tree)}
+
+
+def uncounted_ms(fn, reps: int = 5) -> float:
+    """``timed_ms(fn)`` with the hash kernel's counts left as they were (a
+    timing's launches are not the main path's)."""
+    from repro_torch.kernels.checksum import checksum
+
+    counts = (checksum.LAUNCHES, checksum.SHORT_ROW_LAUNCHES,
+              checksum.LONG_ROW_LAUNCHES)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    try:
+        return timed_ms(fn, reps, flush)
+    finally:
+        (checksum.LAUNCHES, checksum.SHORT_ROW_LAUNCHES,
+         checksum.LONG_ROW_LAUNCHES) = counts
+
+
+def checked_trainer():
+    """A subclass of the port's ``Trainer`` for the whole train paths, each
+    instance listed in its ``made``: the step as ``train_step`` runs it
+    (``grads_and_metrics``, then ``apply_step`` with the journal), timed
+    from its start to its loss on the host, its integrity held to the plain
+    hash of its grads on the card and, once, the hash's reading of each
+    grad in place checked; a checkpoint's leaves hashed (plain) as they are
+    saved, and the step loop's time inside ``_checkpoint`` (for an
+    asynchronous save, the snapshot to the host) timed; the journal and the
+    durable LSN read after ``run``."""
     from repro_torch.kernels.checksum import ref
-    from repro_torch.launch import train as launch_train
     from repro_torch.train import step as S
     from repro_torch.train.trainer import Trainer
     from repro_torch.tree import leaf_paths
 
-    trainers = []
-
     class Checked(Trainer):
-        """The launcher's trainer, its step as ``train_step`` runs it."""
+        made: list = []
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.ms, self.no_copy = [], None
+            self.ms, self.spans, self.no_copy = [], [], None
+            self.saved, self.stall_s = {}, {}
             self.step_fn = self.step
-            trainers.append(self)
+            Checked.made.append(self)
 
         def step(self, state, batch):
             torch.cuda.synchronize()
@@ -4909,15 +5043,23 @@ def train_whole(seed: int, card: str) -> dict:
             new, met = S.apply_step(state, grads, met, self.opt_cfg,
                                     journal=True)
             float(met["loss"])                  # the step's end
-            self.ms.append((time.perf_counter() - t0) * 1e3)
+            t1 = time.perf_counter()
+            self.ms.append((t1 - t0) * 1e3)
+            self.spans.append((t0, t1))
             if self.no_copy is None:     # the hash reads each grad in place
                 self.no_copy = all(
                     ref.as_words(g).data_ptr() == g.data_ptr()
                     for _, g in leaf_paths(grads)
                     if g.numel() * g.element_size() % 4 == 0)
-            check_integrity(f"qwen2-7b whole step {int(state['step'])}", met,
-                            grads)
+            check_integrity(f"{self.cfg.name} whole step "
+                            f"{int(state['step'])}", met, grads)
             return new, met
+
+        def _checkpoint(self, step):
+            self.saved[step] = leaf_hashes(self.state)
+            t0 = time.perf_counter()
+            super()._checkpoint(step)
+            self.stall_s[step] = time.perf_counter() - t0
 
         def run(self, n_steps=None):
             rep = super().run(n_steps)
@@ -4925,6 +5067,51 @@ def train_whole(seed: int, card: str) -> dict:
             self.durable = self.mgr.log.durable_lsn
             return rep
 
+    return Checked
+
+
+def expect_train_launches(what: str, counts: dict, steps: int, cfg,
+                          n_leaves: int) -> None:
+    """A whole train run's launches: the flash forward (with block remat)
+    and backward on the tensor cores and one hash a grad leaf, each step."""
+    inside, _ = attention_layers(cfg)
+    want = (steps * 2 * inside, steps * inside, steps * n_leaves)
+    got = (counts["tensor_cores"], counts["backward_tensor_cores"],
+           counts["hash"]["launches"])
+    if got != want or counts["cuda_cores"] or counts["backward_cuda_cores"]:
+        raise AssertionError(f"{what} launches {counts}: expected {want} "
+                             f"(flash forward with remat, backward, hash) "
+                             f"on the tensor cores")
+
+
+def check_journal(what: str, journal: list, durable: int, steps,
+                  losses: list) -> None:
+    """``journal`` ((lsn, record) pairs) holds one record a step of
+    ``steps`` with its loss, and all of them are durable."""
+    records = [r for _, r in journal]
+    want = [{"step": s, "loss": loss} for s, loss in zip(steps, losses)]
+    if records != want or not durable >= max(lsn for lsn, _ in journal):
+        raise AssertionError(f"{what} journal {journal} is not {want} made "
+                             f"durable (durable lsn {durable})")
+
+
+def train_whole(seed: int, card: str) -> tuple:
+    """qwen2-7b whole through ``launch/train.py``'s ``main`` with
+    WHOLE_TRAIN_ARGS (Adafactor, 1 x 4096, the journal through the
+    replicated log, no checkpoint), its trainer ``checked_trainer``'s:
+    finite losses, every journal record durable, the flash forward, backward
+    and hash launches counted, the peak under the card's memory; then the
+    step's integrity hash timed on leaves shaped as its grads (the params)
+    and every leaf of the final state hashed.  -> (its numbers, the run:
+    the trainer's configs, losses and final hashes)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.kernels.checksum import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.tree import leaf_paths
+
+    Checked = checked_trainer()
     torch.cuda.reset_peak_memory_stats()
     zero_bwd_counts()
     zero_hash_counts()
@@ -4941,58 +5128,478 @@ def train_whole(seed: int, card: str) -> dict:
     run_s = time.perf_counter() - t0
     counts = dict(bwd_counts(), hash=hash_counts())
     peak = torch.cuda.max_memory_allocated()
-    (tr,) = trainers
-    trainers.clear()                    # the class's cell holds the list
+    (tr,) = Checked.made
+    Checked.made.clear()
     cfg = tr.cfg
-    steps = int(argv[argv.index("--steps") + 1])
     seq = int(argv[argv.index("--seq") + 1])
     losses = tr.report.losses
-    records = [r for _, r in tr.journal]
     n_leaves = len(list(leaf_paths(tr.state["params"])))
+    hash_ms = uncounted_ms(lambda: ops.tree_checksums(tr.state["params"]))
+    run = dict(cfg=cfg, opt=tr.opt_cfg, data=tr.data.cfg, losses=losses,
+               final=leaf_hashes(tr.state), n_leaves=n_leaves)
+    tr.state = None
     total = torch.cuda.get_device_properties(0).total_memory
     out = describe(cfg, ["weights random from --seed (init_params)",
                          "synthetic Markov tokens (SyntheticDataset)",
-                         f"{steps} steps, no checkpoint (--ckpt-every "
-                         f"beyond them)"], card)
+                         f"{WHOLE_TRAIN_STEPS} steps, no checkpoint "
+                         f"(--ckpt-every beyond them)"], card)
     out.update(argv=argv, losses=losses, step_ms=tr.ms,
                step_ms_median=float(np.median(tr.ms[1:])),
                tokens_per_s=seq / float(np.median(tr.ms[1:])) * 1e3,
                run_s=run_s, peak_bytes=peak, card_bytes=total,
-               journal=records, durable_lsn=tr.durable,
+               journal=[r for _, r in tr.journal], durable_lsn=tr.durable,
                hash_reads_grads_in_place=tr.no_copy, launches=counts,
+               step_hash_ms=hash_ms,
                launcher_output=text.getvalue().splitlines())
-    inside, outside = attention_layers(cfg)
     log(f"whole qwen2-7b train ({card}): {' '.join(argv)}: losses "
         f"{losses}; step ms {tr.ms} (median of the warm ones "
         f"{out['step_ms_median']:.3f}, {out['tokens_per_s']:.1f} tokens/s); "
         f"peak device memory {peak / 1e9:.3f} GB of {total / 1e9:.3f}; "
-        f"journal {records} durable to lsn {tr.durable}; integrity equal to "
-        f"the plain hash of the grads at every step, the hash reading each "
-        f"grad in place {tr.no_copy}; launches {counts}; launcher: "
+        f"journal {out['journal']} durable to lsn {tr.durable}; integrity "
+        f"equal to the plain hash of the grads at every step, the hash "
+        f"reading each grad in place {tr.no_copy}; the step's integrity hash "
+        f"({n_leaves} leaves) {hash_ms:.6f} ms; launches {counts}; launcher: "
         f"{out['launcher_output']}")
-    if len(losses) != steps or not np.isfinite(losses).all():
+    if len(losses) != WHOLE_TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"qwen2-7b whole train losses {losses}")
-    if records != [{"step": s, "loss": l} for s, l in enumerate(losses)] or \
-            not tr.durable >= max(lsn for lsn, _ in tr.journal):
-        raise AssertionError(f"qwen2-7b journal {tr.journal} not durable "
-                             f"(durable lsn {tr.durable})")
+    check_journal("qwen2-7b", tr.journal, tr.durable, range(len(losses)),
+                  losses)
     if not tr.no_copy:
         raise AssertionError("the integrity hash copies a grad leaf")
-    want = (steps * 2 * inside, steps * inside, steps * n_leaves)
-    got = (counts["tensor_cores"], counts["backward_tensor_cores"],
-           counts["hash"]["launches"])
-    if got != want or counts["cuda_cores"] or counts["backward_cuda_cores"]:
-        raise AssertionError(f"qwen2-7b whole train launches {counts}: "
-                             f"expected {want} (flash forward with remat, "
-                             f"backward, hash) on the tensor cores")
+    expect_train_launches("qwen2-7b whole train", counts, WHOLE_TRAIN_STEPS,
+                          cfg, n_leaves)
     if not peak < total:
         raise AssertionError(f"qwen2-7b whole train peaked at {peak} bytes")
+    return out, run
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of /proc/meminfo, in bytes."""
+    info = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, value = line.split(":", 1)
+        if key in ("MemTotal", "MemAvailable"):
+            info[key] = int(value.split()[0]) * 1024
+    return info
+
+
+def peak_rss() -> int:
+    """The process's peak resident set so far, in bytes."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def flip_byte(path: Path) -> int:
+    """A planted media fault: one byte in the middle of the file (inside a
+    shard's payload) inverted, made durable; -> its offset."""
+    off = path.stat().st_size // 2
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+        f.flush()
+        os.fsync(f.fileno())
+    return off
+
+
+def same_bytes(a: Path, b: Path, chunk: int = 64 << 20) -> bool:
+    """Whether two files hold the same bytes (read in chunks)."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+@contextmanager
+def timed_calls(module, names, into: dict):
+    """``module``'s functions ``names`` timed while the block runs (card
+    work synchronised at each return): seconds summed into ``into``."""
+    real = {n: getattr(module, n) for n in names}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+    for n in names:
+        setattr(module, n, timed(n))
+    try:
+        yield into
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def checkpoint_restart(seed: int, card: str, ref_run: dict,
+                       start: int) -> dict:
+    """The checkpointing trainer on qwen2-7b whole (the deployment of
+    WHOLE_TRAIN_ARGS' neighbours above): a first life of WHOLE_FIRST_LIFE
+    steps whose step-3 checkpoint ``save_async`` writes while step 3 runs;
+    a crash (every object of that life dropped; what survives is the log's
+    devices as their media holds them, ``crash(keep_probability=0.0)``,
+    and the stores' directories), one byte of the largest shard on replica
+    0 flipped; a second life on the log rebuilt from both images by quorum
+    recovery and on new FileStore objects over the same directories, which
+    restores step 3 (replica 0 fails its CRC, replica 1 serves, read-repair
+    rewrites replica 0), re-seats the data from the journal and runs to
+    WHOLE_TRAIN_STEPS.  Gates: each restored leaf's plain hash equal to its
+    hash as saved; replica 0's file byte-equal to replica 1's after the
+    restore; the resumed losses within rtol 1e-5 of the reference run's
+    (bitwise reported) and every final leaf's hash equal to its; each
+    life's journal its steps, durable; the manifest committed after its
+    shards and after step 2's record; integrity, launches, saves + skips
+    = 1, peaks under the card's memory.  Timings, host memory and disk are
+    reported."""
+    import gc
+    import shutil
+    import threading
+
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        FileStore, ReplicatedStore)
+    from repro_torch.checkpoint import manager as ckpt_mod
+    from repro_torch.core import (CopyAccessor, Log, ReplicaServer,
+                                  ReplicaSet, ReplicationGroup, Transport,
+                                  quorum_recover)
+    from repro_torch.core.replication import build_replica_set
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.train.step import train_state_specs
+    from repro_torch.train.trainer import TrainerConfig
+    from repro_torch.tree import leaf_paths
+
+    cfg, opt = ref_run["cfg"], ref_run["opt"]
+    state_bytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                      for _, s in leaf_paths(train_state_specs(cfg, opt)))
+    total = torch.cuda.get_device_properties(0).total_memory
+    Checked = checked_trainer()
+
+    class Replica(FileStore):
+        """A FileStore replica that times and counts its puts and gets."""
+
+        def __init__(self, root, name):
+            super().__init__(root, name)
+            self.lock = threading.Lock()
+            self.put_s = self.get_s = 0.0
+            self.put_bytes = self.get_bytes = 0
+            self.put_end: dict = {}
+
+        def put(self, key, data):
+            t0 = time.perf_counter()
+            super().put(key, data)
+            t1 = time.perf_counter()
+            with self.lock:
+                self.put_s += t1 - t0
+                self.put_bytes += len(data)
+                self.put_end[key] = t1
+
+        def get(self, key):
+            t0 = time.perf_counter()
+            data = super().get(key)
+            with self.lock:
+                self.get_s += time.perf_counter() - t0
+                self.get_bytes += len(data)
+            return data
+
+    class Quorum(ReplicatedStore):
+        """The replicated store, its gets timed (reads, CRCs, repairs)."""
+        get_s = 0.0
+
+        def get(self, key, expect_checksum=None):
+            t0 = time.perf_counter()
+            data = super().get(key, expect_checksum)
+            self.get_s += time.perf_counter() - t0
+            return data
+
+    def trainer(log_obj):
+        replicas = [Replica(str(root / f"replica{i}"), f"fs{i}")
+                    for i in range(WHOLE_STORE_REPLICAS)]
+        mgr = CheckpointManager(
+            Quorum(replicas, write_quorum=WHOLE_STORE_REPLICAS // 2 + 1),
+            log_obj, CheckpointConfig(force_freq=WHOLE_JOURNAL_F,
+                                      chunks_per_leaf=cfg.n_layers))
+        tr = Checked(cfg, opt, SyntheticDataset(cfg, ref_run["data"]), mgr,
+                     TrainerConfig(total_steps=WHOLE_TRAIN_STEPS,
+                                   ckpt_every=WHOLE_CKPT_EVERY,
+                                   journal_freq=WHOLE_JOURNAL_F, seed=seed),
+                     device=DEV)
+        Checked.made.clear()
+        return tr
+
+    root = WHOLE_STORE_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = describe(cfg, ["weights random from --seed (init_params)",
+                         "synthetic Markov tokens (SyntheticDataset)",
+                         f"{WHOLE_TRAIN_STEPS} steps",
+                         f"chunks_per_leaf 1 -> {cfg.n_layers} (a chunk a "
+                         f"stacked layer): a shard's frame holds at most "
+                         f"2^32 - 1 payload bytes (u32 length), and the "
+                         f"stacked wi is 7.60 GB"], card)
+    try:
+        mem, free = host_memory(), shutil.disk_usage(root).free
+        need = WHOLE_STORE_REPLICAS * state_bytes * WHOLE_DISK_SLACK
+        out.update(state_bytes=state_bytes, host_memory=mem,
+                   store_disk_free=free, store_disk_needed=need)
+        log(f"qwen2-7b checkpointing trainer ({card}): state {state_bytes} "
+            f"bytes; host MemTotal {mem['MemTotal']} MemAvailable "
+            f"{mem['MemAvailable']} bytes; the stores' disk has {free} bytes "
+            f"free, {need:.0f} needed ({WHOLE_STORE_REPLICAS} replicas + "
+            f"{WHOLE_DISK_SLACK - 1:.0%})")
+        if free < need:
+            raise AssertionError(f"the stores' disk has {free} bytes free, "
+                                 f"{need:.0f} needed")
+
+        # ---- the first life: steps 0-3, the step-3 checkpoint async ---- #
+        rs = build_replica_set(mode="local+remote", capacity=1 << 20,
+                               n_backups=1, write_quorum=2, device=DEV)
+        try:
+            first = trainer(rs.log)
+            saves = []
+            save = first.mgr.save
+
+            def timed_save(step, state, extra=None, sync=False):
+                t0 = time.perf_counter()
+                lsn = save(step, state, extra, sync)
+                saves.append(dict(step=step, lsn=lsn, start=t0,
+                                  end=time.perf_counter()))
+                return lsn
+            first.mgr.save = timed_save
+            zero_bwd_counts()
+            zero_hash_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            first.init_or_restore()
+            rep1 = first.run(n_steps=WHOLE_FIRST_LIFE)
+            life1_s = time.perf_counter() - t0
+            counts1 = dict(bwd_counts(), hash=hash_counts())
+            peak1 = torch.cuda.max_memory_allocated()
+            rss1 = peak_rss()
+            manifests1 = [(lsn, m["step"])
+                          for lsn, m in first.mgr.manifests()]
+            # the crash: the log's devices as their media holds them
+            images = [d.crash(np.random.default_rng(seed + i),
+                              keep_probability=0.0)
+                      for i, d in enumerate((rs.primary_dev,
+                                             rs.servers[0].device))]
+            lcfg = rs.cfg
+            first.mgr.close()
+        finally:
+            rs.shutdown()
+        replicas1 = first.mgr.store.replicas
+        life1 = dict(losses=rep1.losses, step_ms=first.ms, spans=first.spans,
+                     saved=first.saved, stall_s=first.stall_s[WHOLE_CKPT_EVERY],
+                     journal=first.journal, durable=first.durable,
+                     saved_n=rep1.ckpts_saved, skipped_n=rep1.ckpts_skipped,
+                     no_copy=first.no_copy,
+                     put_s=[r.put_s for r in replicas1],
+                     written=sum(r.put_bytes for r in replicas1),
+                     put_end=max(t for r in replicas1
+                                 for t in r.put_end.values()))
+        del first, rep1, rs, replicas1, save, timed_save
+        gc.collect()
+        freed_to(start, "qwen2-7b checkpointing trainer's first life")
+
+        # ---- a planted media fault: the largest shard on replica 0 ---- #
+        big = max((root / "replica0").iterdir(), key=lambda p: p.stat().st_size)
+        flipped_at = flip_byte(big)
+
+        # ---- the second life ---- #
+        t0 = time.perf_counter()
+        accs = [CopyAccessor.for_device("node0", images[0]),
+                CopyAccessor.for_device("node1", images[1])]
+        img, recovery = quorum_recover(accs, lcfg, lcfg.write_quorum,
+                                       local_name="node0", device=DEV)
+        server = ReplicaServer(images[1], server_id="node1")
+        group = ReplicationGroup([Transport(server, primary_id="node0")],
+                                 lcfg.write_quorum, local_is_durable=True)
+        rs2 = ReplicaSet(mode="local+remote", cfg=lcfg, primary_id="node0",
+                         primary_dev=img, servers=[server],
+                         transports=list(group.transports), group=group,
+                         log=Log.open(img, lcfg, repl=group, device=DEV))
+        recover_s = time.perf_counter() - t0
+        try:
+            second = trainer(rs2.log)
+            replicas2 = second.mgr.store.replicas
+            restore_s = {}
+            restore = second.mgr.restore
+
+            def timed_restore(*a, **kw):
+                t1 = time.perf_counter()
+                got = restore(*a, **kw)
+                restore_s["restore"] = time.perf_counter() - t1
+                return got
+            second.mgr.restore = timed_restore
+            zero_bwd_counts()
+            zero_hash_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with timed_calls(ckpt_mod, ("decode_shard", "_like"), restore_s):
+                restored = second.init_or_restore()
+            init_restore_s = time.perf_counter() - t0
+            peak_restore = torch.cuda.max_memory_allocated()
+            seated = second.data.step
+            restored_hashes = leaf_hashes(second.state)
+            repaired = same_bytes(big, root / "replica1" / big.name)
+            rep2 = second.run()
+            counts2 = dict(bwd_counts(), hash=hash_counts())
+            peak2 = torch.cuda.max_memory_allocated()
+            final = leaf_hashes(second.state)
+            manifests2 = [(lsn, m["step"])
+                          for lsn, m in second.mgr.manifests()]
+            second.mgr.close()
+        finally:
+            rs2.shutdown()
+        life2 = dict(losses=rep2.losses, step_ms=second.ms,
+                     journal=second.journal, durable=second.durable,
+                     no_copy=second.no_copy,
+                     reads=sum(r.get_s for r in replicas2),
+                     read_bytes=sum(r.get_bytes for r in replicas2),
+                     repair_s=sum(r.put_s for r in replicas2),
+                     repair_bytes=sum(r.put_bytes for r in replicas2),
+                     quorum_get_s=second.mgr.store.get_s)
+        del second, rep2, replicas2, restore, timed_restore
+        gc.collect()
+        rss2 = peak_rss()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- what was measured ---- #
+    (save_rec,) = saves
+    save_s = save_rec["end"] - save_rec["start"]
+    step3 = life1["spans"][WHOLE_CKPT_EVERY]
+    overlapped = save_rec["start"] < step3[1] and save_rec["end"] > step3[0]
+    crc_s = life2["quorum_get_s"] - life2["reads"] - life2["repair_s"]
+    ref_losses = ref_run["losses"]
+    resumed = life2["losses"]
+    tail = ref_losses[WHOLE_CKPT_EVERY:]
+    first_lsn2 = max(lsn for lsn, _ in life1["journal"])
+    journal2 = [(lsn, r) for lsn, r in life2["journal"] if lsn > first_lsn2]
+    step2_lsn = dict((r["step"], lsn) for lsn, r in life1["journal"])[
+        WHOLE_CKPT_EVERY - 1]
+    out.update(
+        first_life=dict(losses=life1["losses"], step_ms=life1["step_ms"],
+                        run_s=life1_s, peak_bytes=peak1,
+                        ckpts_saved=life1["saved_n"],
+                        ckpts_skipped=life1["skipped_n"],
+                        launches=counts1, peak_rss_bytes=rss1),
+        save=dict(step=save_rec["step"], manifest_lsn=save_rec["lsn"],
+                  stall_s=life1["stall_s"], save_s=save_s,
+                  gb_per_s=state_bytes / save_s / 1e9,
+                  overlapped_step=overlapped,
+                  step_ms_with_save=life1["step_ms"][WHOLE_CKPT_EVERY],
+                  step_ms_without=life1["step_ms"][1:WHOLE_CKPT_EVERY],
+                  replica_put_s=life1["put_s"],
+                  bytes_written=life1["written"]),
+        crash=dict(flipped=f"replica0/{big.name}", offset=flipped_at,
+                   recover_s=recover_s, recovery_chosen=recovery.chosen,
+                   recovery_epoch=[recovery.old_epoch, recovery.new_epoch]),
+        restore=dict(step=restored, data_reseated_at=seated,
+                     init_and_restore_s=init_restore_s,
+                     restore_s=restore_s["restore"],
+                     gb_per_s=state_bytes / restore_s["restore"] / 1e9,
+                     store_reads_s=life2["reads"],
+                     read_bytes=life2["read_bytes"], crc_s=crc_s,
+                     decode_s=restore_s["decode_shard"],
+                     to_card_s=restore_s["_like"],
+                     repair_s=life2["repair_s"],
+                     repair_bytes=life2["repair_bytes"],
+                     replica0_repaired=repaired, peak_bytes=peak_restore),
+        second_life=dict(losses=resumed, step_ms=life2["step_ms"],
+                         peak_bytes=peak2, launches=counts2,
+                         peak_rss_bytes=rss2),
+        resumed_losses_bitwise_equal=resumed == tail,
+        final_hashes_equal=final == ref_run["final"],
+        bytes_written=life1["written"] + life2["repair_bytes"])
+    sv, rt = out["save"], out["restore"]
+    log(f"qwen2-7b checkpointing trainer, first life ({card}): losses "
+        f"{life1['losses']}; step ms {life1['step_ms']}; the step-"
+        f"{WHOLE_CKPT_EVERY} checkpoint by save_async: the step loop stalled "
+        f"{sv['stall_s']:.3f} s (the snapshot to the host), the save took "
+        f"{save_s:.3f} s ({sv['gb_per_s']:.3f} GB/s of {state_bytes} bytes: "
+        f"encode and CRC, {WHOLE_STORE_REPLICAS} replicas' fsync, the "
+        f"manifest's force; the replicas' puts {life1['put_s']} s), overlapping "
+        f"step {WHOLE_CKPT_EVERY} {overlapped}; step {WHOLE_CKPT_EVERY} "
+        f"{sv['step_ms_with_save']:.3f} ms with the save running against "
+        f"{sv['step_ms_without']} without; {life1['written']} bytes written; "
+        f"saves {life1['saved_n']} + skipped {life1['skipped_n']}; peak "
+        f"device memory {peak1 / 1e9:.3f} GB, host peak RSS {rss1 / 1e9:.3f} "
+        f"GB; launches {counts1}; {life1_s:.3f} s")
+    log(f"qwen2-7b checkpointing trainer, crash and second life ({card}): "
+        f"byte {flipped_at} of replica0/{big.name} flipped; the log rebuilt "
+        f"from both images in {recover_s:.3f} s (chose {recovery.chosen}, "
+        f"epoch {recovery.old_epoch}->{recovery.new_epoch}); restored step "
+        f"{restored} in {rt['restore_s']:.3f} s ({rt['gb_per_s']:.3f} GB/s; "
+        f"store reads {rt['store_reads_s']:.3f} s of {rt['read_bytes']} bytes, "
+        f"CRCs {crc_s:.3f} s, decode {rt['decode_s']:.3f} s, host to card "
+        f"{rt['to_card_s']:.3f} s, read-repair {rt['repair_s']:.3f} s of "
+        f"{rt['repair_bytes']} bytes; with the template's init "
+        f"{init_restore_s:.3f} s), data re-seated at {seated}; replica 0 "
+        f"repaired {repaired}; resumed losses {resumed} against {tail} "
+        f"(bitwise {resumed == tail}); final leaves' hashes equal "
+        f"{final == ref_run['final']}; step ms {life2['step_ms']}; peak "
+        f"device memory {peak_restore / 1e9:.3f} GB at the restore, "
+        f"{peak2 / 1e9:.3f} GB; host peak RSS {rss2 / 1e9:.3f} GB; launches "
+        f"{counts2}")
+
+    # ---- the gates ---- #
+    if restored != WHOLE_CKPT_EVERY or seated != WHOLE_FIRST_LIFE:
+        raise AssertionError(f"restored step {restored}, data re-seated at "
+                             f"{seated}")
+    saved = life1["saved"][WHOLE_CKPT_EVERY]
+    if restored_hashes != saved:
+        bad = [p for p in saved if restored_hashes.get(p) != saved[p]]
+        raise AssertionError(f"restored leaves {bad} differ from the saved")
+    if not repaired:
+        raise AssertionError(f"replica0/{big.name} was not read-repaired")
+    if not np.allclose(resumed, tail, rtol=1e-5, atol=0):
+        raise AssertionError(f"resumed losses {resumed} differ from the "
+                             f"uninterrupted run's {tail}")
+    if final != ref_run["final"]:
+        bad = [p for p in final if ref_run["final"].get(p) != final[p]]
+        raise AssertionError(f"after step {WHOLE_TRAIN_STEPS - 1} leaves "
+                             f"{bad} differ from the uninterrupted run's")
+    check_journal("first life", life1["journal"], life1["durable"],
+                  range(WHOLE_FIRST_LIFE), life1["losses"])
+    check_journal("second life", journal2, life2["durable"],
+                  range(WHOLE_CKPT_EVERY, WHOLE_TRAIN_STEPS), resumed)
+    if manifests1 != [(save_rec["lsn"], WHOLE_CKPT_EVERY)] or \
+            manifests2 != manifests1 or not save_rec["lsn"] > step2_lsn or \
+            not save_rec["end"] >= life1["put_end"]:
+        raise AssertionError(f"manifests {manifests1} / {manifests2}: step "
+                             f"{WHOLE_CKPT_EVERY}'s not committed after its "
+                             f"shards and after step "
+                             f"{WHOLE_CKPT_EVERY - 1}'s record "
+                             f"(lsn {step2_lsn})")
+    if not (life1["no_copy"] and life2["no_copy"]):
+        raise AssertionError("the integrity hash copies a grad leaf")
+    expect_train_launches("first life", counts1, WHOLE_FIRST_LIFE, cfg,
+                          ref_run["n_leaves"])
+    expect_train_launches("second life", counts2,
+                          WHOLE_TRAIN_STEPS - WHOLE_CKPT_EVERY, cfg,
+                          ref_run["n_leaves"])
+    if life1["saved_n"] + life1["skipped_n"] != 1:
+        raise AssertionError(f"first life: {life1['saved_n']} checkpoints "
+                             f"saved + {life1['skipped_n']} skipped, not 1")
+    if not max(peak1, peak_restore, peak2) < total:
+        raise AssertionError(f"peaks {peak1} / {peak_restore} / {peak2} "
+                             f"bytes of {total}")
     return out
 
 
 def whole_models_phase(seed: int, card: str) -> dict:
     """WHOLE_SERVE's four configs served whole, one after another, then
-    qwen2-7b trained whole; memory back to its start between them."""
+    qwen2-7b trained whole, once straight through and once through the
+    checkpointing trainer's crash and restart; memory back to its start
+    between them."""
     # the first products of each kind allocate cuBLAS's workspaces, which
     # stay: make them before the first model's start is read
     for dt in (torch.bfloat16, torch.float32):
@@ -5350,8 +5957,13 @@ def main() -> int:
              + main["rebuild_short_row_launches"]
              + sum(c["short_rows"] for c in new_paths))
     whole_train = whole["train qwen2-7b"]
+    restart = whole_train["checkpoint_restart"]
+    lives = [restart["first_life"]["launches"],
+             restart["second_life"]["launches"]]
+    restart_hash = {k: sum(c["hash"][k] for c in lives)
+                    for k in ("launches", "short_rows", "long_rows")}
     train_hash = {k: train["main_path_counts"]["hash"][k]
-                  + whole_train["launches"]["hash"][k]
+                  + whole_train["launches"]["hash"][k] + restart_hash[k]
                   for k in ("launches", "short_rows", "long_rows")}
     kernels = [dict(
         name="checksum_rows", route="cuda",
@@ -5365,7 +5977,8 @@ def main() -> int:
             "log": main_launches,
             "train": train["main_path_counts"]["hash"]["launches"],
             "train qwen2-7b whole": whole_train["launches"]["hash"][
-                "launches"]},
+                "launches"],
+            "train qwen2-7b checkpointing trainer": restart_hash["launches"]},
         max_abs_err=max(r["max_abs_err"] for r in kern.values()
                         if "max_abs_err" in r),
         ms=at["kernel_alone_ms"], wrapper_ms=at["ms"],
@@ -5450,6 +6063,9 @@ def main() -> int:
     by_path["train qwen2-7b whole"] = {
         k: whole_train["launches"][k] for k in ("all", "tensor_cores",
                                                 "cuda_cores")}
+    by_path["train qwen2-7b checkpointing trainer"] = {
+        k: sum(c[k] for c in lives) for k in ("all", "tensor_cores",
+                                              "cuda_cores")}
 
     def shape_times(key):
         r = flash[key]
@@ -5478,6 +6094,8 @@ def main() -> int:
                    for arch, r in attn_train.items()}
     bwd_by_path["qwen2-7b whole"] = whole_train["launches"][
         "backward_tensor_cores"]
+    bwd_by_path["qwen2-7b checkpointing trainer"] = sum(
+        c["backward_tensor_cores"] for c in lives)
     bwd_cc_by_path = {f"{arch} card vs cpu": r["flash_counts"][
         "backward_cuda_cores"] for arch, r in attn_cpu.items()}
     gradient_of = ("src/repro/kernels/flash_attention/ref.py:20 (jax.grad; "

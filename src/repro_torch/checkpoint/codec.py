@@ -15,6 +15,8 @@ The JAX package's codec, byte for byte.  numpy has no bfloat16 of its
 own, so a bf16 shard (header dtype "bfloat16", as the JAX package writes
 it) travels here as its raw 16-bit words: ``encode_shard`` takes them as
 a uint16 array and ``decode_shard`` returns them so (``storage_dtype``).
+``decode_shard``'s array is a read-only view of the shard's payload in
+``raw``, not a copy of it.
 """
 
 from __future__ import annotations
@@ -83,7 +85,7 @@ def decode_shard(raw: bytes) -> Tuple[np.ndarray, ShardMeta]:
         (plen,) = _U32.unpack_from(raw, 12 + hlen)
         if zlib.crc32(header, zlib.crc32(_U32.pack(plen))) != hcrc:
             raise ShardCorruptError("header CRC mismatch")
-        payload = raw[16 + hlen : 16 + hlen + plen]
+        payload = memoryview(raw)[16 + hlen : 16 + hlen + plen]   # no copy
         (pcrc,) = _U32.unpack_from(raw, 16 + hlen + plen)
         if zlib.crc32(payload, hcrc) != pcrc:
             raise ShardCorruptError("payload CRC mismatch")

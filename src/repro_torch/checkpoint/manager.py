@@ -78,10 +78,11 @@ def _host_array(leaf) -> Tuple[np.ndarray, str]:
 def _like(template, full: np.ndarray, dtype: str):
     """A restored leaf in the template leaf's kind; a DTensor template's
     mesh and placements lay it out (the elastic restore onto another
-    mesh)."""
+    mesh).  ``full`` is copied only when it is a read-only view of a
+    shard (one chunk); chunks concatenated are a fresh array already."""
     if not isinstance(template, torch.Tensor):
         return full
-    t = torch.from_numpy(full.copy())
+    t = torch.from_numpy(full if full.flags.writeable else full.copy())
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
     if isinstance(template, DTensor):
@@ -300,6 +301,13 @@ class CheckpointManager:
 
 
 def _snapshot(tree):
-    """Deep-copy leaves to host so async saves see a stable image."""
-    return tree_map(lambda x: x.detach().cpu().clone()
-                    if isinstance(x, torch.Tensor) else np.array(x), tree)
+    """Copy leaves to host so async saves see a stable image, each once:
+    ``.cpu()`` of a card's tensor is already a copy, and only a tensor it
+    returns as is (one on the host) is cloned."""
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return np.array(x)
+        t = x.detach()
+        host = t.cpu()
+        return host.clone() if host is t else host
+    return tree_map(copy, tree)

@@ -283,6 +283,44 @@ def port_mgr(chunks=1):
         stores, dev
 
 
+def test_save_async_snapshot_stays_put_and_matches_jax():
+    """``save_async`` copies each host leaf once before it returns: leaves
+    updated in place afterwards (while the save worker is still busy) do
+    not reach the shards, which are the JAX package's bytes for the state
+    as it was, and the restore gives that state back."""
+    state = make_state(seed=8, dim=16)
+    state["params"]["half"] = torch.from_numpy(
+        np.random.default_rng(8).normal(size=(4, 6)).astype(np.float32)
+    ).to(torch.bfloat16)
+    saved = {"params": {k: (v.clone() if isinstance(v, torch.Tensor) else
+                            {n: w.clone() for n, w in v.items()})
+                        for k, v in state["params"].items()},
+             "opt": {"mu": state["opt"]["mu"].copy()}, "step": state["step"]}
+    tm, tstores, _ = port_mgr()
+    gate = __import__("threading").Event()
+    tm._save_pool.submit(gate.wait)        # hold the single save worker
+    fut = tm.save_async(4, state, extra={"pos": 4})
+    for _, leaf in leaf_paths(state["params"]):
+        leaf.add_(1)                        # in place, after the snapshot
+    state["opt"]["mu"] += 1
+    gate.set()
+    fut.result()
+    jm, jstores, _ = jax_mgr()
+    jsaved = numpy_state(saved)
+    jsaved["params"]["half"] = np.asarray(
+        jax.numpy.asarray(saved["params"]["half"].float().numpy(),
+                          jax.numpy.bfloat16))
+    jm.save(4, jsaved, extra={"pos": 4}, sync=True)
+    for js, ts in zip(jstores, tstores):
+        assert js.keys() == ts.keys()
+        assert all(js.get(k) == ts.get(k) for k in js.keys())
+    step, got, extra = tm.restore(saved)
+    assert (step, extra) == (4, {"pos": 4})
+    assert torch.equal(got["params"].pop("half"), saved["params"].pop("half"))
+    assert_tree_equal(got, saved)
+    tm.close()
+
+
 @pytest.mark.parametrize("chunks", [1, 4])
 def test_shards_and_manifests_are_byte_identical_to_jax(chunks):
     state = make_state(seed=5, dim=64)

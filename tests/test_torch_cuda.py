@@ -1904,6 +1904,56 @@ def test_piecewise_adafactor_step_on_the_card_matches_the_cpu(
                                           new_card["opt"]))):
         assert torch.equal(a, b), n
 
+
+def test_async_save_and_restore_of_a_card_state_are_bitwise(cuda_device,
+                                                           tmp_path):
+    """qwen2-7b (reduced, bf16 params, Adafactor's state) on the card: one
+    ``save_async`` to two FileStore replicas at W = 2 with the manifest in
+    a replicated log, the source leaves zeroed on the card as soon as it
+    returns, then one restore into another state on the card: every leaf
+    bitwise the state as it was saved, in its dtype, on the card."""
+    import dataclasses
+
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        FileStore, ReplicatedStore)
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.replication import build_replica_set
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaf_paths
+
+    cfg = dataclasses.replace(reduced_config("qwen2-7b"),
+                              param_dtype="bfloat16")
+    opt = OptConfig(name="adafactor")
+
+    def state(seed):
+        return S.init_train_state(
+            cfg, opt, torch.Generator(device=cuda_device).manual_seed(seed),
+            device=cuda_device)
+    saved = state(0)
+    want = {n: t.clone() for n, t in leaf_paths(saved)}
+    assert any(t.dtype == torch.bfloat16 for t in want.values())
+    rs = build_replica_set(mode="local+remote", capacity=1 << 20,
+                           n_backups=1, write_quorum=2, device=cuda_device)
+    try:
+        stores = [FileStore(str(tmp_path / f"replica{i}"), f"fs{i}")
+                  for i in range(2)]
+        mgr = CheckpointManager(ReplicatedStore(stores, write_quorum=2),
+                                rs.log, CheckpointConfig(force_freq=4))
+        mgr.save_async(3, saved, {"pos": 3})
+        for _, t in leaf_paths(saved):
+            t.zero_()
+        mgr.wait()
+        step, got, extra = mgr.restore(state(1))
+        mgr.close()
+    finally:
+        rs.shutdown()
+    assert (step, extra) == (3, {"pos": 3})
+    for n, t in leaf_paths(got):
+        assert t.device.type == cuda_device.type, n
+        assert t.dtype == want[n].dtype, n
+        assert torch.equal(t, want[n]), n
+
 # ---------------------------------------------------------------------- #
 # the distributed layer over a one-rank NCCL group
 # ---------------------------------------------------------------------- #

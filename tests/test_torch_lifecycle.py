@@ -11,6 +11,7 @@ import dataclasses
 import json
 import pathlib
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -236,12 +237,53 @@ def test_fig8_force_policy_rows_match_jax_and_bench(name, kw, n_threads):
 # --------------------------------------------------------------------- #
 # BENCH_fig6.json: a backup dies mid-wire under W = 3, salvage re-issues
 # --------------------------------------------------------------------- #
+SALVAGE_WARM, SALVAGE_RECORDS, SALVAGE_FAIL_AT, SALVAGE_FREQ = 8, 48, 24, 4
+
+
+def wait_until(cond, what, timeout=30.0):
+    """Poll ``cond`` until it holds; fail the test after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def hold_lane(transport, passed):
+    """Let ``transport``'s lane deliver its first ``passed`` writes from
+    now on, and hold each later one until its backup is fenced off from
+    the primary (the held write then fails on the wire).  -> the count of
+    writes delivered so far (a list of one int)."""
+    real = transport.write_imm_staged
+    served = [0]
+    released = threading.Event()
+
+    def write(staged):
+        served[0] += 1
+        if served[0] > passed and not released.is_set():
+            wait_until(lambda: transport.server.is_fenced(
+                transport.primary_id), "the backup's fence")
+            released.set()
+        return real(staged)
+    transport.write_imm_staged = write
+    return served
+
+
 def salvage_row(core):
     """benchmarks/ci_bench.py::fig6_salvage_run on a 1 MiB ring: 8 warm
     records, then 48 x 1 KiB at depth 4 with a non-blocking freq-4 leader,
     node1 slow (30 ms) and node2 fast (2 ms); in the fault run node1 dies
     mid-wire at record 24 and rejoins at once through the online resync.
-    The no-fault run is the control."""
+    The no-fault run is the control.
+
+    The benchmark reaches the state its row records by the clock: when
+    record 24 comes, the rounds up to LSN 24 have retired, node2 (2 ms)
+    has acked the two in flight (LSNs 25-28 and 29-32) and node1 (30 ms)
+    has not, and ``kill_backup_midwire`` sleeps 16 ms for node2's acks
+    before it fences node1.  Here that state is waited for: node1's lane
+    holds its writes of those two rounds until the fence, and the fault
+    run waits until LSN 24 is durable and node2 has acked both rounds
+    before it kills node1 without a settle."""
     runs = {}
     for fault in (False, True):
         rs = core.build_replica_set(mode="local+remote", capacity=1 << 20,
@@ -249,16 +291,25 @@ def salvage_row(core):
                                     pipeline_depth=4, **dev_kw(core))
         try:
             log = rs.log
-            pol = core.FreqPolicy(4, wait=False)
+            pol = core.FreqPolicy(SALVAGE_FREQ, wait=False)
             payload = b"s" * 1024
-            for _ in range(8):
+            for _ in range(SALVAGE_WARM):
                 log.append(payload)
             log.drain()
-            rs.transports[0].inject(delay_s=0.03)
-            rs.transports[1].inject(delay_s=0.002)
-            for i in range(48):
-                if fault and i == 24:
-                    rs.kill_backup_midwire("node1", settle_s=0.016)
+            slow, fast = rs.transports
+            slow.inject(delay_s=0.03)
+            fast.inject(delay_s=0.002)
+            if fault:
+                hold_lane(slow, SALVAGE_FAIL_AT // SALVAGE_FREQ - 2)
+            for i in range(SALVAGE_RECORDS):
+                if fault and i == SALVAGE_FAIL_AT:
+                    wait_until(lambda: log.durable_lsn == SALVAGE_WARM
+                               + SALVAGE_FAIL_AT - 2 * SALVAGE_FREQ and all(
+                                   fast in [t for t, _ in
+                                            e.handle.round.salvage().acked]
+                                   for e in list(log._inflight)),
+                               "node2's acks of the rounds in flight")
+                    rs.kill_backup_midwire("node1", settle_s=0.0)
                     rs.recover_backup("node1")
                 rid, ptr = log.reserve(len(payload))
                 ptr[:] = payload
