@@ -2,7 +2,7 @@
 """Run the PyTorch port of the Arcadia log on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
-        [--phase ssd_backward|flash_backward|distributed|whole_models]
+        [--phase ssd_backward|flash_backward|distributed|whole_models|faults]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
 Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
@@ -50,9 +50,25 @@ from ``src/repro_torch/csrc``
                 records on the long-row kernel;
   default cfg   build_replica_set with the default 1 MiB threshold and 64
                 records of 1 MiB, reopened and verified;
-  strict crash  the 16 MiB ring of 1 KiB records on a strict device,
-                crashed with keep probability 0.3 and reopened: every
-                durable-acked record must come back byte-exact;
+  faults        the log's fault paths on fig7's 16 MiB ring of 1 KiB
+                records, every payload hashed by the kernel: Table 1 —
+                Arcadia against power loss (a strict device crashed with
+                keep probability 0.3), a partition within the quorum, bit
+                rot in 64 of the primary's payloads and the primary's
+                device lost, every acked record back byte-exact in each,
+                and PMDK, FLEX and QueryFresh against the same four, each
+                showing exactly Table 1's failure mode; 16 seeds of the
+                chaos soak's schedule generator (a partition in degraded
+                quorum, a mid-wire kill with a pipelined round in flight
+                and salvage, seeded rot on any copy, a rejoin with resync,
+                a scrub that must find and repair exactly the rot still
+                present, converged copies), each run also on the CPU with
+                the same digest and durable image; the adaptive depth at
+                W = 2 of 3, ceiling 8, over a 4 ms wire, which must reach
+                the ceiling and halve when both backups die under two
+                rounds, then salvage every record.  No CUDA tensor may
+                reach the plain hash; every launch is counted.  ``--phase
+                faults`` runs it alone and prints its JSON;
   ssd kernel    the SSD kernels against their plain version at every
                 listed shape (fp32 within 1e-4, bf16 within 5e-2 and, per
                 (batch, head, chunk) block of y, within 2^-6 of the
@@ -327,6 +343,7 @@ import re
 import struct
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -1076,7 +1093,7 @@ def strict_crash_phase(base: bytes) -> dict:
     cfg = LogConfig(capacity=FIG7_RING_BYTES, phash_threshold=PHASH_THRESHOLD)
     wal = Log.create(dev, cfg)
     written, i = {}, 0
-    checksum.LAUNCHES = 0
+    l0 = checksum.LAUNCHES
     full = False
     while not full:
         wave = [payload(i + k, base) for k in range(WAVE)]
@@ -1095,12 +1112,12 @@ def strict_crash_phase(base: bytes) -> dict:
         written.update(zip(lsns, wave))
         i += WAVE
     durable = wal.durable_lsn
-    fill = checksum.LAUNCHES
+    fill = checksum.LAUNCHES - l0
     survivor = dev.crash(np.random.default_rng(0), keep_probability=0.3)
-    checksum.LAUNCHES = 0
+    l0 = checksum.LAUNCHES
     got = dict(Log.open(survivor, LogConfig(capacity=FIG7_RING_BYTES))
                .iter_records())
-    rec_launches = checksum.LAUNCHES
+    rec_launches = checksum.LAUNCHES - l0
     lost = [l for l in written if l <= durable and got.get(l) != written[l]]
     bad = [l for l, p in got.items() if written.get(l) != p]
     log(f"strict crash: {len(written)} records written, durable-acked up to "
@@ -1110,6 +1127,476 @@ def strict_crash_phase(base: bytes) -> dict:
     if fill == 0 or rec_launches == 0:
         raise AssertionError("strict crash phase did not go through the kernel")
     return dict(written=len(written), durable=durable, recovered=len(got))
+
+
+# ------------------------------- faults ------------------------------- #
+# Table 1 of the paper and the reference's fault schedules on the card:
+# every payload is a 1 KiB record on fig7's 16 MiB ring, hashed by the
+# kernel (phash threshold 256 B).  tests/test_torch_resilience.py,
+# test_torch_chaos.py and test_torch_salvage_adaptive.py hold the same
+# scenarios to the JAX package on the CPU.
+
+FAULT_RECORDS = 16000          # a baseline's fill: 16,000 x 1 KiB in 16 MiB
+FAULT_ROT = 64                 # payloads rotted in the media-error cells
+CHAOS_SEEDS = 16
+FAULT_WIRE_S = 0.004           # the adaptive run's injected wire (fig6)
+FAULT_CEILING = 8
+
+
+def wait_for(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def hold_until_fenced(transport) -> None:
+    """Hold each later write of ``transport``'s lane until its backup
+    fences the primary (the write then fails on the wire): a round in
+    flight to a backup that dies under it."""
+    real = transport.write_imm_staged
+    released = threading.Event()
+
+    def write(staged):
+        if not released.is_set():
+            wait_for(lambda: transport.server.is_fenced(transport.primary_id),
+                     "the backup's fence")
+            released.set()
+        return real(staged)
+    transport.write_imm_staged = write
+
+
+def lane_acked_all(wal, transport) -> bool:
+    for e in list(wal._inflight):
+        rnd = getattr(getattr(e, "handle", None), "round", None)
+        if rnd is None or transport not in [t for t, _ in
+                                            rnd.salvage().acked]:
+            return False
+    return True
+
+
+def hashed_set(capacity: int, device=None, **kw):
+    """build_replica_set's local primary + 2 backups at W = 2 of 3 (unless
+    ``kw`` says otherwise), hashing every record of PHASH_THRESHOLD bytes
+    or more on ``device``."""
+    from repro_torch.core import build_replica_set
+    kw.setdefault("write_quorum", 2)
+    rs = build_replica_set(mode="local+remote", capacity=capacity,
+                           n_backups=2, device=device or DEV, **kw)
+    rs.cfg.phash_threshold = PHASH_THRESHOLD
+    return rs
+
+
+def records_of(dev, capacity: int) -> dict:
+    from repro_torch.core import Log, LogConfig
+    return {lsn: bytes(p) for lsn, p in Log.open(
+        dev, LogConfig(capacity=capacity), device=DEV).iter_records()}
+
+
+def fill_acked(wal, base: bytes, n: int, start: int = 0) -> dict:
+    """Append ``n`` 1 KiB records in forced waves -> {lsn: payload}."""
+    acked = {}
+    for w in range(start, start + n, WAVE):
+        wave = [payload(i, base) for i in range(w, min(w + WAVE, start + n))]
+        acked.update(zip(wal.append_batch(wave), wave))
+    return acked
+
+
+def arcadia_cells(base: bytes, seed: int) -> dict:
+    """Arcadia against Table 1's four failures, every acked record back
+    byte-exact in each: power loss (the strict crash phase), a partition
+    within the quorum, bit rot in FAULT_ROT payloads of the primary
+    (quorum recovery picks a clean copy), the primary's device lost
+    (quorum recovery from the two backups)."""
+    from repro_torch.core import CopyAccessor, quorum_recover
+    cap = FIG7_RING_BYTES
+    n = cap // ((24 + RECORD_BYTES + 7) & ~7) - 8
+    out = {"power_loss": strict_crash_phase(base)}
+    rs = hashed_set(cap)
+    try:
+        acked = fill_acked(rs.log, base, n // 2)
+        rs.fail_backup("node2")              # cut off; W = 2 still met
+        acked.update(fill_acked(rs.log, base, n - n // 2, start=n // 2))
+        rs.group.drain()
+        if rs.log.durable_lsn != n or records_of(rs.primary_dev, cap) \
+                != acked:
+            raise AssertionError("partition: acked records not durable")
+        out["partition"] = dict(records=n, durable=rs.log.durable_lsn)
+    finally:
+        rs.shutdown()
+    rs = hashed_set(cap)
+    try:
+        acked = fill_acked(rs.log, base, n)
+        rs.group.drain()
+        rng = np.random.default_rng(seed)
+        rotted = sorted(rng.choice(np.arange(1, n + 1), FAULT_ROT,
+                                   replace=False).tolist())
+        for lsn in rotted:
+            rec = rs.log._recs[lsn]
+            rs.primary_dev.corrupt(rec.off + 24, rec.size, rng, nbits=8)
+        for cell, devs, local in (
+                ("media_error", rs.server_devices(), rs.primary_id),
+                ("device_failure", {s.server_id: s.device
+                                    for s in rs.servers}, "node0-new")):
+            accs = [CopyAccessor.for_device(k, d) for k, d in devs.items()]
+            img, rep = quorum_recover(accs, rs.cfg, write_quorum=2,
+                                      local_name=local)
+            got = records_of(img, cap)
+            if rep.chosen == rs.primary_id or got != acked:
+                raise AssertionError(f"{cell}: acked records not recovered "
+                                     f"(chose {rep.chosen})")
+            out[cell] = dict(records=len(got), chosen=rep.chosen,
+                             repair_bytes=rep.repair_bytes)
+    finally:
+        rs.shutdown()
+    out["power_loss"]["verdict"] = "survives"
+    for cell in ("partition", "media_error", "device_failure"):
+        out[cell]["verdict"] = "survives"
+    return out
+
+
+BASELINE_VERDICTS = {
+    # Table 1 (tests/test_resilience_matrix.py's docstring)
+    "pmdk": dict(power_loss="survives", media_error="silent_corruption",
+                 device_failure="no_copy", partition="no_copy"),
+    "flex": dict(power_loss="survives", media_error="detected_not_repaired",
+                 device_failure="no_copy", partition="no_copy"),
+    "query_fresh": dict(power_loss="survives",
+                        media_error="silent_corruption",
+                        device_failure="survives", partition="survives"),
+}
+
+
+def baseline_cells(base: bytes, seed: int) -> dict:
+    """The three baselines (host code, no hash) against the same failures
+    at the same record size: each must show exactly the failure mode of
+    Table 1."""
+    from repro_torch.core import PMEMDevice
+    from repro_torch.core.baselines import FlexLog, PMDKLog, QueryFreshLog
+    from repro_torch.core.transport import (ReplicaServer, ReplicationGroup,
+                                            Transport)
+    cap = FIG7_RING_BYTES
+    recs = [payload(i, base) for i in range(FAULT_RECORDS)]
+    classes = dict(pmdk=PMDKLog, flex=FlexLog, query_fresh=QueryFreshLog)
+
+    def fill(name, dev, **kw):
+        blog = classes[name](dev, cap, **kw)
+        for r in recs:
+            blog.append(r)
+        if name == "query_fresh":
+            blog.flush()
+        return blog
+
+    def got(blog):
+        return [bytes(p) for _, p in blog.iter_records()]
+
+    out = {}
+    for name, cls in classes.items():
+        cells = {}
+        dev = PMEMDevice(cap + 64, mode="strict")
+        fill(name, dev)
+        survivor = dev.crash(np.random.default_rng(seed), keep_probability=0.3)
+        cells["power_loss"] = "survives" if got(cls.open(survivor, cap)) \
+            == recs else "lost"
+        dev = PMEMDevice(cap + 64)
+        blog = fill(name, dev)
+        rng = np.random.default_rng(seed + 1)
+        # the first payload byte of FAULT_ROT records, from each log's own
+        # layout: a record is its header then its payload, back to back
+        sizes = {"pmdk": 8, "flex": 16, "query_fresh": 12}[name]
+        for i in sorted(rng.choice(FAULT_RECORDS, FAULT_ROT,
+                                   replace=False).tolist()):
+            off = blog.HEADER + i * (sizes + RECORD_BYTES) + sizes
+            dev.corrupt(off, RECORD_BYTES, rng, nbits=8)
+        read = got(blog)
+        cells["media_error"] = (
+            "survives" if read == recs else
+            "silent_corruption" if len(read) == len(recs) else
+            "detected_not_repaired")
+        if name == "query_fresh":
+            # shipped to two backups at W = 2, one of them cut off: the
+            # primary's device is lost and the other backup serves
+            backups = [ReplicaServer(PMEMDevice(cap + 64), f"qf-backup{i}")
+                       for i in range(2)]
+            lanes = [Transport(b, "qf-primary") for b in backups]
+            group = ReplicationGroup(lanes, write_quorum=2,
+                                     local_is_durable=True)
+            lanes[0].inject(drop=True)
+            try:
+                fill(name, PMEMDevice(cap + 64), repl=group)
+            finally:
+                group.shutdown()
+            ok = got(cls.open(backups[1].device, cap)) == recs
+            cells["device_failure"] = cells["partition"] = \
+                "survives" if ok else "lost"
+        else:
+            # one copy by design: a lost or cut-off device leaves none
+            cells["device_failure"] = cells["partition"] = "no_copy"
+        if cells != BASELINE_VERDICTS[name]:
+            raise AssertionError(f"{name}: {cells} != Table 1's "
+                                 f"{BASELINE_VERDICTS[name]}")
+        out[name] = cells
+    return out
+
+
+def chaos_payload(lsn: int) -> bytes:
+    return np.random.default_rng(lsn).integers(
+        0, 256, RECORD_BYTES, dtype=np.uint8).tobytes()
+
+
+def chaos_run(seed: int, device: str) -> dict:
+    """tests/test_chaos_soak.py's schedule generator and invariants with
+    1 KiB records on the 16 MiB ring: a partition in degraded quorum, a
+    mid-wire kill with a pipelined round in flight (held on the victim's
+    lane until the fence, salvaged on the survivor) or no fault; seeded
+    bit rot on any copy; a rejoin with online resync; more traffic; a
+    scrub to clean that must find exactly the rot still present.  -> the
+    digest of the records and the primary's durable image's CRC."""
+    import random
+    from repro_torch.core import ClusterManager, Node, Scrubber
+    from repro_torch.core.log import (FLAG_VALID, _REC_HDR,
+                                       _first_bad_payload, ring_offset)
+    rng = random.Random(seed)
+    np_rng = np.random.default_rng(seed)
+    fault = rng.choice(["none", "partition", "partition", "midwire",
+                        "midwire"])
+    depth = rng.choice([1, 2, 4])
+    wq = 3 if fault == "partition" else 2
+    victim = rng.choice(["node1", "node2"])
+    vt = 0 if victim == "node1" else 1
+    cap = FIG7_RING_BYTES
+    rs = hashed_set(cap, device=device, write_quorum=wq,
+                    device_mode="strict", pipeline_depth=depth)
+    try:
+        cm = ClusterManager([Node(rs.primary_id)] + [
+            Node(s.server_id, server=s) for s in rs.servers])
+        cm.attach_log(rs.log)
+        cm.attach_group(rs.group, allow_degraded=True, min_write_quorum=2)
+        acked = {}
+
+        def put(k):
+            for _ in range(k):
+                lsn = rs.log.append(chaos_payload(rs.log._next_lsn))
+                acked[lsn] = chaos_payload(lsn)
+
+        put(8)
+        if fault == "partition":
+            rs.fail_backup(victim)
+            cm.report_failure(victim)
+            put(8)
+        elif fault == "midwire":
+            rs.group.drain()
+            hold_until_fenced(rs.transports[vt])
+            p = b"\x5a" * RECORD_BYTES
+            rid, _ = rs.log.reserve(len(p))
+            rs.log.copy(rid, p)
+            rs.log.complete(rid)
+            rs.log.force(rid, wait=False)
+            wait_for(lambda: lane_acked_all(rs.log, rs.transports[1 - vt]),
+                     "the survivor's ack")
+            rs.kill_backup_midwire(victim, settle_s=0.0)
+            acked[rid] = p
+            put(7)
+        else:
+            put(8)
+        rs.group.drain(surface_errors=False)
+        devs = {"node0": rs.primary_dev}
+        devs.update({s.server_id: s.device for s in rs.servers})
+        committed = [l for l in sorted(acked) if l <= rs.log.durable_lsn]
+        rng.shuffle(committed)
+        injected = []
+        for lsn in committed[:rng.randint(1, 3)]:
+            name = rng.choice(list(devs))
+            rec = rs.log._recs[lsn]
+            before = devs[name].read(rec.off, rec.extent)
+            devs[name].corrupt(rec.off + 24, rec.size, np_rng, nbits=8)
+            if devs[name].read(rec.off, rec.extent) != before:
+                injected.append((name, lsn))
+        if fault != "none":
+            rs.transports[vt].inject()
+            rs.recover_backup(victim)
+            if fault == "partition":
+                cm.report_recovery(victim)
+        put(8)
+        rs.log.drain(timeout=30.0)
+        rs.group.drain(timeout=30.0)
+
+        def clean(dev, lsn):
+            rec = rs.log._recs[lsn]
+            raw = dev.read(rec.off, rec.extent)
+            hl, hs, hc, hf = _REC_HDR.unpack_from(raw, 0)
+            if hl != lsn or hs != rec.size or not hf & FLAG_VALID:
+                return False
+            snap = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+            return _first_bad_payload(snap, [(0, 0, lsn, rec.size, hc, hf)],
+                                      rs.log.device) is None
+
+        still = {(n, l) for _, l in injected for n in devs
+                 if not clean(devs[n], l)}
+        sc = Scrubber.from_replica_set(rs)
+        reports = sc.scrub_to_completion(max_passes=64)
+        found = {cr for r in reports for cr in r.corrupt_records}
+        st = sc.stats()
+        golden = sum(r.extent for l, r in rs.log._recs.items()
+                     if l <= rs.log.durable_lsn and not r.pad)
+        if found != still or st["repaired"] != len(still) \
+                or st["unrepairable"] or not reports[-1].complete \
+                or reports[-1].corrupt \
+                or not (0 < st["repair_bytes"] < golden if still
+                        else st["repair_bytes"] == 0):
+            raise AssertionError(f"chaos seed {seed}: scrub found {found}, "
+                                 f"rot still present {still}, {st}")
+        got = {l: bytes(p) for l, p in rs.log.iter_records()}
+        if any(got.get(l) != p for l, p in acked.items()):
+            raise AssertionError(f"chaos seed {seed}: an acked record lost")
+        ring = rs.primary_dev.read(0, ring_offset() + cap)
+        if any(s.device.read(0, len(ring)) != ring for s in rs.servers):
+            raise AssertionError(f"chaos seed {seed}: copies diverged")
+        digest = 0
+        for l, p in sorted(got.items()):
+            digest = zlib.crc32(p, zlib.crc32(str(l).encode(), digest))
+        return dict(fault=fault, depth=depth, rot=len(injected),
+                    repaired=st["repaired"], digest=digest,
+                    image_crc=zlib.crc32(rs.primary_dev.to_numpy()[
+                        "durable"].tobytes()))
+    finally:
+        rs.shutdown()
+
+
+def adaptive_run(base: bytes) -> dict:
+    """fig6's adaptive workload on the card deployment (W = 2 of 3,
+    ceiling 8, a 4 ms injected wire, 1 KiB records with a non-blocking
+    freq-4 leader, each leader's four records completed as one batch, one
+    hash launch): the depth must reach the ceiling within 384 records;
+    then both backups die under two held rounds (a planted round failure)
+    and the depth must halve; after the rejoin the salvage makes every
+    record durable and the reopened ring holds each byte-exact."""
+    from repro_torch.core import CostModel, FreqPolicy
+    cap = FIG7_RING_BYTES
+    rs = hashed_set(cap, pipeline_depth=FAULT_CEILING, adaptive_depth=True,
+                    cost=CostModel().with_wire_rtt(FAULT_WIRE_S * 1e9))
+    try:
+        wal = rs.log
+        pol = FreqPolicy(4, wait=False)
+        acked = fill_acked(wal, base, 8)
+        for t in rs.transports:
+            t.inject(delay_s=FAULT_WIRE_S)
+
+        def stream(start, n):
+            for w in range(start, start + n, 4):
+                wave = [payload(i, base) for i in range(w, w + 4)]
+                batch = wal.reserve_batch([len(p) for p in wave])
+                wal.copy_batch(batch, wave)
+                wal.complete_batch(batch)
+                acked.update(zip(batch.lsns, wave))
+                for lsn in batch.lsns:
+                    pol.on_complete(wal, lsn)
+
+        i = 8
+        while wal.pipeline_depth < FAULT_CEILING and i < 8 + 384:
+            stream(i, 16)
+            i += 16
+        pol.drain(wal)
+        grown = [list(p) for p in wal.depth_trajectory]
+        if wal.pipeline_depth != FAULT_CEILING:
+            raise AssertionError(f"adaptive depth never reached the "
+                                 f"ceiling: {grown}")
+        for t in rs.transports:
+            t.inject()
+            hold_until_fenced(t)
+        stream(i, 8)                         # two rounds, both held
+        for s in rs.servers:
+            s.fence(rs.primary_id)
+        wait_for(lambda: wal.stats()["inflight_rounds"] == 0,
+                 "the failed rounds' settle")
+        failed = [list(p) for p in wal.depth_trajectory[len(grown):]]
+        if not failed or failed[0][1] != FAULT_CEILING // 2:
+            raise AssertionError(f"a round failure did not halve the "
+                                 f"depth: {failed}")
+        for s in rs.servers:
+            rs.recover_backup(s.server_id)
+        for _ in range(8):                   # the app retries the force
+            try:
+                pol.drain(wal)
+                break
+            except Exception:
+                continue
+        if wal.durable_lsn != len(acked) or records_of(
+                rs.primary_dev, cap) != acked:
+            raise AssertionError("adaptive: acked records not durable")
+        return dict(grown=grown, after_failure=failed,
+                    durable=wal.durable_lsn,
+                    salvage_rounds=wal.stats()["salvage_rounds"])
+    finally:
+        rs.shutdown()
+
+
+def plain_hash_guard():
+    """Make the plain hash refuse a CUDA tensor for the phase's length
+    (the wrappers route by device; this proves none reached it)."""
+    from repro_torch.kernels.checksum import ref
+    saved = {k: getattr(ref, k) for k in ("checksum_lanes_2d",
+                                          "tensor_checksum")}
+
+    def guard(fn):
+        def call(x, *a, **k):
+            if x.is_cuda:
+                raise AssertionError("a CUDA tensor reached the plain hash")
+            return fn(x, *a, **k)
+        return call
+    for k, fn in saved.items():
+        setattr(ref, k, guard(fn))
+    return lambda: [setattr(ref, k, fn) for k, fn in saved.items()]
+
+
+def faults_phase(base: bytes, seed: int) -> dict:
+    """Table 1, CHAOS_SEEDS seeded fault schedules (each also run on the
+    CPU: digest and durable image equal) and the adaptive controller, on
+    the card; every hash launch counted and on the kernel."""
+    t0 = time.perf_counter()
+    restore = plain_hash_guard()
+    try:
+        zero_hash_counts()
+        out = dict(arcadia=arcadia_cells(base, seed),
+                   baselines=baseline_cells(base, seed))
+        log(f"faults table 1: arcadia {out['arcadia']}")
+        log(f"faults table 1: baselines {out['baselines']}")
+        card_counts = hash_counts()
+        out["chaos"] = {}
+        for s in range(seed, seed + CHAOS_SEEDS):
+            zero_hash_counts()
+            card = chaos_run(s, DEV)
+            counts = hash_counts()
+            plain = chaos_run(s, "cpu")
+            if card != plain:
+                raise AssertionError(f"chaos seed {s}: card {card} != "
+                                     f"cpu {plain}")
+            card["launches"] = counts["launches"]
+            out["chaos"][s] = card
+            for k in card_counts:
+                card_counts[k] += counts[k]
+        log(f"faults chaos: {CHAOS_SEEDS} schedules "
+            f"{[(c['fault'], c['rot'], c['repaired']) for c in out['chaos'].values()]}"
+            f", card == cpu")
+        zero_hash_counts()
+        out["adaptive"] = adaptive_run(base)
+        counts = hash_counts()
+        for k in card_counts:
+            card_counts[k] += counts[k]
+        log(f"faults adaptive: {out['adaptive']}")
+    finally:
+        restore()
+    out["launches"] = card_counts
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase faults: {out['phase_s']:.3f} s, hash launches "
+        f"{card_counts}")
+    if card_counts["launches"] == 0 or card_counts["short_rows"] \
+            + card_counts["long_rows"] != card_counts["launches"]:
+        raise AssertionError(f"faults: hash launches {card_counts}")
+    if any(c["launches"] == 0 for c in out["chaos"].values()):
+        raise AssertionError("a chaos schedule never reached the kernel")
+    return out
 
 
 # ------------------------------ SSD kernel ------------------------------ #
@@ -5812,13 +6299,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=["all", "ssd_backward",
                                         "flash_backward", "distributed",
-                                        "whole_models"],
+                                        "whole_models", "faults"],
                     default="all",
                     help="ssd_backward / flash_backward / distributed / "
-                         "whole_models: build, run that phase alone and "
-                         "print its JSON, for work on the SSD or the flash "
-                         "backward kernels, the distributed layer, or the "
-                         "configs served and trained whole")
+                         "whole_models / faults: build, run that phase "
+                         "alone and print its JSON, for work on the SSD or "
+                         "the flash backward kernels, the distributed "
+                         "layer, the configs served and trained whole, or "
+                         "the log's fault paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5866,9 +6354,12 @@ def main() -> int:
                                                              card)}))
         return 0
 
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     base = np.random.default_rng(args.seed).integers(
         0, 256, 1 << 22, dtype=np.uint8).tobytes()
+    if args.phase == "faults":
+        print(json.dumps({"faults": faults_phase(base, args.seed)}))
+        return 0
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     extent = (REC_HDR_SIZE + RECORD_BYTES + 7) & ~7
     main_rows = RING_BYTES // extent
     kern = kernel_phase(gen, main_rows)
@@ -5890,7 +6381,7 @@ def main() -> int:
     router = router_kv_phase(base)
     log(f"phase router+kv: {time.perf_counter() - t0:.3f} s")
     default_config_phase(base)
-    strict_crash_phase(base)
+    faults = faults_phase(base, args.seed)
     ssd = ssd_kernel_phase(args.seed)
     serving = serving_phase(args.seed)
     cross = card_vs_cpu_phase(serving.pop("restored"), args.seed)
@@ -5948,7 +6439,7 @@ def main() -> int:
     new_paths = [health["scrub_launches"], health["second_pass_launches"],
                  health["replay_launches"], resync["gap_launches"],
                  resync["rebuild_launches"], router["fill_launches"],
-                 router["recover_launches"]]
+                 router["recover_launches"], faults["launches"]]
     main_launches = (main["fill_launches"] + main["recovery_launches"]
                      + main["rebuild_launches"]
                      + sum(c["launches"] for c in new_paths))
@@ -5975,6 +6466,7 @@ def main() -> int:
             "long_rows": main_launches - short + train_hash["long_rows"]},
         launches_by_path={
             "log": main_launches,
+            "log faults": faults["launches"]["launches"],
             "train": train["main_path_counts"]["hash"]["launches"],
             "train qwen2-7b whole": whole_train["launches"]["hash"][
                 "launches"],
@@ -6140,6 +6632,7 @@ def main() -> int:
                 if r["route"] == "cuda_cores"}))
     print(json.dumps({"shapes": kern, "main_path": main, "health": health,
                       "trim_resync": resync, "router_kv": router,
+                      "faults": faults,
                       "ssd_shapes": ssd,
                       "serving": serving, "card_vs_cpu": cross,
                       "ssd_backward_shapes": ssd_bwd, "train": train,

@@ -358,6 +358,14 @@ def _first_bad_payload(raw: torch.Tensor, items,
     lane-polynomial hash through kernels/checksum — the lane matrix goes
     to ``device`` in one copy and is hashed in one launch.  Returns the
     smallest failing ordinal, or None if everything checks out.
+
+    The JAX package's form is ``_first_bad_payload(raw: bytes, items)``.
+    Here ``raw`` is a tensor because the log reads its ring snapshot as
+    one (``PMEMDevice.read_tensor``, no bytes copy of a 1 GiB ring), and
+    ``device`` is explicit because each log hashes on the device it was
+    built for (the card or the CPU), where the JAX package leaves that to
+    JAX's default backend.  A caller holding bytes wraps them with
+    ``torch.frombuffer``.
     """
     bad: Optional[int] = None
     snap = raw.numpy()

@@ -145,15 +145,18 @@ class PMEMDevice:
         # misses LLC and must re-read from PMEM.  (clwb was implemented as an
         # evicting flush on the paper's CPUs — footnote 5.)
         self._resident = torch.zeros(self._n_lines, dtype=torch.bool)
+        self._resident_np = self._resident.numpy()
         if mode == "strict":
             # Volatile overlay: newest bytes, valid only where _dirty is set.
             self._overlay = torch.zeros(self.size, dtype=torch.uint8)
             self._overlay_np = self._overlay.numpy()
             self._dirty = torch.zeros(self._n_units, dtype=torch.bool)
+            self._dirty_np = self._dirty.numpy()
         else:
             self._overlay = None
             self._overlay_np = None
             self._dirty = None
+            self._dirty_np = None
         self._dirty_count = 0
 
     # ------------------------------------------------------------------ #
@@ -214,13 +217,13 @@ class PMEMDevice:
             with self._lock:
                 self.stats.writes += 1
                 self.stats.bytes_written += n
-                self._resident[off // CACHE_LINE : (off + n - 1) // CACHE_LINE + 1] = True
+                self._resident_np[off // CACHE_LINE : (off + n - 1) // CACHE_LINE + 1] = True
         else:
             with self._lock:
                 self._write_strict_locked(off, arr)
                 self.stats.writes += 1
                 self.stats.bytes_written += n
-                self._resident[off // CACHE_LINE : (off + n - 1) // CACHE_LINE + 1] = True
+                self._resident_np[off // CACHE_LINE : (off + n - 1) // CACHE_LINE + 1] = True
         return self.cost.store_byte_ns * n
 
     def _write_strict_locked(self, off: int, arr: np.ndarray) -> None:
@@ -229,48 +232,55 @@ class PMEMDevice:
         Boundary units that the store only partially covers are seeded
         from the newest visible content first, so every dirty unit's
         overlay slice is the complete unit — the invariant ``crash()``
-        and ``persist()`` rely on.
+        and ``persist()`` rely on.  Stores, loads and flushes touch a few
+        units at a time, so they work on the tensors' numpy views (one
+        torch operator call costs more than the whole numpy update, and
+        under many producer threads the gap widens).
         """
         n = arr.size
         u0 = off // ATOM
         u1 = (off + n - 1) // ATOM + 1
-        dirty = self._dirty
-        if off % ATOM and not bool(dirty[u0]):
+        dirty = self._dirty_np
+        if off % ATOM and not dirty[u0]:
             s = u0 * ATOM
             e = min(s + ATOM, self.size)
-            self._overlay[s:e] = self._durable[s:e]
-        if (off + n) % ATOM and not bool(dirty[u1 - 1]):
+            self._overlay_np[s:e] = self._durable_np[s:e]
+        if (off + n) % ATOM and not dirty[u1 - 1]:
             s = (u1 - 1) * ATOM
             e = min(s + ATOM, self.size)
-            self._overlay[s:e] = self._durable[s:e]
+            self._overlay_np[s:e] = self._durable_np[s:e]
         self._overlay_np[off : off + n] = arr
         dslice = dirty[u0:u1]
-        self._dirty_count += int(dslice.numel() - int(dslice.count_nonzero()))
-        dslice.fill_(True)
+        self._dirty_count += int(dslice.size - np.count_nonzero(dslice))
+        dslice[:] = True
 
     def read_tensor(self, off: int, n: int) -> torch.Tensor:
         """CPU load into a fresh uint8 tensor: sees the newest
         (volatile-overlaid) data."""
+        return torch.from_numpy(self._read_np(off, n))
+
+    def _read_np(self, off: int, n: int) -> np.ndarray:
+        """The newest bytes of [off, off+n) as a fresh uint8 array."""
         self._check(off, n)
         if self.mode == "fast" or self._dirty_count == 0 or n == 0:
-            return self._durable[off : off + n].clone()
+            return self._durable_np[off : off + n].copy()
         with self._lock:
             u0 = off // ATOM
             u1 = (off + n - 1) // ATOM + 1
-            dslice = self._dirty[u0:u1]
-            if not bool(dslice.any()):
-                return self._durable[off : off + n].clone()
-            s = off - u0 * ATOM
-            mask = dslice.repeat_interleave(ATOM)[s : s + n]
-            return torch.where(mask, self._overlay[off : off + n],
-                               self._durable[off : off + n])
+            dslice = self._dirty_np[u0:u1]
+            out = self._durable_np[off : off + n].copy()
+            if dslice.any():
+                s = off - u0 * ATOM
+                mask = np.repeat(dslice, ATOM)[s : s + n]
+                np.copyto(out, self._overlay_np[off : off + n], where=mask)
+            return out
 
     def read(self, off: int, n: int) -> bytes:
         """CPU load: sees the newest (volatile-overlaid) data."""
         if self.mode == "fast" or self._dirty_count == 0:
             self._check(off, n)
             return self._durable_np[off : off + n].tobytes()
-        return self.read_tensor(off, n).numpy().tobytes()
+        return self._read_np(off, n).tobytes()
 
     def view(self, off: int, n: int) -> Optional[memoryview]:
         """Direct load/store pointer into PMEM (the paper's reserve() returns
@@ -296,22 +306,22 @@ class PMEMDevice:
             if self.mode == "strict" and n > 0 and self._dirty_count:
                 u0 = off // ATOM
                 u1 = (off + n - 1) // ATOM + 1
-                dslice = self._dirty[u0:u1]
-                ndirty = int(dslice.count_nonzero())
+                dslice = self._dirty_np[u0:u1]
+                ndirty = int(np.count_nonzero(dslice))
                 if ndirty:
                     s = u0 * ATOM
                     e = min(u1 * ATOM, self.size)
-                    mask = dslice.repeat_interleave(ATOM)[: e - s]
-                    seg = self._durable[s:e]
-                    seg.copy_(torch.where(mask, self._overlay[s:e], seg))
+                    mask = np.repeat(dslice, ATOM)[: e - s]
+                    np.copyto(self._durable_np[s:e], self._overlay_np[s:e],
+                              where=mask)
                     self._dirty_count -= ndirty
-                    dslice.fill_(False)
+                    dslice[:] = False
             if n > 0:
                 l0 = off // CACHE_LINE
                 l1 = (off + n - 1) // CACHE_LINE + 1
-                rslice = self._resident[l0:l1]
-                dirty_lines = int(rslice.count_nonzero())
-                rslice.fill_(False)
+                rslice = self._resident_np[l0:l1]
+                dirty_lines = int(np.count_nonzero(rslice))
+                rslice[:] = False
             else:
                 dirty_lines = 0
             self.stats.flushes += 1
@@ -331,7 +341,7 @@ class PMEMDevice:
                 l0 = off // CACHE_LINE
                 l1 = (off + n - 1) // CACHE_LINE + 1
                 n_lines = l1 - l0
-                hit = int(self._resident[l0:l1].count_nonzero())
+                hit = int(np.count_nonzero(self._resident_np[l0:l1]))
                 miss = n_lines - hit
             else:
                 n_lines = hit = miss = 0

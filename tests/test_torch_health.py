@@ -17,18 +17,13 @@ import pytest
 import torch
 
 import repro.core as jcore
-import repro_torch.core as tcore
 from repro.core import health as jhealth
 from repro.core.log import ring_offset
 from repro_torch.core import health as thealth
 
-from torch_parity import stats
+from torch_parity import dev_kw, on_both, stats
 
 CAP = 1 << 14
-
-
-def dev_kw(core):
-    return {"device": "cpu"} if core is tcore else {}
 
 
 def make_rs(core, n_backups=2, wq=None, depth=2, mode="strict", cap=CAP,
@@ -91,11 +86,6 @@ def report(rep):
     if "corrupt_records" in d:
         d["corrupt_records"] = set(map(tuple, d["corrupt_records"]))
     return d
-
-
-def on_both(scenario):
-    """Run ``scenario(core)`` on both packages; return (port, jax)."""
-    return scenario(tcore), scenario(jcore)
 
 
 # --------------------------------------------------------------------- #

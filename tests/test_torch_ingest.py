@@ -23,24 +23,15 @@ import repro_torch.core as tcore
 from repro.apps import kvstore as jkv
 from repro_torch.apps import kvstore as tkv
 
-from torch_parity import durable, stats
+from torch_parity import dev_kw, durable, on_both, stats
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIG9_DIGEST = 2978098261
 THREADS, OPS, VAL = 16, 200, b"v" * 100
 
 
-def dev_kw(core):
-    return {"device": "cpu"} if core is tcore else {}
-
-
 def kv_of(core):
     return tkv if core is tcore else jkv
-
-
-def on_both(scenario, *args):
-    """Run ``scenario(core, *args)`` on both packages: (port, jax)."""
-    return scenario(tcore, *args), scenario(jcore, *args)
 
 
 def keys():

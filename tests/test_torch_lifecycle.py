@@ -11,33 +11,23 @@ import dataclasses
 import json
 import pathlib
 import threading
-import time
 import zlib
 
 import numpy as np
 import pytest
 
-import repro.core as jcore
 import repro_torch.core as tcore
 from repro.checkpoint import manager as jmanager, store as jstore
 from repro_torch.checkpoint import manager as tmanager, store as tstore
 
-from torch_parity import durable, stats
+from torch_parity import dev_kw, durable, hold_until_fenced, \
+    lane_acked_all, on_both, stats, wait_until
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def bench_rows(name):
     return json.loads((ROOT / name).read_text())["rows"]
-
-
-def dev_kw(core):
-    return {"device": "cpu"} if core is tcore else {}
-
-
-def on_both(scenario, *args):
-    """Run ``scenario(core, *args)`` on both packages: (port, jax)."""
-    return scenario(tcore, *args), scenario(jcore, *args)
 
 
 # --------------------------------------------------------------------- #
@@ -240,35 +230,6 @@ def test_fig8_force_policy_rows_match_jax_and_bench(name, kw, n_threads):
 SALVAGE_WARM, SALVAGE_RECORDS, SALVAGE_FAIL_AT, SALVAGE_FREQ = 8, 48, 24, 4
 
 
-def wait_until(cond, what, timeout=30.0):
-    """Poll ``cond`` until it holds; fail the test after ``timeout`` s."""
-    deadline = time.monotonic() + timeout
-    while not cond():
-        if time.monotonic() > deadline:
-            raise AssertionError(f"timed out waiting for {what}")
-        time.sleep(0.001)
-
-
-def hold_lane(transport, passed):
-    """Let ``transport``'s lane deliver its first ``passed`` writes from
-    now on, and hold each later one until its backup is fenced off from
-    the primary (the held write then fails on the wire).  -> the count of
-    writes delivered so far (a list of one int)."""
-    real = transport.write_imm_staged
-    served = [0]
-    released = threading.Event()
-
-    def write(staged):
-        served[0] += 1
-        if served[0] > passed and not released.is_set():
-            wait_until(lambda: transport.server.is_fenced(
-                transport.primary_id), "the backup's fence")
-            released.set()
-        return real(staged)
-    transport.write_imm_staged = write
-    return served
-
-
 def salvage_row(core):
     """benchmarks/ci_bench.py::fig6_salvage_run on a 1 MiB ring: 8 warm
     records, then 48 x 1 KiB at depth 4 with a non-blocking freq-4 leader,
@@ -300,14 +261,12 @@ def salvage_row(core):
             slow.inject(delay_s=0.03)
             fast.inject(delay_s=0.002)
             if fault:
-                hold_lane(slow, SALVAGE_FAIL_AT // SALVAGE_FREQ - 2)
+                hold_until_fenced(slow, SALVAGE_FAIL_AT // SALVAGE_FREQ - 2)
             for i in range(SALVAGE_RECORDS):
                 if fault and i == SALVAGE_FAIL_AT:
                     wait_until(lambda: log.durable_lsn == SALVAGE_WARM
-                               + SALVAGE_FAIL_AT - 2 * SALVAGE_FREQ and all(
-                                   fast in [t for t, _ in
-                                            e.handle.round.salvage().acked]
-                                   for e in list(log._inflight)),
+                               + SALVAGE_FAIL_AT - 2 * SALVAGE_FREQ
+                               and lane_acked_all(log, fast),
                                "node2's acks of the rounds in flight")
                     rs.kill_backup_midwire("node1", settle_s=0.0)
                     rs.recover_backup("node1")
@@ -355,3 +314,64 @@ def test_fig6_salvage_row_matches_jax_and_bench():
     assert got == {k: row[k] for k in got}
     assert (got["reissue_fraction"], got["reissue_bytes"], got["digest"]) \
         == (0.5, 8384, 82838224)
+
+
+# --------------------------------------------------------------------- #
+# BENCH_fig7.json: local recovery of a full 16 MiB ring of 1 KiB records
+# --------------------------------------------------------------------- #
+FIG7_RING = 1 << 24
+FIG7_STAT_KEYS = ("writes", "bytes_written", "flushes", "lines_flushed",
+                  "fences", "llc_misses", "llc_hits")
+
+
+def local_recovery_row(core, phash):
+    """benchmarks/ci_bench.py::fig7_run without its clocks: the 16 MiB
+    ring filled with 1 KiB records (waves of 64, then one at a time until
+    full), hashed by the lane polynomial from 256 B (``phash``) or by
+    CRC32, then reopened and replayed.  -> the row's integers, the
+    recovered state, a digest of the records, the durable image and the
+    DeviceStats before and after the recovery."""
+    cfg = core.LogConfig(capacity=FIG7_RING,
+                         phash_threshold=256 if phash else None)
+    dev = core.PMEMDevice(core.device_size(FIG7_RING), mode="fast")
+    log = core.Log.create(dev, cfg, **dev_kw(core))
+    payload = b"r" * 1024
+    n = 0
+    while True:
+        try:
+            log.append_batch([payload] * 64)
+            n += 64
+        except core.LogFullError:
+            break
+    while True:
+        try:
+            log.append(payload)
+            n += 1
+        except core.LogFullError:
+            break
+    before = {k: getattr(dev.stats, k) for k in FIG7_STAT_KEYS}
+    relog = core.Log.open(dev, cfg, **dev_kw(core))
+    digest, replayed = 0, 0
+    for lsn, p in relog.iter_records():
+        digest = zlib.crc32(p, zlib.crc32(str(lsn).encode(), digest))
+        replayed += 1
+    after = {k: getattr(dev.stats, k) for k in FIG7_STAT_KEYS}
+    state = (relog._head_lsn, relog._next_lsn, relog._tail_off, relog._used)
+    return (dict(records=n,
+                 recovered_state_identical=(
+                     relog._next_lsn - relog._head_lsn == n
+                     and replayed == n),
+                 stats_identical=before == after),
+            state, digest, durable(dev), after)
+
+
+@pytest.mark.parametrize("integrity", ["crc32", "phash"])
+def test_fig7_local_recovery_rows_match_jax_and_bench(integrity):
+    """The recovered record set, state and DeviceStats equal the JAX
+    package's, and the row's integers (16,008 records, recovered state and
+    stats identical) are the row's; wall times are not compared."""
+    row = bench_rows("BENCH_fig7.json")[f"fig7/local_recovery/{integrity}"]
+    got, want = on_both(local_recovery_row, integrity == "phash")
+    assert got == want
+    assert got[0] == {k: row[k] for k in got[0]}
+    assert got[0]["records"] == 16008

@@ -10,6 +10,8 @@ fixed point of a fixed feed, and its live view, its recovered view and the
 JAX package's are held equal instead.
 """
 
+import json
+import pathlib
 import threading
 import zlib
 from collections import deque
@@ -24,23 +26,14 @@ from repro.core import baselines as jbase
 from repro_torch.apps import kvstore as tkv
 from repro_torch.core import baselines as tbase
 
-from torch_parity import durable, stats
+from torch_parity import dev_kw, durable, on_both, stats
 
 FIG9_DIGEST = 2978098261
 THREADS, OPS, VAL = 16, 200, b"v" * 100
 
 
-def dev_kw(core):
-    return {"device": "cpu"} if core is tcore else {}
-
-
 def kv_of(core):
     return tkv if core is tcore else jkv
-
-
-def on_both(scenario, *args):
-    """Run ``scenario(core, *args)`` on both packages: (port, jax)."""
-    return scenario(tcore, *args), scenario(jcore, *args)
 
 
 def keys():
@@ -118,6 +111,80 @@ def test_fig9_shard_rows_recover_the_bench_digest(n_shards):
         (FIG9_DIGEST, 3200, 3200)
     assert got["parallel_eq_serial"]
     assert got["cut_live"] == got["cut_recovered"] == FIG9_DIGEST
+
+
+def makespan_ms(core, n_shards):
+    """benchmarks/fig9_kvstore.py::shard_run's modelled makespan: the 16
+    producers start together (a barrier) and the makespan is the largest
+    shard's virtual-timeline end, in ms rounded as the row rounds it."""
+    router = core.LogRouter(**dev_kw(core))
+    for i in range(n_shards):
+        router.add_shard(core.ShardSpec(
+            shard_id=f"s{i}", mode="local+remote", capacity=1 << 20,
+            n_backups=1, device_mode="strict", pipeline_depth=4,
+            ingest=core.IngestConfig()))
+    encode = kv_of(core).encode_put
+    ks = keys()
+    barrier = threading.Barrier(THREADS + 1)
+
+    def producer(tid):
+        barrier.wait(timeout=30)
+        pend = deque()
+        for k in ks[tid]:
+            pend.append(router.submit(encode(k, VAL), key=k)[1])
+            if len(pend) >= 32:
+                pend.popleft().wait(timeout=30)
+        while pend:
+            pend.popleft().wait(timeout=30)
+
+    threads = [threading.Thread(target=producer, args=(t,))
+               for t in range(THREADS)]
+    try:
+        for th in threads:
+            th.start()
+        barrier.wait(timeout=30)
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+        router.drain()
+        return round(max(router.shard(s).log.modelled_time_ns()
+                         for s in router.shard_ids) * 1e-6, 3)
+    finally:
+        router.shutdown()
+
+
+# The JAX package's makespans (ms) over 60 runs on the CPU (three series
+# of 20 at each shard count, one alone, two interleaved with the port's
+# runs), with BENCH_fig9.json's own row: 1 shard 0.433-0.444, 2 shards
+# 0.218-0.338, 4 shards 0.111-0.266, 8 shards 0.060-0.082 (row: 0.434,
+# 0.218, 0.116, 0.06).  The makespan follows the number of group-commit
+# waves a shard forms, and so the host's speed: 16 racing producers make
+# 7-36 waves a shard.
+FIG9_MAKESPAN_SPREAD = {1: (0.433, 0.444), 2: (0.218, 0.338),
+                        4: (0.111, 0.266), 8: (0.060, 0.082)}
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_fig9_shard_makespans_within_jax_spread(n_shards):
+    """The port's makespan, the median of three runs, lies within the JAX
+    package's measured spread, widened to the JAX runs made here beside
+    it (under the same load).  Before the port's strict PMEM device did
+    its per-store bookkeeping on numpy views, each store cost several
+    torch operator calls; the port then formed ~15 waves a shard at 8
+    shards against the JAX package's ~26, and its makespans (0.110-0.113
+    ms at 4 shards, 0.056-0.059 at 8) fell below the spread."""
+    runs = [(makespan_ms(tcore, n_shards), makespan_ms(jcore, n_shards))
+            for _ in range(3)]
+    lo, hi = FIG9_MAKESPAN_SPREAD[n_shards]
+    lo = min([lo] + [j for _, j in runs])
+    hi = max([hi] + [j for _, j in runs])
+    port = sorted(t for t, _ in runs)[1]
+    assert lo <= port <= hi, (runs, lo, hi)
+    row = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                      / "BENCH_fig9.json").read_text())["rows"][
+        f"fig9/shards/{n_shards}"]
+    assert FIG9_MAKESPAN_SPREAD[n_shards][0] <= row[
+        "modelled_makespan_ms"] <= FIG9_MAKESPAN_SPREAD[n_shards][1]
 
 
 def fixed_cut(core):

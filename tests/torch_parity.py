@@ -54,3 +54,73 @@ def rec_shape(log) -> dict:
     """Volatile layout fingerprint: lsn -> (off, size, extent, pad, state)."""
     return {l: (r.off, r.size, r.extent, r.pad, r.state)
             for l, r in sorted(log._recs.items())}
+
+
+# --------------------------------------------------------------------- #
+# running one scenario on both packages, and waiting on states
+# --------------------------------------------------------------------- #
+import threading
+import time
+
+import repro.core as jcore
+import repro_torch.core as tcore
+
+
+def dev_kw(core) -> dict:
+    """The port's entry points take ``device`` (the card by default)."""
+    return {"device": "cpu"} if core is tcore else {}
+
+
+def on_both(scenario, *args, **kwargs):
+    """Run ``scenario(core, *args)`` on both packages: (port, jax)."""
+    return (scenario(tcore, *args, **kwargs),
+            scenario(jcore, *args, **kwargs))
+
+
+def wait_until(cond, what: str, timeout: float = 30.0) -> None:
+    """Poll ``cond`` until it holds; fail the test after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def hold_writes(transport, until, passed: int = 0, what: str = "release"):
+    """Let ``transport``'s lane deliver its next ``passed`` writes, then
+    hold the following ones on the lane until ``until()`` holds; from then
+    on every write goes through.  A held write is a round that cannot
+    retire, which the reference's tests make with a long injected delay.
+    -> the count of writes the lane has taken (a list of one int)."""
+    real = transport.write_imm_staged
+    served = [0]
+    released = threading.Event()
+
+    def write(staged):
+        served[0] += 1
+        if served[0] > passed and not released.is_set():
+            wait_until(until, what)
+            released.set()
+        return real(staged)
+    transport.write_imm_staged = write
+    return served
+
+
+def hold_until_fenced(transport, passed: int = 0):
+    """Hold ``transport``'s writes (after ``passed``) until its backup
+    fences the primary: each held write then fails on the wire, as a
+    write does whose backup dies with it in flight."""
+    return hold_writes(
+        transport, lambda: transport.server.is_fenced(transport.primary_id),
+        passed, "the backup's fence")
+
+
+def lane_acked_all(log, transport) -> bool:
+    """Has ``transport`` acked every round now in flight?"""
+    for e in list(log._inflight):
+        h = getattr(e, "handle", None)
+        rnd = getattr(h, "round", None)
+        if rnd is None or transport not in [t for t, _ in
+                                            rnd.salvage().acked]:
+            return False
+    return True
