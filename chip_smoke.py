@@ -156,11 +156,17 @@ from ``src/repro_torch/csrc``
                 views, deepseek-v3's MLA prefill (2 x 4096, 128 heads, q/k
                 head dim 192, v head dim 128, v the strided half of its
                 expansion; bf16 and fp32), hubert-xlarge's non-causal
-                encoder (8 x 1500, 16 heads of 80) and llava-next-34b's
-                prefill (2 x 4096, 56 heads over 8 of 128); each bf16
+                encoder (8 x 1500, 16 heads of 80; bf16 and fp32),
+                llava-next-34b's prefill (2 x 4096, 56 heads over 8 of
+                128) and starcoder2's (2 x 4096, 24 heads over 2) as bf16
+                copies 8 bytes off 16-byte alignment; each aligned bf16
                 case at a tensor-core (D, Dv) pair (64, 80, 128 and 256
-                with Dv = D; 192 with Dv 128) must launch the tensor-core
-                kernel, every other case the CUDA-core one;
+                with Dv = D; 192 with Dv 128) must launch the wgmma
+                kernel, every other case the mma.sync one (the
+                "cuda_cores" route: fp32 as three TF32 products, held
+                also to ``ref.attention_split_reference``, and bf16 that
+                TMA cannot read), timed alone too (CUDA graph) with its
+                registers and spills;
                 a dropped window, a dropped softcap, at MLA's shape a
                 dropped causal mask and v read from k_nope, at hubert's a
                 causal mask, at llava's a dropped causal mask must fail
@@ -170,20 +176,25 @@ from ``src/repro_torch/csrc``
                 function (SDPA, or compiled flex_attention at gemma2's
                 shapes), that call's; then each flash kernel's registers,
                 local (spill) bytes and shared bytes (a kernel that spills
-                fails);
+                fails).  ``--phase flash`` runs it alone and prints its
+                JSON;
   flash bwd     the flash backward kernels (three launches a call; the
                 route ``backward_route`` picks asserted per case: the
-                tensor cores for the bf16 cases, the CUDA cores for fp32
-                and the misaligned copies) at the
+                wgmma kernels for the aligned bf16 cases, the mma.sync
+                ones ("cuda_cores") for fp32 and the misaligned copies) at
+                the
                 training paths' shapes — gemma2-9b's global and local
                 layers (1 x 8192, the local one with scores in the
                 softcap's range), starcoder2-3b (2 x 4096, 24 heads over
-                2), hubert-xlarge (8 x 1500, not causal; bf16 and fp32),
-                deepseek-v3's MLA (1 x 4096, D 192, Dv 128, v a view) and
-                starcoder2's as misaligned copies — with the forward's lse
+                2; bf16 and fp32), hubert-xlarge (8 x 1500, not causal;
+                bf16 and fp32), deepseek-v3's MLA (1 x 4096, D 192, Dv
+                128, v a view; bf16 and fp32) and starcoder2's as
+                misaligned copies — with the forward's lse
                 held to the plain log-sum-exp, each gradient row by row to
                 the plain backward and, on the tensor cores, to its mirror
-                (2^-6 / 1e-4 of the row's largest value,
+                (in fp32 to the split mirror,
+                ``ref.attention_backward_split_reference``; 2^-6 / 1e-4
+                of the row's largest value,
                 no less than 2^-8 of the gradient's), two calls bitwise
                 equal, four planted faults (softcap derivative, one head of
                 the group, delta, window) failing at gemma2's local layer;
@@ -372,6 +383,11 @@ FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core rate, the closest
                                # integer multiply-adds (2 ops each), and
                                # the peak for fp32 products
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core rate (NVIDIA
+                               # data sheet); an fp32-accurate product is
+                               # three TF32 products (hi·hi + hi·lo +
+                               # lo·hi), so fp32 attention's floor is
+                               # 3·ops at this rate
 RING_BYTES = 1 << 30           # Kafka's default log.segment.bytes
 RECORD_BYTES = 1024
 FIG7_RING_BYTES = 16 << 20
@@ -2898,6 +2914,16 @@ for _dt, _route in (("bfloat16", "tensor_cores"), ("float32", "cuda_cores")):
 FLASH_CASES.append(flash_case(f"hubert {HUBERT}", HUBERT, "bfloat16",
                               layout="bshd", route="tensor_cores",
                               faults=[dict(causal=True)], causal=False))
+# the mma.sync route's other inputs at training widths: hubert's encoder in
+# fp32 (the card-vs-CPU steps), and starcoder2's prefill as bf16 copies 8
+# bytes past 16-byte alignment (TMA cannot read them)
+FLASH_CASES.append(flash_case(f"hubert {HUBERT}", HUBERT, "float32",
+                              layout="bshd", route="cuda_cores",
+                              faults=[dict(causal=True)], causal=False))
+FLASH_CASES.append(flash_case(f"starcoder2 {(2, 24, 2, 4096, 128)} misaligned",
+                              (2, 24, 2, 4096, 128), "bfloat16",
+                              layout="shifted", route="cuda_cores",
+                              faults=[dict(causal=False)], causal=True))
 FLASH_CASES.append(flash_case(f"llava {LLAVA}", LLAVA, "bfloat16",
                               layout="bshd", faults=[dict(causal=False)],
                               causal=True))
@@ -2921,10 +2947,21 @@ def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((num / den).max())
 
 
+def shifted_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` 4 elements past the allocation's start:
+    8 bytes past 16-byte alignment in bf16, which TMA cannot read."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    return buf[4:].view(t.shape).copy_(t)
+
+
 def flash_inputs(case: dict, seed: int):
     """q [B,H,S,D], k [B,KV,S,D] and v [B,KV,S,Dv] from the seed, in the
     case's dtype; for layouts "bshd" and "mla" views of [B,S,H,·] storage,
-    for "mla" v the [..., Dv:] half of a [B,S,KV,2·Dv] tensor."""
+    for "mla" v the [..., Dv:] half of a [B,S,KV,2·Dv] tensor; "shifted":
+    "bhsd" copies 4 elements past 16-byte alignment."""
+    if case["layout"] == "shifted":
+        return [shifted_copy(t) for t in
+                flash_inputs(dict(case, layout="bhsd"), seed)]
     B, H, KV, S, D = case["shape"]
     dv = case["dv"] or D
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -2980,20 +3017,27 @@ def attended_pairs(S: int, causal: bool, window) -> int:
     return int((hi - lo + 1).sum())
 
 
+def ops_ms(ops: int, dtype: str) -> float:
+    """Least time for ``ops`` operations of attention's products: bf16 on
+    the tensor cores, fp32 as three TF32 products on them."""
+    if dtype == "bfloat16":
+        return ops / BF16_OPS_PER_S * 1e3
+    return 3 * ops / TF32_OPS_PER_S * 1e3
+
+
 def flash_bound_ms(shape, kw, dtype, dv=None) -> tuple[float, str]:
     """Least time for the attention: q, k [.., D] and v [.., Dv] read and
     o [.., Dv] written once at the HBM rate, against 2·B·H·(D + Dv)
     operations per unmasked pair (the two products) at the peak rate for
-    the dtype (bf16 tensor cores; fp32 CUDA cores)."""
+    the dtype (bf16 tensor cores; fp32 as three TF32 products each)."""
     B, H, KV, S, D = shape
     dv = dv or D
     el = 2 if dtype == "bfloat16" else 4
     n_bytes = (B * H * S * (D + dv) + B * KV * S * (D + dv)) * el
     ops = 2 * B * H * (D + dv) * attended_pairs(S, kw.get("causal", True),
                                                  kw.get("window"))
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
+    t_ops = ops_ms(ops, dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3026,9 +3070,12 @@ def flash_kernel_phase(seed: int) -> dict:
                                                      "dtype"))
         S = shape[3]
         q, k, v = flash_inputs(case, seed + n)
-        # every case's views are 16-byte aligned, so the C side takes the
-        # plan's route; the launch counters below say which it took
+        # every case's views but the "shifted" copies are 16-byte aligned,
+        # so the C side takes the plan's route (the copies go to the
+        # mma.sync kernel); the launch counters below say which it took
         route = fa.tile_plan(q.dtype, shape[4], case["dv"]).route
+        if case["layout"] == "shifted":
+            route = "cuda_cores"
         if case["route"] not in (None, route):
             raise AssertionError(f"flash {name} {dtype}: plan {route}, "
                                  f"expected {case['route']}")
@@ -3053,6 +3100,19 @@ def flash_kernel_phase(seed: int) -> dict:
                 f"flash {name} {dtype}: kernel differs from plain version by "
                 f"{err} (tolerance {tol}), by {row_err} of a row's largest "
                 f"value (tolerance {row_tol})")
+        mirror_err = None
+        if dtype == "float32":
+            # the kernel's own arithmetic (three TF32 products a product)
+            # on the CPU's terms: ref.attention_split_reference
+            mirror = plain_by_heads(
+                lambda q_, k_, v_: ref.attention_split_reference(
+                    q_, k_, v_, **kw), q, k, v, heads=4)
+            mirror_err = row_rel_err(got, mirror)
+            del mirror
+            if not mirror_err <= row_tol:
+                raise AssertionError(f"flash {name} {dtype}: kernel differs "
+                                     f"from the split mirror by {mirror_err} "
+                                     f"of a row (tolerance {row_tol})")
         fault_errs = {}
         for fault in case["faults"]:
             wrong = plain_with_fault(q, k, v, kw, fault)
@@ -3067,6 +3127,19 @@ def flash_kernel_phase(seed: int) -> dict:
         big = shape[0] * shape[1] * S * S >= 2 * 16 * 8192 * 8192
         ms = timed_ms(lambda: ops.flash_attention(q, k, v, **kw),
                       5 if big else 20, flush)
+        alone = info = None
+        if route == "cuda_cores":
+            # the mma.sync kernel alone (a CUDA graph of back-to-back
+            # launches), and its registers and spills
+            alone = kernel_alone_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                3 if big else 10)
+            info = fa.kernel_info(q.dtype, shape[4], kw.get("cap") is not None,
+                                  v_head_dim=case["dv"] or shape[4],
+                                  route="cuda_cores")
+            if info["local_bytes"]:
+                raise AssertionError(f"flash {name} {dtype}: the mma.sync "
+                                     f"kernel spills: {info}")
         plain = timed_ms(lambda: ref.attention_reference(q, k, v, **kw),
                          3 if big else 20, flush)
         library = library_err = library_error = call = None
@@ -3093,8 +3166,11 @@ def flash_kernel_phase(seed: int) -> dict:
                             route=route, layout=case["layout"],
                             q_mul=case["q_mul"],
                             max_abs_err=err, tol=tol, row_rel_err=row_err,
-                            row_tol=row_tol,
+                            row_tol=row_tol, mirror_row_rel_err=mirror_err,
                             fault_row_rel_err=fault_errs, ms=ms,
+                            alone_ms=alone,
+                            registers=info and info["registers"],
+                            local_bytes=info and info["local_bytes"],
                             plain_ms=plain, bound_ms=b, bound_by=by,
                             library=call, library_ms=library,
                             library_row_rel_err=library_err,
@@ -3109,11 +3185,16 @@ def flash_kernel_phase(seed: int) -> dict:
                             f"row off" for f, e in fault_errs.items())
         q_txt = "" if case["q_mul"] == 1.0 else f" q x{case['q_mul']:g}"
         dv_txt = "" if case["dv"] is None else f" Dv {case['dv']}"
+        mirror_txt = "" if mirror_err is None else \
+            f", split mirror row err {mirror_err:.3e}"
+        alone_txt = "" if alone is None else (
+            f", {alone:.6f} ms alone, {info['registers']} registers "
+            f"{info['local_bytes']} spill bytes")
         log(f"kernel flash {key} {kw} {case['layout']}{dv_txt}{q_txt} ({route}): "
             f"max abs err {err:.3e} (within {tol} + {tol}·|plain|), row err "
-            f"{row_err:.3e} (within {row_tol:.4g}){fault_txt}; {ms:.6f} ms, "
-            f"plain {plain:.6f} ms, bound {b:.6f} ms ({by}), library "
-            f"{lib_txt}")
+            f"{row_err:.3e} (within {row_tol:.4g}){mirror_txt}{fault_txt}; "
+            f"{ms:.6f} ms a call{alone_txt}, plain {plain:.6f} ms, bound "
+            f"{b:.6f} ms ({by}), library {lib_txt}")
         del q, k, v, want
         torch.cuda.empty_cache()
     return results
@@ -3123,22 +3204,25 @@ def flash_attributes() -> list:
     """``cudaFuncGetAttributes`` of each flash kernel: registers a thread,
     local (spill) bytes a thread, shared bytes a block (dynamic + static)
     and threads a block, for bf16 at every tensor-core (D, Dv) pair with
-    and without a softcap and for fp32 at each CUDA-core width.  A kernel
-    that spills fails the run."""
+    and without a softcap, and for the mma.sync kernel (the "cuda_cores"
+    route) in fp32 and bf16 at each of its widths (64, 128, 192, 256).  A
+    kernel that spills fails the run."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     out = []
-    for dtype, pairs, caps in ((torch.bfloat16, fa.TENSOR_CORE_PAIRS,
-                                (False, True)),
-                               (torch.float32, [(d, d) for d in
-                                                (32, 64, 128, 256)],
-                                (False,))):
+    mma_pairs = [(32, 32), (64, 64), (80, 80), (128, 128), (192, 128),
+                 (256, 256)]
+    for dtype, pairs, caps, route in (
+            (torch.bfloat16, fa.TENSOR_CORE_PAIRS, (False, True), None),
+            (torch.float32, mma_pairs, (False,), "cuda_cores"),
+            (torch.bfloat16, mma_pairs, (False,), "cuda_cores")):
         for D, Dv in pairs:
             for capped in caps:
-                info = fa.kernel_info(dtype, D, capped, v_head_dim=Dv)
-                if dtype == torch.bfloat16 and info["route"] != "tensor_cores":
-                    raise AssertionError(f"bf16 ({D}, {Dv}) has no "
-                                         f"tensor-core kernel: {info}")
+                info = fa.kernel_info(dtype, D, capped, v_head_dim=Dv,
+                                      route=route)
+                if (info["route"] == "tensor_cores") != (route is None):
+                    raise AssertionError(f"{dtype} ({D}, {Dv}) {route}: the "
+                                         f"card reports {info}")
                 out.append(dict(
                     dtype=str(dtype).removeprefix("torch."), head_dim=D,
                     v_head_dim=Dv, softcap=capped, route=info["route"],
@@ -3185,6 +3269,13 @@ FLASH_BWD_CASES = [
                route=CC, causal=False),
     flash_case(f"starcoder2 {SC2} misaligned", SC2, "bfloat16",
                layout="shifted", route=CC, causal=True),
+    # the fp32 card-vs-CPU steps' route at starcoder2's and MLA's training
+    # shapes (causal: the rows that see few keys are where dq cancels)
+    flash_case(f"starcoder2 {SC2}", SC2, "float32", layout="bshd",
+               route=CC, causal=True),
+    flash_case(f"mla {MLA_T} dv {MLA_DV}", MLA_T, "float32", layout="mla",
+               dv=MLA_DV, route=CC, causal=True,
+               scale=1.0 / math.sqrt(MLA_T[4])),
 ]
 # per row of each gradient, the forward's bounds (FLASH_ROW_TOL) of the
 # row's largest value — but no smaller than 2^-8 of the gradient's largest:
@@ -3209,15 +3300,7 @@ def flash_bwd_inputs(case: dict, seed: int):
     """``flash_inputs`` (layouts "bhsd", "bshd", "mla"; "shifted": bhsd
     copies 4 elements past 16-byte alignment) and dO [B,H,S,Dv] in the
     case's dtype, laid out as the layer's grad of o ([B,S,H,Dv] storage)."""
-    if case["layout"] == "shifted":
-        q, k, v = flash_inputs(dict(case, layout="bhsd"), seed)
-
-        def shift(t):
-            buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
-            return buf[4:].view(t.shape).copy_(t)
-        q, k, v = shift(q), shift(k), shift(v)
-    else:
-        q, k, v = flash_inputs(case, seed)
+    q, k, v = flash_inputs(case, seed)
     B, H, _, S, _ = case["shape"]
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     do = torch.randn((B, S, H, v.shape[-1]), device=DEV, generator=gen
@@ -3243,23 +3326,28 @@ def plain_by_heads(fn, q, k, *rest, heads: int = 16):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-def plain_backward(q, k, v, o, lse, do, kw, fault=None, mirror=False):
+def plain_backward(q, k, v, o, lse, do, kw, fault=None, mirror=False,
+                   split=False):
     """The plain backward (``mirror``: the tensor-core route's CPU mirror,
-    dS rounded to bf16 where it meets Q and K) over slices of heads."""
+    dS rounded to bf16 where it meets Q and K; ``split``: the fp32 mma.sync
+    route's, every product as TF32 splits) over slices of heads."""
     from repro_torch.kernels.flash_attention import ref
 
     fn = ref.attention_backward_tc_reference if mirror else \
+        ref.attention_backward_split_reference if split else \
         ref.attention_backward_reference
     return plain_by_heads(
         lambda q_, k_, v_, o_, l_, d_: fn(q_, k_, v_, o_, l_, d_, fault=fault,
-                                          **kw), q, k, v, o, lse, do)
+                                          **kw), q, k, v, o, lse, do,
+        heads=4 if split else 16)
 
 
 def flash_bwd_bound_ms(shape, kw, dtype, dv=None) -> tuple[float, str]:
     """Least time for the gradient: q, k, v, o, dO and lse read once and
     dq, dk, dv written once at the HBM rate, against 2·B·H·(3D + 2Dv)
     operations per unmasked pair (S recomputed, dP, dV, dQ, dK) at the
-    peak rate for the dtype (bf16 tensor cores; fp32 CUDA cores)."""
+    peak rate for the dtype (bf16 tensor cores; fp32 as three TF32
+    products each)."""
     B, H, KV, S, D = shape
     dv = dv or D
     el = 2 if dtype == "bfloat16" else 4
@@ -3267,9 +3355,8 @@ def flash_bwd_bound_ms(shape, kw, dtype, dv=None) -> tuple[float, str]:
                     + 2 * B * H * S * dv) + 4 * B * H * S
     ops = 2 * B * H * (3 * D + 2 * dv) * attended_pairs(
         S, kw.get("causal", True), kw.get("window"))
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
+    t_ops = ops_ms(ops, dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3391,8 +3478,9 @@ def flash_backward_phase(seed: int) -> dict:
             errs[gname] = grad_row_err(g, w)
             abs_errs[gname] = float((g.float() - w.float()).abs().max())
         del want
-        if tc:
-            mirror = plain_backward(q, k, v, o, lse, do, kw, mirror=True)
+        if tc or dtype == "float32":
+            mirror = plain_backward(q, k, v, o, lse, do, kw, mirror=tc,
+                                    split=not tc)
             mirror_errs = {gname: grad_row_err(g, w) for gname, g, w in
                            zip(("dq", "dk", "dv"), got, mirror)}
             del mirror
@@ -5159,8 +5247,9 @@ def forced_decode(params, cfg, cache, tokens, t: int, cut: int, ref,
 def fp32_logits_at(params, cfg, first: dict, rows) -> torch.Tensor:
     """The logits at ``rows`` of a forward over ``first`` in fp32: the bf16
     params cast a layer at a time (the forward's own cast to the compute
-    dtype), fp32 activations, the CUDA-core flash kernel; the caller keeps
-    TF32 off."""
+    dtype), fp32 activations, the mma.sync flash kernel (the "cuda_cores"
+    route: three TF32 products a product); the caller keeps TF32 off for
+    the plain products."""
     from dataclasses import replace
 
     from repro_torch.models import model as M
@@ -5215,9 +5304,15 @@ def dense_teacher_forced(params, cfg, prompts, patches, positions: int,
         checks[fault or "clean"] = forced_decode(
             params, cfg, cache, prompts, t, cut, ref, ref_mix, ref_kv, fault)
     del cache, cache0
+    t32 = time.perf_counter()
     ref32 = fp32_logits_at(params, cfg, prefix(t + 4), rows)
+    float(ref32.abs().max())                     # the forward has finished
+    fp32_s = time.perf_counter() - t32
+    log(f"whole {cfg.name}: the fp32 forward (a flash launch a layer on the "
+        f"mma.sync route) {fp32_s:.3f} s")
     scale = float(want.abs().max())
     return dict(
+        fp32_forward_s=fp32_s,
         teacher_forced_diffs=[float((dec[:, j] - want[:, j]).abs().max())
                               for j in range(4)],
         teacher_forced_scale=scale, logits_std=float(want.std()),
@@ -6297,16 +6392,17 @@ def distributed_phase(seed: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=["all", "ssd_backward",
+    ap.add_argument("--phase", choices=["all", "ssd_backward", "flash",
                                         "flash_backward", "distributed",
                                         "whole_models", "faults"],
                     default="all",
-                    help="ssd_backward / flash_backward / distributed / "
-                         "whole_models / faults: build, run that phase "
-                         "alone and print its JSON, for work on the SSD or "
-                         "the flash backward kernels, the distributed "
-                         "layer, the configs served and trained whole, or "
-                         "the log's fault paths")
+                    help="ssd_backward / flash / flash_backward / "
+                         "distributed / whole_models / faults: build, run "
+                         "that phase alone and print its JSON, for work on "
+                         "the SSD kernels, the flash forward or backward "
+                         "kernels, the distributed layer, the configs "
+                         "served and trained whole, or the log's fault "
+                         "paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6323,7 +6419,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
-    t0 = time.perf_counter()
+    t0 = t_run = time.perf_counter()
     sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
                ssd_scan.BWD_SOURCE, ssd_scan.BWD_TC_SOURCE,
                flash_attention.SOURCE, flash_attention.BWD_SOURCE,
@@ -6340,8 +6436,18 @@ def main() -> int:
     if args.phase == "ssd_backward":
         print(json.dumps({"ssd_backward": ssd_backward_phase(args.seed)}))
         return 0
+    if args.phase == "flash":
+        t0 = time.perf_counter()
+        flash_out = flash_kernel_phase(args.seed)
+        log(f"phase flash: {time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"flash": flash_out,
+                          "flash_kernel_attributes": flash_attributes()}))
+        return 0
     if args.phase == "flash_backward":
-        print(json.dumps({"flash_backward": flash_backward_phase(args.seed)}))
+        t0 = time.perf_counter()
+        bwd_out = flash_backward_phase(args.seed)
+        log(f"phase flash backward: {time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"flash_backward": bwd_out}))
         return 0
     if args.phase == "distributed":
         t0 = time.perf_counter()
@@ -6395,7 +6501,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_cpu = train_card_vs_cpu_phase(args.seed)
     log(f"phase train card vs cpu: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     flash = flash_kernel_phase(args.seed)
+    log(f"phase flash: {time.perf_counter() - t0:.3f} s")
     flash_attrs = flash_attributes()
     for a in flash_attrs:
         log(f"flash kernel {a['dtype']} D={a['head_dim']} Dv={a['v_head_dim']}"
@@ -6578,6 +6686,27 @@ def main() -> int:
         mla_shape=shape_times(f"mla {MLA} dv {MLA_DV} bfloat16"),
         hubert_shape=shape_times(f"hubert {HUBERT} bfloat16"),
         llava_shape=shape_times(f"llava {LLAVA} bfloat16")))
+    fwd_cc = {k: r for k, r in flash.items() if r["route"] == "cuda_cores"}
+    fwd_cc_at = flash[f"gemma2 global {G2} float32"]
+    kernels.append(dict(
+        name="flash_attention_cuda_cores", route="cuda",
+        forward_route="cuda_cores",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        kernel="flash_fwd_kernel (mma.sync: fp32 as three TF32 products, "
+               "bf16 products; the route TMA cannot take)",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:35",
+        launches=sum(r["flash_counts"]["cuda_cores"]
+                     for r in attn_cpu.values()),
+        launches_by_path={f"{arch} card vs cpu": r["flash_counts"][
+            "cuda_cores"] for arch, r in attn_cpu.items()},
+        max_abs_err=max(r["max_abs_err"] for r in fwd_cc.values()),
+        ms=fwd_cc_at["alone_ms"], wrapper_ms=fwd_cc_at["ms"],
+        plain_ms=fwd_cc_at["plain_ms"], bound_ms=fwd_cc_at["bound_ms"],
+        bound_by=fwd_cc_at["bound_by"], library_ms=fwd_cc_at["library_ms"],
+        shapes={k: {f: r[f] for f in (
+            "ms", "alone_ms", "plain_ms", "bound_ms", "bound_by", "library",
+            "library_ms", "registers", "local_bytes", "row_rel_err",
+            "mirror_row_rel_err")} for k, r in fwd_cc.items()}))
     bwd_at = flash_bwd[f"gemma2 global {G2T} bfloat16"]
     bwd_cc = flash_bwd[f"hubert {HUBERT} float32"]
     bwd_cc16 = flash_bwd[f"starcoder2 {SC2} misaligned bfloat16"]
@@ -6647,6 +6776,8 @@ def main() -> int:
                       "attention_train_card_vs_cpu": attn_cpu,
                       "distributed": distributed, "whole_models": whole}))
     print(json.dumps({"flash_kernel_attributes": flash_attrs}))
+    log(f"chip_smoke: the whole run {time.perf_counter() - t_run:.1f} s, "
+        f"the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

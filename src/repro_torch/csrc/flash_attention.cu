@@ -98,44 +98,74 @@
 //      past S are not written.  Without a softcap the scale and log2(e)
 //      go into one FMA before ex2; with one, log2(e) is folded in after
 //      tanh.  The softcap uses tanhf (not tanh.approx).
-// 2. `flash_fwd_kernel` — fp32, bf16 at other pairs, and bf16 views that
-//    are not 16-byte aligned: the CUDA-core kernel of the first port.  fp32
-//    in, fp32 products (no TF32), so fp32 inputs agree with the plain
-//    version to 2e-5.
-//    * Dv < D.  The template width DM bounds max(D, Dv) = D; Q and K are
-//      staged over D columns and V over Dv (the rest of the tile is zero);
-//      Q·Kᵀ runs over the D columns (a run-time bound), P·V over all DM
-//      columns of the tile, and Dv columns of O are written.  At MLA's
-//      D = 192 it is the DM = 256 instantiation (211 KB).  A test inside
-//      the unrolled P·V loop that skips the column groups past Dv keeps
-//      the compiler from hoisting the loop's shared loads, and slowed the
-//      Dv = D route (PERF.md §6).
-//    * The key axis is a loop inside the block.  The TPU walked it as the
-//      innermost grid axis and kept (m, l, acc) in VMEM across grid steps;
-//      Hopper blocks run in no order, so one block takes one (b, h, 64-row
-//      query tile), keeps m and l in registers (each row's 16 owner threads
-//      hold the same copy, combined by warp shuffles) and the [64, D]
-//      accumulator in registers (4 rows × D/16 columns a thread), and walks
-//      its key tiles in order.
-//    * Tiles a mask removes entirely are never loaded: the block visits only
-//      the key tiles from (q0 - window + 1) / 64 to (q0 + 63) / 64, as the
-//      Pallas kernel skipped them with pl.when.  Inside a visited tile a row
-//      may still have no visible key (a window narrower than a tile); its
-//      scores are all -2^30, as in the plain version, and the next tile's
-//      factor exp(-2^30 - m) = 0 wipes what they added.
-//    * The ragged edge is masked here, not by the caller: the Pallas wrapper
-//      needed S % 256 == 0.  Keys past S score -inf (exactly 0 weight) and
-//      their V rows are zero in shared memory; rows past S are not written.
-//    * Strided inputs.  q, k, v and o are read and written through their
-//      batch, head and sequence strides (the head dim contiguous), so the
-//      model passes its [B,S,K,G,D] and [B,S,K,D] projections as they are,
-//      with no transpose copy; GQA reads kv head h / rep in place.
-//    * Shared memory: Q and K tiles [64][D+4] fp32 (rows padded so that a
-//      quarter-warp's float4 loads of 8 rows fall on distinct banks), V
-//      [64][D] and P [64][68]: 211 KB at D = 256, dynamic, set with
-//      cudaFuncSetAttribute.  Inputs are widened to fp32 as they are staged.
-//    * fp32 arithmetic throughout (expf and tanhf, no fast-math); TF32 is
-//      never used.  Head dims up to 256, D % 4 == 0.
+// 2. `flash_fwd_kernel<T, DM>` — fp32, bf16 at other pairs, and bf16 views
+//    that are not 16-byte aligned (pointers and strides multiples of 4
+//    elements only), on the tensor cores through `mma.sync`.
+//    * fp32 inputs: every product is three TF32 products with fp32 sums,
+//      a·b ≈ aₗ·bₕ + aₕ·bₗ + aₕ·bₕ with hi = cvt.rna.tf32.f32(x) and lo =
+//      cvt.rna.tf32.f32(x − hi) (`mma.sync.aligned.m16n8k8...tf32`).  hi +
+//      lo carries 22 bits of x's 24, and the dropped aₗ·bₗ is 2^-22 of a·b,
+//      so the fp32 route keeps the plain version's 2e-5 (the CPU mirror,
+//      ref.attention_split_reference, does the same arithmetic).  The
+//      split's floor on the card is 3·ops / 495 TFLOP/s (TF32), 0.41 of
+//      the old route's ops / 67 TFLOP/s (fp32 FMAs).
+//    * bf16 inputs: `mma.sync m16n8k16` bf16 with fp32 sums.  A product of
+//      two bf16 values is exact in fp32, so Q·Kᵀ is the function the old
+//      route computed by widening; P is rounded to bf16 where it meets V,
+//      as the plain version rounds p to v's dtype.
+//    * Why mma.sync and not wgmma: wgmma's tf32 form takes both operands
+//      K-major from shared memory, and V [keys, Dv] is MN-major for P·V, so
+//      V would have to be staged transposed; mma.sync reads either layout
+//      from shared memory with plain loads (fp32) or ldmatrix (.trans for V,
+//      bf16), and takes P from the S accumulator's registers.  This route
+//      serves what TMA cannot read (4-element alignment) and fp32, neither
+//      of them on the serving path.
+//    * Where the split happens.  Q and K/V tiles sit in shared memory as
+//      they arrive (fp32 or bf16); each fragment is split as a warp loads
+//      it, once for the three products it feeds, rounding on the bits
+//      ((x + 0x1000) & ~0x1FFF, cvt.rna's result, on the integer pipe).  A
+//      split copy in shared memory would double every staged tile (8
+//      bytes an element): at D = 256 the Q tile alone would take 266 KB.
+//      P is split in registers.
+//    * Sums.  A step's three products go into a fresh accumulator that is
+//      added to O in fp32 (round to nearest): the tensor cores' own sums
+//      truncate, and with O kept in their accumulator a first build's fp32
+//      error grew with the number of keys summed.  S = Q·Kᵀ (at most 32
+//      steps) stays in theirs.
+//    * P·V walks O's columns 32 at a time, the loads of a step ahead of
+//      its products; a step whose first column is live runs whole, and
+//      its dead columns (Dv < DM) are never stored.  Its loads may reach
+//      past V's last row, so Q sits after the ring.
+//    * Tiles.  8 warps, 16 query rows each: 128 rows a block.  K and V
+//      tiles of Bc keys in a double-buffered cp.async ring (16-byte copies
+//      of fp32, 8-byte copies of bf16: the route's 4-element alignment;
+//      rows past S zero-filled), so tile j + 1 lands while tile j is
+//      multiplied.  Rows are padded to 8k + 4
+//      floats (fp32) or 16k + 8 bf16, which keeps every fragment load and
+//      ldmatrix free of bank conflicts; the columns past D and Dv are zero.
+//      Template width DM = D rounded up to 64, 128, 192 or 256 sizes the O
+//      accumulator (16 × DM fp32 a warp); the shared tiles follow the run's
+//      D and Dv.  Bc (keys a tile) is what fits two stages at DM:
+//        fp32: 64 at DM <= 128, 32 at 192, 16 at 256 (Q 133 KB + 2 × 33 KB)
+//        bf16: 64 at every width (203 KB at D = 256)
+//      Q·Kᵀ runs over ceil(D/8) (fp32) or ceil(D/16) (bf16) k steps and
+//      P·V over Dv's columns, not DM's: MLA's D = 192, Dv = 128 multiplies
+//      128 columns of V.
+//    * The softmax as before: each warp owns its 16 rows (two a thread,
+//      combined by quad shuffles), m and l in fp32, expf and tanhf.  P's
+//      fragments come straight from the S accumulator (fp32: the k slots
+//      of m16n8k8 are read as keys 2t and 2t + 1, and V's rows are loaded
+//      in the same order).
+//    * Masks.  The key tiles outside the block's causal / window band are
+//      never loaded; a tile inside the band for all of a warp's rows skips
+//      the per-element mask; a warp skips a tile that none of its rows can
+//      see
+//      (the same bits: such a tile adds weights the row's first visible
+//      key wipes with exp(-2^30 - m) = 0, or adds 0); keys past S score
+//      -inf; rows past S are not written.  Inputs are read through their
+//      strides in place.
+//    * No spills: `arcadia_flash_kernel_info` reports registers and local
+//      bytes of each instantiation.
 //
 // Built by kernels/nvcc.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -150,9 +180,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // 16 × 16: 4 rows × (D/16) columns each
-constexpr int kTile = 64;              // query rows = key rows of a tile
-constexpr int kLdP = kTile + 4;
+constexpr int kThreads = 256;          // 8 warps, 16 query rows each
+constexpr int kRows = 128;             // query rows of a block
 constexpr int kMaxSmem = 232448;       // 227 KB, H100
 constexpr float kNegInf = -1073741824.f;  // -2^30, the plain version's mask value
 
@@ -172,63 +201,291 @@ struct Args {
   float scale, cap;                    // cap <= 0: none
 };
 
-// four consecutive elements (16 B of fp32, 8 B of bf16) as fp32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// ------------------- mma.sync route: fp32 (3 × TF32) and bf16 ------------------- //
+
+// The instantiation's width: D rounded up to 64, 128, 192 or 256.
+__host__ __device__ constexpr int mma_width(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+// Keys of a K/V tile: two stages of K and V beside 128 rows of Q at D = DM.
+__host__ __device__ constexpr int mma_keys(bool tf32, int DM) {
+  return !tf32 ? 64 : DM <= 128 ? 64 : DM == 192 ? 32 : 16;
+}
+// Elements of a staged row of n columns: fp32 rows 8k + 4 floats, bf16 rows
+// 16k + 8 (both keep fragment loads and ldmatrix free of bank conflicts).
+__host__ __device__ constexpr int tile_ld(int n, bool tf32) {
+  return tf32 ? (n + 7) / 8 * 8 + 4 : (n + 15) / 16 * 16 + 8;
+}
+// Q [128][ldk] and two stages of K [Bc][ldk] and V [Bc][ldv].
+__host__ __device__ constexpr int mma_smem_bytes(int D, int Dv, bool tf32) {
+  return (tf32 ? 4 : 2) *
+         (kRows * tile_ld(D, tf32) +
+          2 * mma_keys(tf32, mma_width(D)) * (tile_ld(D, tf32) + tile_ld(Dv, tf32)));
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);            // round to nearest even
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows [r0, r0 + 64) of a [S, D] slice (row stride ld_g) into a [64][ld_s]
-// fp32 tile; rows past S and columns past D are zero
-template <typename T, int DM>
-__device__ __forceinline__ void load_tile(float* dst, int ld_s, const T* src,
-                                          long long ld_g, int r0, int S, int D) {
-  constexpr int kQuads = DM / 4;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < kTile * kQuads; e += kThreads) {
-    const int r = e / kQuads;
-    const int d = (e - r * kQuads) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S && d < D) val = load4(src + static_cast<long long>(r0 + r) * ld_g + d);
-    *reinterpret_cast<float4*>(dst + r * ld_s + d) = val;
+// four consecutive elements (16 B of fp32, 8 B of bf16) from global into
+// shared memory, zeros where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// rows [r0, r0 + rows) of a [S, n] slice (row stride ld_g) into shared rows
+// ld_s apart, by cp.async; rows past S arrive as zeros
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld_s, const T* src, long long ld_g,
+                                          int r0, int rows, int S, int n) {
+  const int quads = n >> 2;
+  const int step = blockDim.x;
+  const int dr = step / quads, dc = (step - dr * quads) * 4;   // a step's rows, columns
+  int r = threadIdx.x / quads, c = (threadIdx.x - r * quads) * 4;
+  for (; r < rows; r += dr, c += dc) {
+    if (c >= n) {
+      c -= n;
+      ++r;
+      if (r >= rows) break;
+    }
+    const bool ok = r0 + r < S;
+    cp_async4(dst + r * ld_s + c, ok ? src + static_cast<long long>(r0 + r) * ld_g + c : src,
+              ok);
   }
 }
 
-__host__ __device__ constexpr int smem_floats(int DM) {
-  return 2 * kTile * (DM + 4) + kTile * DM + kTile * kLdP;
+// x as a TF32 operand, rounded as cvt.rna.tf32.f32 rounds it (to nearest,
+// ties away from zero) but on the bits, two integer operations on the
+// integer pipe rather than a conversion; and the split x ≈ hi + lo of two
+// TF32 values
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+// d += a·b: a 16x8 (row), b 8x8 (col), TF32; d 16x8 fp32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a·b in three TF32 products, the small ones first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+// c += a·b with the three products summed in a fresh accumulator and added
+// to c in fp32 (round to nearest): the tensor cores' own sum truncates, and
+// a long sum kept in their accumulator (O over 8192 keys) drifts with it
+__device__ __forceinline__ void mma3_add(float (&c)[4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                         const uint32_t (&bl)[2]) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(d, ah, al, bh, bl);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+// d += a·b: a 16x16 (row), b 16x8 (col), bf16; d 16x8 fp32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// four 8x8 bf16 matrices from shared memory, one row address a lane
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// A lane's row address for ldmatrix.x4 (ld: the shared row in elements):
+//   A 16x16 at (m0, k0) stored [m][k]: a_rows, ldsm_x4
+//   B 16(k) x 16(n) at (k0, n0), the n8 fragments {r0, r1} and {r2, r3}:
+//     stored [n][k]: b_rows, ldsm_x4;  stored [k][n]: b_cols, ldsm_x4_t
+__device__ __forceinline__ const __nv_bfloat16* a_rows(const __nv_bfloat16* s, int ld, int m0,
+                                                       int k0, int lane) {
+  return s + (m0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + k0 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ const __nv_bfloat16* b_rows(const __nv_bfloat16* s, int ld, int k0,
+                                                       int n0, int lane) {
+  return s + (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const __nv_bfloat16* b_cols(const __nv_bfloat16* s, int ld, int k0,
+                                                       int n0, int lane) {
+  return s + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0 + (lane >> 4) * 8;
+}
+
+// s[16 x 8·NT] = Q[m0.., :D]·K[:8·NT, :D]ᵀ over nk k steps, Q and K [rows][ld]
+template <int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* Q, const float* K,
+                                       int ld, int m0, int nk, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* qa = Q + (m0 + g) * ld + t;
+  const float* kb = K + g * ld + t;
+#pragma unroll 4
+  for (int kk = 0; kk < nk; ++kk, qa += 8, kb += 8) {
+    uint32_t ah[4], al[4];
+    split(qa[0], ah[0], al[0]);              // (g, t)
+    split(qa[8 * ld], ah[1], al[1]);         // (g + 8, t)
+    split(qa[4], ah[2], al[2]);              // (g, t + 4)
+    split(qa[8 * ld + 4], ah[3], al[3]);     // (g + 8, t + 4)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bh[2], bl[2];
+      split(kb[nt * 8 * ld], bh[0], bl[0]);      // (k t, key g)
+      split(kb[nt * 8 * ld + 4], bh[1], bl[1]);  // (k t + 4, key g)
+      mma3(s[nt], ah, al, bh, bl);
+    }
+  }
+}
+template <int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const __nv_bfloat16* Q,
+                                       const __nv_bfloat16* K, int ld, int m0, int nk,
+                                       int lane) {
+  static_assert(NT % 2 == 0, "bf16 takes keys 16 at a time");
+#pragma unroll 2
+  for (int kk = 0; kk < nk; ++kk) {
+    uint32_t qa[4];
+    ldsm_x4(qa, a_rows(Q, ld, m0, 16 * kk, lane));
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t kb[4];
+      ldsm_x4(kb, b_rows(K, ld, 16 * kk, 16 * j, lane));
+      mma_bf16(s[2 * j], qa, kb[0], kb[1]);
+      mma_bf16(s[2 * j + 1], qa, kb[2], kb[3]);
+    }
+  }
+}
+
+// o[16 x 8·NO] += P[16 x 8·NT]·V[8·NT, :Dv] with P in the S accumulator's
+// registers and V [keys][ld]; nv n8 tiles of O are live (Dv's)
+template <int NT, int NO>
+__device__ __forceinline__ void pv(float (&o)[NO][4], const float (&p)[NT][4], const float* V,
+                                   int ld, int nv, int lane) {
+  static_assert(NO % 4 == 0, "O is taken 32 columns at a time");
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    // the k slots t and t + 4 of this step are keys 8j + 2t and 8j + 2t + 1,
+    // where the accumulator holds P, and V's rows are read in that order
+    uint32_t ah[4], al[4];
+    split(p[j][0], ah[0], al[0]);
+    split(p[j][2], ah[1], al[1]);
+    split(p[j][1], ah[2], al[2]);
+    split(p[j][3], ah[3], al[3]);
+    const float* vb = V + (8 * j + 2 * t) * ld + g;
+    // four n8 tiles a step, their loads ahead of their products; a step
+    // whose first tile is live runs whole (its dead tiles' columns are
+    // never stored)
+#pragma unroll
+    for (int c4 = 0; c4 < NO / 4; ++c4) {
+      if (4 * c4 < nv) {
+        float v0[4], v1[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v0[i] = vb[(4 * c4 + i) * 8];
+          v1[i] = vb[ld + (4 * c4 + i) * 8];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t bh[2], bl[2];
+          split(v0[i], bh[0], bl[0]);
+          split(v1[i], bh[1], bl[1]);
+          mma3_add(o[4 * c4 + i], ah, al, bh, bl);
+        }
+      }
+    }
+  }
+}
+template <int NT, int NO>
+__device__ __forceinline__ void pv(float (&o)[NO][4], const float (&p)[NT][4],
+                                   const __nv_bfloat16* V, int ld, int nv, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    // P rounded to bf16 (the plain version rounds p to v's dtype)
+    const uint32_t pa[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
+                            pack_bf16(p[2 * j][2], p[2 * j][3]),
+                            pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                            pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+    for (int c4 = 0; c4 < NO / 4; ++c4) {
+      if (4 * c4 < nv) {                      // 32 columns a step, as fp32
+        uint32_t vb[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) ldsm_x4_t(vb[i], b_cols(V, ld, 16 * j, 32 * c4 + 16 * i, lane));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(o[4 * c4 + 2 * i], pa, vb[i][0], vb[i][1]);
+          mma_bf16(o[4 * c4 + 2 * i + 1], pa, vb[i][2], vb[i][3]);
+        }
+      }
+    }
+  }
+}
+
+// two adjacent outputs (an even column of a row whose stride is a
+// multiple of 4 elements)
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const Args a) {
-  constexpr int kLdQ = DM + 4;
-  constexpr int kVw = DM >= 64 ? 4 : 2;       // V columns per vector load
-  constexpr int kNc = DM / (16 * kVw);        // column groups a thread owns
-  constexpr int kCols = kNc * kVw;            // = DM / 16
+  constexpr bool kTf32 = sizeof(T) == 4;
+  constexpr int Bc = mma_keys(kTf32, DM);
+  constexpr int NT = Bc / 8;                  // n8 tiles of S
+  constexpr int NO = DM / 8;                  // n8 tiles of O
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kTile * kLdQ;
-  float* Vs = Ks + kTile * kLdQ;
-  float* Ps = Vs + kTile * DM;
+  const int ldk = tile_ld(a.D, kTf32), ldv = tile_ld(a.Dv, kTf32);
+  const int stage = Bc * (ldk + ldv);
+  T* ring = reinterpret_cast<T*>(smem4);      // stage s: K, then V
+  T* Qs = ring + 2 * stage;                   // after the ring: P·V's last
+                                              // chunk may read past V's end
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;                    // rows ty + 16 i
-  const int tx = tid & 15;                    // score columns tx + 16 j
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int qt = a.nq - 1 - static_cast<int>(blockIdx.x);   // longest rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / a.rep;
-  const int q0 = qt * kTile;
+  const int q0 = qt * kRows;
+  const int m0 = 16 * warp;                   // the warp's rows q0 + m0 ..
   const int S = a.S;
 
   const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -236,143 +493,136 @@ flash_fwd_kernel(const Args a) {
   const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<T, DM>(Qs, kLdQ, qg, a.q_ss, q0, S, a.D);
-
-  // the key tiles some row of this query tile can see
-  const int k_last = a.causal ? min(S - 1, q0 + kTile - 1) : S - 1;
-  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  const int kt_lo = k_first / kTile;
-  const int kt_hi = k_last / kTile;
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  // zero the tiles once: the columns past D and Dv stay zero
+  {
+    const int n = mma_smem_bytes(a.D, a.Dv, kTf32) / 16;
+    for (int i = tid; i < n; i += kThreads) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  __syncthreads();
+
+  // the key tiles some row of this block can see
+  const int k_last = a.causal ? min(S - 1, q0 + kRows - 1) : S - 1;
+  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt_lo = k_first / Bc;
+  const int kt_hi = k_last / Bc;
+  auto issue = [&](int kt, int st) {
+    T* Ks = ring + st * stage;
+    copy_rows(Ks, ldk, kg, a.k_ss, kt * Bc, Bc, S, a.D);
+    copy_rows(Ks + Bc * ldk, ldv, vg, a.v_ss, kt * Bc, Bc, S, a.Dv);
+  };
+  copy_rows(Qs, ldk, qg, a.q_ss, q0, kRows, S, a.D);
+  issue(kt_lo, 0);
+  cp_async_commit();
+
+  const int nk = kTf32 ? (a.D + 7) / 8 : (a.D + 15) / 16;    // k steps of Q·Kᵀ
+  const int nv = (a.Dv + 7) / 8;                             // live n8 tiles of O
+  const int r_lo = q0 + m0;                   // the warp's first and last rows
+  const int r_hi = r_lo + 15;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                          // the previous tile is done with Ks, Vs, Ps
-    load_tile<T, DM>(Ks, kLdQ, kg, a.k_ss, k0, S, a.D);
-    load_tile<T, DM>(Vs, DM, vg, a.v_ss, k0, S, a.Dv);
-    __syncthreads();
-
-    // scores of rows ty + 16 i against keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < a.D; d += 4) {         // D, not DM: no zero columns
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * kLdQ + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * kLdQ + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-    // scale, cap and mask; then the online softmax of each row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * a.scale;
-        if (a.cap > 0.f) x = tanhf(x / a.cap) * a.cap;
-        bool ok = true;
-        if (a.causal) ok = kpos <= qpos;
-        if (a.window > 0) ok = ok && kpos > qpos - a.window;
-        x = ok ? x : kNegInf;
-        if (kpos >= S) x = -INFINITY;         // past the end: no weight at all
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)  // the row's 16 threads
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kLdP + tx + 16 * j] = e;
-        rs += e;
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+    const int st = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {                         // the next tile lands meanwhile
+      issue(kt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int k0 = kt * Bc;
+    // a tile none of the warp's rows can see changes nothing (see the note)
+    const bool seen = r_lo < S && (!a.causal || k0 <= r_hi) &&
+                      (a.window <= 0 || k0 + Bc - 1 > r_lo - a.window);
+    if (seen) {
+      const T* Ks = ring + st * stage;
+      const T* Vs = Ks + Bc * ldk;
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      scores<NT>(s, Qs, Ks, ldk, m0, nk, lane);
 
-    // acc[rows, columns kVw·tx + 16·kVw·c + e] += P[rows, :] · V[:, columns]
-#pragma unroll 8
-    for (int j = 0; j < kTile; ++j) {
-      float pj[4];
+      // scale, cap and mask (only where the tile crosses the band's edge
+      // or the end for one of the warp's rows); then the online softmax of
+      // rows g and g + 8
+      const bool inside = (!a.causal || k0 + Bc - 1 <= r_lo) &&
+                          (a.window <= 0 || k0 > r_hi - a.window) && k0 + Bc <= S;
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pj[i] = Ps[(ty + 16 * i) * kLdP + j];
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < kNc; ++c) {
-        const float* vp = Vs + j * DM + kVw * tx + 16 * kVw * c;
-        float vv[kVw];
-        if constexpr (kVw == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vp);
-          vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
-          const float2 t = *reinterpret_cast<const float2*>(vp);
-          vv[0] = t.x; vv[1] = t.y;
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * a.scale;
+          if (a.cap > 0.f) x = tanhf(x / a.cap) * a.cap;
+          if (!inside) {
+            const int qpos = r_lo + g + 8 * (e >> 1);
+            const int kpos = k0 + 8 * nt + 2 * t + (e & 1);
+            bool ok = true;
+            if (a.causal) ok = kpos <= qpos;
+            if (a.window > 0) ok = ok && kpos > qpos - a.window;
+            x = ok ? x : kNegInf;
+            if (kpos >= S) x = -INFINITY;     // past the end: no weight at all
+          }
+          s[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], m_new[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));   // the row's quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[nt][e] - m_new[e >> 1]);
+          s[nt][e] = p;
+          rs[e >> 1] += p;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < kVw; ++e)
-            acc[i][c * kVw + e] = fmaf(pj[i], vv[e], acc[i][c * kVw + e]);
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+        m[r] = m_new[r];
       }
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt) {
+        o[nt][0] *= alpha[0];
+        o[nt][1] *= alpha[0];
+        o[nt][2] *= alpha[1];
+        o[nt][3] *= alpha[1];
+      }
+      pv<NT, NO>(o, s, Vs, ldv, nv, lane);
     }
+    __syncthreads();                          // the stage is free for tile kt + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = r_lo + g + 8 * r;
     if (qpos >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    if (a.lse != nullptr && tx == 0)          // log-sum-exp of the row's scores
-      a.lse[b * a.l_sb + h * a.l_sh + qpos] = m[i] + logf(den);
+    const float den = fmaxf(l[r], 1e-30f);
+    if (a.lse != nullptr && t == 0)          // log-sum-exp of the row's scores
+      a.lse[b * a.l_sb + h * a.l_sh + qpos] = m[r] + logf(den);
     T* row = og + static_cast<long long>(qpos) * a.o_ss;
 #pragma unroll
-    for (int c = 0; c < kNc; ++c)
-#pragma unroll
-      for (int e = 0; e < kVw; ++e) {
-        const int col = kVw * tx + 16 * kVw * c + e;
-        if (col < a.Dv) store(row + col, acc[i][c * kVw + e] / den);
-      }
+    for (int nt = 0; nt < NO; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < a.Dv) store2(row + col, o[nt][2 * r] / den, o[nt][2 * r + 1] / den);
+    }
   }
 }
 
 template <typename T, int DM>
 int launch(const Args& a, int batch, int heads, cudaStream_t stream) {
-  const int bytes = smem_floats(DM) * static_cast<int>(sizeof(float));
+  const int bytes = mma_smem_bytes(a.D, a.Dv, sizeof(T) == 4);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -386,12 +636,23 @@ int launch(const Args& a, int batch, int heads, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(const Args& a, int batch, int heads, cudaStream_t stream) {
-  if (a.D <= 32) return launch<T, 32>(a, batch, heads, stream);
-  if (a.D <= 64) return launch<T, 64>(a, batch, heads, stream);
-  if (a.D <= 128) return launch<T, 128>(a, batch, heads, stream);
-  return launch<T, 256>(a, batch, heads, stream);
+  switch (mma_width(a.D)) {
+    case 64: return launch<T, 64>(a, batch, heads, stream);
+    case 128: return launch<T, 128>(a, batch, heads, stream);
+    case 192: return launch<T, 192>(a, batch, heads, stream);
+    default: return launch<T, 256>(a, batch, heads, stream);
+  }
 }
 
+template <typename T>
+const void* mma_kernel(int D) {
+  switch (mma_width(D)) {
+    case 64: return reinterpret_cast<const void*>(flash_fwd_kernel<T, 64>);
+    case 128: return reinterpret_cast<const void*>(flash_fwd_kernel<T, 128>);
+    case 192: return reinterpret_cast<const void*>(flash_fwd_kernel<T, 192>);
+    default: return reinterpret_cast<const void*>(flash_fwd_kernel<T, 256>);
+  }
+}
 
 // --------------- tensor-core route: bf16 at the serving (D, Dv) pairs --------------- //
 
@@ -431,10 +692,6 @@ struct TcArgs {
   int S, rep, nq, causal, window;
   float scale, cap;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)),
@@ -510,11 +767,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory
@@ -1146,7 +1398,7 @@ extern "C" int arcadia_flash_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-         lse, l_sb, l_sh, seqlen, headdim, vdim, heads / kv_heads, (seqlen + kTile - 1) / kTile,
+         lse, l_sb, l_sh, seqlen, headdim, vdim, heads / kv_heads, (seqlen + kRows - 1) / kRows,
          causal, window, scale, cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *route = 0;
@@ -1162,37 +1414,27 @@ extern "C" int arcadia_flash_attention(
 }
 
 // The plan and attributes of the kernel that serves (dtype, headdim, vdim,
-// with or without a softcap) when the alignment allows the tensor cores:
-// out[0] route (1 tensor cores, 0 CUDA cores), out[1] query rows of a
+// with or without a softcap) when the alignment allows the tensor cores,
+// or (mma != 0) when it does not: out[0] route (1 wgmma, 0 mma.sync — the
+// "cuda_cores" route), out[1] query rows of a
 // block, out[2] keys of a tile, out[3] K/V stages, out[4] dynamic shared
 // bytes of a launch, out[5] registers a thread, out[6] local (spill) bytes
 // a thread, out[7] static shared bytes, out[8] max threads a block.
 // Returns a cudaError_t (0 on success).
 extern "C" int arcadia_flash_kernel_info(int dtype, int headdim, int vdim, int capped,
-                                         int* out) {
+                                         int mma, int* out) {
   if (headdim <= 0 || headdim > 256 || headdim % 4 || vdim <= 0 || vdim > headdim ||
       vdim % 4 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && tc_pair(headdim, vdim))
+  if (dtype == 1 && tc_pair(headdim, vdim) && !mma)
     return on_tc_pair(headdim, [&](auto p) {
       return tc_info<decltype(p)::kD, decltype(p)::kDv>(capped, out);
     });
-  const int dm = headdim <= 32 ? 32 : headdim <= 64 ? 64 : headdim <= 128 ? 128 : 256;
   out[0] = 0;
-  out[1] = kTile;
-  out[2] = kTile;
-  out[3] = 1;
-  out[4] = smem_floats(dm) * static_cast<int>(sizeof(float));
-  const void* fn = nullptr;
-  if (dtype == 0)
-    fn = dm == 32 ? reinterpret_cast<const void*>(flash_fwd_kernel<float, 32>)
-       : dm == 64 ? reinterpret_cast<const void*>(flash_fwd_kernel<float, 64>)
-       : dm == 128 ? reinterpret_cast<const void*>(flash_fwd_kernel<float, 128>)
-                   : reinterpret_cast<const void*>(flash_fwd_kernel<float, 256>);
-  else
-    fn = dm == 32 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 32>)
-       : dm == 64 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 64>)
-       : dm == 128 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 128>)
-                   : reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16, 256>);
+  out[1] = kRows;
+  out[2] = mma_keys(dtype == 0, mma_width(headdim));
+  out[3] = 2;
+  out[4] = mma_smem_bytes(headdim, vdim, dtype == 0);
+  const void* fn = dtype == 0 ? mma_kernel<float>(headdim) : mma_kernel<__nv_bfloat16>(headdim);
   return kernel_attributes(fn, out);
 }

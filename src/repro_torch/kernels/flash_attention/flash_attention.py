@@ -13,8 +13,12 @@ the source):
   brought by TMA into a two-stage ring by a producer warpgroup, 128 query
   rows a block;
 * ``"cuda_cores"`` — fp32, bf16 at other pairs, and bf16 views whose
-  pointers or strides are not 16-byte aligned: fp32 products out of
-  shared memory, 64 query rows a block.
+  pointers or strides are not 16-byte aligned (the name its launch
+  counters keep; its kernel, ``flash_fwd_kernel``, runs on the tensor
+  cores through ``mma.sync``): fp32 inputs as three TF32 products a
+  product (hi = tf32(x), lo = tf32(x - hi); ``ref.attention_split_
+  reference`` mirrors it), bf16 inputs as bf16 products with fp32 sums,
+  K/V tiles in a two-stage ``cp.async`` ring, 128 query rows a block.
 
 The source is compiled with ``nvcc`` at first use and bound with
 ``ctypes`` (``kernels/nvcc.py``); nothing is compiled at import time.
@@ -38,7 +42,12 @@ tile), no atomics:
   sums), dS rounded to bf16 where it meets Q and K
   (``ref.attention_backward_tc_reference`` mirrors that rounding);
 * ``"cuda_cores"`` (``csrc/flash_attention_bwd.cu``) — fp32, bf16 at other
-  pairs and bf16 views that are not 16-byte aligned: fp32 products.
+  pairs and bf16 views that are not 16-byte aligned: ``mma.sync`` on the
+  tensor cores, fp32 S, dV, dK and dQ as TF32 splits and dP = dO·Vᵀ in
+  fp32 FMAs (``ref.attention_backward_split_reference`` mirrors them),
+  bf16 products with fp32 sums and dS as bf16 hi + lo where it meets Q
+  and K; two-stage ``cp.async`` rings of Q/dO (dK/dV launch) and K/V (dQ
+  launch).
 
 ``BACKWARD_LAUNCHES`` counts its calls, ``BACKWARD_TENSOR_CORE_LAUNCHES``
 and ``BACKWARD_CUDA_CORE_LAUNCHES`` each route's calls,
@@ -99,9 +108,10 @@ def tile_plan(dtype: torch.dtype, head_dim: int,
     Tensor cores (bf16 at a pair of ``TENSOR_CORE_PAIRS``): Q [128, D] plus
     two stages of K [Bc, D] and V [Bc, Dv] in bf16, each row a whole number
     of 64-column boxes of 128 bytes (D = 80 fills two, the columns past 80
-    zero), 1 KB to align them to the swizzle and 128 B of mbarriers.  CUDA
-    cores: fp32 Q and K [64][D+4], V [64][D] and P [64][68] at D rounded
-    up to 32, 64, 128 or 256."""
+    zero), 1 KB to align them to the swizzle and 128 B of mbarriers.
+    ``"cuda_cores"`` (mma.sync): Q [128][ld(D)] plus two stages of K
+    [Bc][ld(D)] and V [Bc][ld(Dv)] in the inputs' dtype, rows padded to 8k
+    + 4 floats or 16k + 8 bf16 (``_mma_ld``), Bc = ``_mma_keys``."""
     dv = head_dim if v_head_dim is None else v_head_dim
     if dtype == torch.bfloat16 and (head_dim, dv) in TENSOR_CORE_PAIRS:
         keys = 64 if head_dim == 256 else 128
@@ -109,9 +119,31 @@ def tile_plan(dtype: torch.dtype, head_dim: int,
         smem = 1024 + 128 * boxes * 128 + 2 * keys * (boxes + v_boxes) * 128 \
             + 128
         return TilePlan("tensor_cores", 128, keys, 2, smem)
-    dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
-    smem = (2 * 64 * (dm + 4) + 64 * dm + 64 * 68) * 4
-    return TilePlan("cuda_cores", 64, 64, 1, smem)
+    tf32 = dtype == torch.float32
+    keys = _mma_keys(tf32, _mma_width(head_dim))
+    smem = (4 if tf32 else 2) * (128 * _mma_ld(head_dim, tf32) + 2 * keys * (
+        _mma_ld(head_dim, tf32) + _mma_ld(dv, tf32)))
+    return TilePlan("cuda_cores", 128, keys, 2, smem)
+
+
+def _mma_width(head_dim: int) -> int:
+    """The mma.sync kernels' instantiation: D rounded up to 64, 128, 192 or
+    256 (the accumulators' width)."""
+    return next(d for d in (64, 128, 192, 256) if head_dim <= d)
+
+
+def _mma_keys(tf32: bool, width: int) -> int:
+    """Keys of the forward's K/V tile: two stages beside 128 rows of Q fit
+    227 KB at D = width."""
+    if not tf32:
+        return 64
+    return 64 if width <= 128 else 32 if width == 192 else 16
+
+
+def _mma_ld(n: int, tf32: bool) -> int:
+    """Elements of a staged row of n columns: 8k + 4 floats, 16k + 8 bf16
+    (fragment loads and ldmatrix free of bank conflicts)."""
+    return -(-n // 8) * 8 + 4 if tf32 else -(-n // 16) * 16 + 8
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -121,21 +153,28 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, *[ll] * 12, p, ll, ll, i, i, i, i, i, i, i, i, f, f, i,
         p, ctypes.POINTER(i)]
     lib.arcadia_flash_attention.restype = ctypes.c_int
-    lib.arcadia_flash_kernel_info.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.arcadia_flash_kernel_info.argtypes = [i, i, i, i, i,
+                                              ctypes.POINTER(i)]
     lib.arcadia_flash_kernel_info.restype = ctypes.c_int
 
 
 def kernel_info(dtype: torch.dtype, head_dim: int, capped: bool = False,
-                v_head_dim: Optional[int] = None) -> dict:
+                v_head_dim: Optional[int] = None,
+                route: Optional[str] = None) -> dict:
     """The plan and ``cudaFuncGetAttributes`` of the kernel that serves
     (dtype, head dim, v head dim (D unless given), with or without a
-    softcap) on the card: route, rows, keys, stages, smem_bytes,
-    registers, local_bytes (spills), static_smem_bytes, max_threads."""
+    softcap) on the card, for 16-byte aligned inputs or (``route=
+    "cuda_cores"``) for inputs TMA cannot read: route, rows, keys, stages,
+    smem_bytes, registers, local_bytes (spills), static_smem_bytes,
+    max_threads."""
     dv = head_dim if v_head_dim is None else v_head_dim
+    if route not in (None, *ROUTES):
+        raise ValueError(f"no flash route {route!r}")
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_int * 9)()
     err = lib.arcadia_flash_kernel_info(_DTYPES[dtype], int(head_dim),
-                                        int(dv), int(capped), out)
+                                        int(dv), int(capped),
+                                        int(route == "cuda_cores"), out)
     if err != 0:
         raise RuntimeError(f"flash kernel info failed: cudaError_t {err} "
                            f"({dtype}, D={head_dim}, Dv={dv})")
@@ -177,11 +216,15 @@ def backward_plan(dtype: torch.dtype, head_dim: int,
     the swizzle and 128 B of mbarriers; dK/dV: K and V tiles of 64 keys
     plus two stages of Q and dO tiles of 64 queries; dQ: Q and dO of 128
     rows plus two stages of K and V tiles of 64 keys, one where two do not
-    fit in 227 KB (D = 256).  CUDA cores (the same for fp32 and bf16:
-    tiles are staged in fp32): D rounded up to DM = 32, 64, 128 or 256; 64
-    query rows and Bk keys a tile (32 at DM = 256, else 64); fp32 Q and dO
-    tiles [64][DM+4], K and V [Bk][DM+4], P and dS [64][Bk+4], lse and
-    delta [64]; v's head dim shares the DM-wide tiles."""
+    fit in 227 KB (D = 256).  ``"cuda_cores"`` (mma.sync, tiles in the
+    inputs' dtype, rows of ``_mma_ld`` elements, width DM = D rounded up to
+    64, 128, 192 or 256): dK/dV: K [Bk][ld(D)], V [Bk][ld(Dv)], two stages
+    of Q [Bq][ld(D)], dO [Bq][ld(Dv)], lse and delta [Bq], P and dS
+    [Bq][Bk + pad] (bf16: P, dS hi, dS lo); dQ: Q, dO, lse and delta of Bq
+    rows, two stages of K and V [Bk], dSᵀ [Bk][Bq + pad] (bf16: hi, lo).
+    (Bk, Bq) of dK/dV and (Bq, Bk) of dQ: fp32 (64, 64) and (64, 64) at
+    DM 64, (64, 32) and (64, 64) at 128, (64, 32) and (64, 32) at 192,
+    (32, 32) and (32, 32) at 256; bf16 (64, 64) and (64, 64)."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash backward takes fp32 or bf16, got {dtype}")
     dv = head_dim if v_head_dim is None else v_head_dim
@@ -199,12 +242,20 @@ def backward_plan(dtype: torch.dtype, head_dim: int,
         dq = 1024 + (2 + stages) * (k_tile + v_tile) + 128
         return BackwardPlan(route, 64, 64, dkdv, len(BWD_KERNELS), 128, 64,
                             dq, stages)
-    dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
-    keys = 32 if dm == 256 else 64
-    floats = 2 * 64 * (dm + 4) + 2 * keys * (dm + 4) + 2 * 64 * (keys + 4) \
-        + 2 * 64
-    return BackwardPlan(route, 64, keys, floats * 4, len(BWD_KERNELS), 64,
-                        keys, floats * 4, 1)
+    tf32 = dtype == torch.float32
+    dm = _mma_width(head_dim)
+    es, pad = (4, 4) if tf32 else (2, 8)
+    ld = _mma_ld(head_dim, tf32) + _mma_ld(dv, tf32)
+    keys = 32 if tf32 and dm == 256 else 64
+    rows = 64 if not tf32 or dm == 64 else 32
+    dq_rows = 32 if tf32 and dm == 256 else 64
+    dq_keys = 32 if tf32 and dm >= 192 else 64
+    dkdv = es * ((keys + 2 * rows) * ld + (2 if tf32 else 3) * rows
+                 * (keys + pad)) + 16 * rows
+    dq = es * ((dq_rows + 2 * dq_keys) * ld + (1 if tf32 else 2) * dq_keys
+               * (dq_rows + pad)) + 8 * dq_rows
+    return BackwardPlan(route, rows, keys, dkdv, len(BWD_KERNELS), dq_rows,
+                        dq_keys, dq, 2)
 
 
 def backward_executed_ops(dtype: torch.dtype, head_dim: int,
@@ -215,16 +266,21 @@ def backward_executed_ops(dtype: torch.dtype, head_dim: int,
     2·(3D + 2Dv).
     Tensor cores: Sᵀ twice, dPᵀ, dV and dK in the dK/dV launch and S, dP
     and dQ in the dQ launch, with dV's, dK's and dQ's widths rounded up to
-    64-column boxes (D', Dv'): 2·(3D + 2Dv + Dv' + 2D').  CUDA cores: S and
-    dP in both launches, dV, dK and dQ at D rounded up to DM = 32, 64, 128
-    or 256: 2·(2D + 2Dv + 3DM)."""
+    64-column boxes (D', Dv'): 2·(3D + 2Dv + Dv' + 2D').  CUDA cores
+    (mma.sync), with D and Dv rounded up to the product's step (D', Dv': 8
+    in fp32, 16 in bf16): S and dP in both launches, dV, dK and dQ; in fp32
+    each product three TF32 products, 3·2·(4D' + 3Dv'); in bf16 dK and dQ
+    twice (dS as hi + lo), 2·(6D' + 3Dv')."""
     dv = head_dim if v_head_dim is None else v_head_dim
     plan = backward_plan(dtype, head_dim, dv, route)
     if plan.route == "tensor_cores":
         wide, wide_v = -(-head_dim // 64) * 64, -(-dv // 64) * 64
         return 2 * (3 * head_dim + 2 * dv + wide_v + 2 * wide)
-    dm = next(d for d in (32, 64, 128, 256) if head_dim <= d)
-    return 2 * (2 * head_dim + 2 * dv + 3 * dm)
+    step = 8 if dtype == torch.float32 else 16
+    d, v = -(-head_dim // step) * step, -(-dv // step) * step
+    if dtype == torch.float32:
+        return 3 * 2 * (4 * d + 3 * v)
+    return 2 * (6 * d + 3 * v)
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -233,7 +289,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.arcadia_flash_attention_backward.argtypes = [
         *[p] * 10, *[ll] * 26, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.arcadia_flash_attention_backward.restype = ctypes.c_int
-    lib.arcadia_flash_bwd_kernel_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.arcadia_flash_bwd_kernel_info.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.arcadia_flash_bwd_kernel_info.restype = ctypes.c_int
 
 
@@ -268,13 +324,13 @@ def backward_kernel_info(dtype: torch.dtype, head_dim: int,
         regs = out[6:12]
     else:
         lib = nvcc.load(BWD_SOURCE, _bind_bwd)
-        out = (ctypes.c_int * 9)()
+        out = (ctypes.c_int * 12)()
         err = lib.arcadia_flash_bwd_kernel_info(_DTYPES[dtype], int(head_dim),
-                                                out)
+                                                int(dv), out)
         fields = dict(rows=out[0], keys=out[1], smem_bytes=out[2],
-                      dq_rows=out[0], dq_keys=out[1], dq_smem_bytes=out[2],
-                      dq_stages=1)
-        regs = out[3:9]
+                      dq_rows=out[3], dq_keys=out[4], dq_smem_bytes=out[5],
+                      dq_stages=2)
+        regs = out[6:12]
     if err != 0:
         raise RuntimeError(f"flash backward kernel info failed: cudaError_t "
                            f"{err} ({dtype}, D={head_dim}, Dv={dv}, "

@@ -3,8 +3,11 @@
 CPU tensors go to the plain PyTorch version (``ref.py``), CUDA tensors to
 the hand-written kernels (``flash_attention.py``: bf16 at the (D, Dv)
 pairs (64, 64), (80, 80), (128, 128), (192, 128) and (256, 256) with
-16-byte aligned views on the tensor cores, the rest on the CUDA cores),
-anything else raises.  Nothing falls back: a CUDA tensor never reaches
+16-byte aligned views to the wgmma kernels, the rest — fp32, other
+pairs, views TMA cannot read — to the ``"cuda_cores"`` route, whose
+kernels also run on the tensor cores, through ``mma.sync``: fp32 products
+as three TF32 products each, bf16 products with fp32 sums), anything
+else raises.  Nothing falls back: a CUDA tensor never reaches
 the plain version, and a kernel that cannot build or launch, or an input
 it does not take (a dtype other than fp32 or bf16, a head dim above 256,
 a value head dim above q's, a head dim that is not contiguous), raises.
@@ -15,8 +18,8 @@ Where a gradient is needed, attention is ``_Flash``, a
 ``torch.autograd.Function`` on either device: on the card its forward is
 the kernel with its per-row log-sum-exp, its backward the backward
 kernels (``flash_attention_backward_cuda``: three launches on the route
-``backward_route`` picks — the tensor cores for bf16 at the tensor-core
-pairs with aligned views, else the CUDA cores — counted by
+``backward_route`` picks — wgmma for bf16 at the tensor-core pairs with
+aligned views, else the mma.sync ``"cuda_cores"`` route — counted by
 ``flash_attention.BACKWARD_LAUNCHES`` per call and
 ``BACKWARD_TENSOR_CORE_LAUNCHES`` / ``BACKWARD_CUDA_CORE_LAUNCHES`` per
 route); on the CPU the plain

@@ -23,6 +23,15 @@ plants one of four wrong backwards the checks must tell apart.
 ``attention_backward_tc_reference`` is the same with the one rounding the
 tensor-core backward adds: dS rounded to q's dtype where it meets K (dq)
 and Q (dk), as that kernel's products take bf16 operands.
+
+``attention_split_reference``, ``attention_lse_split_reference`` and
+``attention_backward_split_reference`` mirror the fp32 arithmetic of the
+mma.sync kernels (the ``"cuda_cores"`` route): each product a·b taken as
+three TF32 products aₗ·bₕ + aₕ·bₗ + aₕ·bₕ, hi = tf32(x) and lo = tf32(x -
+hi), tf32() rounding to nearest with ties away from zero as
+``cvt.rna.tf32.f32`` does — all but the backward's dP = dO·Vᵀ, which that
+kernel takes in fp32; ``products=1`` is the single TF32 product the
+kernels do not use, which the checks must tell apart.
 """
 
 from __future__ import annotations
@@ -57,20 +66,59 @@ def _visible(S: int, causal: bool, window: Optional[int], device
     return ok
 
 
-def _capped_scores(q, k, cap, scale):
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds it: to nearest, ties away from zero, on the bits — 0x1000 added
+    to the int32 view, the low 13 bits cleared."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32 rounding takes fp32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) = (tf32(x), tf32(x - hi)): x to about 22 of its 24 bits."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                 products: int = 3) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of fp32 operands as the mma.sync kernels
+    take it: three TF32 products aₗ·bₕ + aₕ·bₗ + aₕ·bₕ with fp32 sums
+    (``products=3``), or the one product tf32(a)·tf32(b) (``products=1``).
+    Each TF32 product is exact in fp32; only the sums round."""
+    if products == 1:
+        return torch.einsum(eq, tf32_round(a), tf32_round(b))
+    if products != 3:
+        raise ValueError(f"products must be 1 or 3, got {products}")
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + \
+        torch.einsum(eq, ah, bh)
+
+
+def _split_mm(q: torch.Tensor, products: int):
+    if q.dtype != torch.float32:
+        raise TypeError(f"the split mirrors fp32 inputs, got {q.dtype}")
+    return lambda eq, a, b: split_einsum(eq, a, b, products)
+
+
+def _capped_scores(q, k, cap, scale, mm=torch.einsum):
     """Scores [B,H,S,S] of q against k repeated over each group, scaled and
-    capped (unmasked), in the accumulation type."""
+    capped (unmasked), in the accumulation type; ``mm`` takes the
+    product."""
     rep = q.shape[1] // k.shape[1]
     kk = k.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhtd->bhqt", q.to(_acc(q)), kk.to(_acc(q))) * scale
+    s = mm("bhqd,bhtd->bhqt", q.to(_acc(q)), kk.to(_acc(q))) * scale
     if cap is not None:
         s = torch.tanh(s / cap) * cap
     return s
 
 
-def _masked_scores(q, k, causal, window, cap, scale):
+def _masked_scores(q, k, causal, window, cap, scale, mm=torch.einsum):
     ok = _visible(q.shape[2], causal, window, q.device)
-    return torch.where(ok, _capped_scores(q, k, cap, scale), NEG_INF)
+    return torch.where(ok, _capped_scores(q, k, cap, scale, mm), NEG_INF)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -96,6 +144,34 @@ def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return torch.logsumexp(_masked_scores(q, k, causal, window, cap, scale),
                            dim=-1)
+
+
+def attention_split_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              cap: Optional[float] = None,
+                              scale: Optional[float] = None,
+                              products: int = 3) -> torch.Tensor:
+    """``attention_reference`` of fp32 inputs with Q·Kᵀ and P·V taken as
+    the mma.sync kernel takes them (``split_einsum``)."""
+    mm = _split_mm(q, products)
+    rep = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(_masked_scores(q, k, causal, window, cap, scale, mm),
+                      dim=-1)
+    return mm("bhqt,bhtd->bhqd", p, v.repeat_interleave(rep, dim=1))
+
+
+def attention_lse_split_reference(q: torch.Tensor, k: torch.Tensor, *,
+                                  causal: bool = True,
+                                  window: Optional[int] = None,
+                                  cap: Optional[float] = None,
+                                  scale: Optional[float] = None,
+                                  products: int = 3) -> torch.Tensor:
+    """``attention_lse_reference`` with the split Q·Kᵀ."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return torch.logsumexp(_masked_scores(q, k, causal, window, cap, scale,
+                                          _split_mm(q, products)), dim=-1)
 
 
 def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
@@ -128,8 +204,27 @@ def attention_backward_tc_reference(q: torch.Tensor, k: torch.Tensor,
                      round_ds=True)
 
 
+def attention_backward_split_reference(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, o: torch.Tensor,
+                                       lse: torch.Tensor, do: torch.Tensor, *,
+                                       causal: bool = True,
+                                       window: Optional[int] = None,
+                                       cap: Optional[float] = None,
+                                       scale: Optional[float] = None,
+                                       fault: Optional[str] = None,
+                                       products: int = 3):
+    """``attention_backward_reference`` of fp32 inputs with S, dq, dk and
+    dv taken as the mma.sync backward takes them (``split_einsum``) and dP
+    = dO·Vᵀ in fp32, as that kernel takes it on the CUDA cores (dq's row at
+    a query that sees few keys is dS = p·(dP - delta), a cancellation the
+    TF32 split and the tensor cores' truncating sums missed the fp32 row
+    check on): the CPU mirror of ``csrc/flash_attention_bwd.cu`` in fp32."""
+    return _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
+                     round_ds=False, mm=_split_mm(q, products))
+
+
 def _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
-              round_ds: bool):
+              round_ds: bool, mm=torch.einsum):
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
     B, H, S, D = q.shape
@@ -139,7 +234,7 @@ def _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     ok = _visible(S, causal, None if fault == "no_window" else window,
                   q.device)
-    s = _capped_scores(q, k, cap, scale)
+    s = _capped_scores(q, k, cap, scale, mm)
     p = torch.where(ok, torch.exp(s - lse.to(acc)[..., None]), 0.0)
     dof = do.to(acc)
     vv = v.repeat_interleave(G, dim=1).to(acc)
@@ -147,14 +242,16 @@ def _backward(q, k, v, o, lse, do, causal, window, cap, scale, fault,
     delta = (dof * o.to(acc)).sum(-1, keepdim=True)
     if fault == "no_delta":
         delta = torch.zeros_like(delta)
+    # dP in the accumulation type in every version: the split's kernel
+    # takes it in fp32 FMAs
     ds = p * (torch.einsum("bhqd,bhtd->bhqt", dof, vv) - delta)
     if cap is not None and fault != "no_cap_grad":
         ds = ds * (1.0 - (s / cap) ** 2)
     if round_ds:
         ds = ds.to(q.dtype).to(acc)
-    dq = scale * torch.einsum("bhqt,bhtd->bhqd", ds, kk)
-    dk = scale * torch.einsum("bhqt,bhqd->bhtd", ds, q.to(acc))
-    dv = torch.einsum("bhqt,bhqd->bhtd", p.to(v.dtype).to(acc), dof)
+    dq = scale * mm("bhqt,bhtd->bhqd", ds, kk)
+    dk = scale * mm("bhqt,bhqd->bhtd", ds, q.to(acc))
+    dv = mm("bhqt,bhqd->bhtd", p.to(v.dtype).to(acc), dof)
     dk, dv = dk.view(B, KV, G, S, D), dv.view(B, KV, G, S, Dv)
     if fault == "one_head":
         dk, dv = dk[:, :, 0], dv[:, :, 0]

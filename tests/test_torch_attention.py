@@ -135,6 +135,26 @@ def tc_smem(D, Dv):
     return 1024 + 128 * boxes * 128 + 2 * keys * (boxes + v_boxes) * 128 + 128
 
 
+def mma_keys(dtype, D):
+    """Keys of flash_fwd_kernel's K/V tile (csrc/flash_attention.cu,
+    mma_keys): 64 in bf16; in fp32 64 up to D 128, 32 up to 192, 16 above."""
+    if dtype == torch.bfloat16 or D <= 128:
+        return 64
+    return 32 if D <= 192 else 16
+
+
+def mma_smem(dtype, D, Dv):
+    """flash_fwd_kernel's shared bytes: Q [128 rows] and two stages of K and
+    V [Bc rows], rows padded to 8k + 4 floats or 16k + 8 bf16."""
+    if dtype == torch.float32:
+        ld = lambda n: -(-n // 8) * 8 + 4            # noqa: E731
+        size = 4
+    else:
+        ld = lambda n: -(-n // 16) * 16 + 8          # noqa: E731
+        size = 2
+    return size * (128 * ld(D) + 2 * mma_keys(dtype, D) * (ld(D) + ld(Dv)))
+
+
 def test_tile_plan_fits_a_block_for_every_input_the_kernel_takes():
     """Every (dtype, D, Dv) the wrapper's check accepts (fp32 or bf16, D a
     multiple of 4 up to 256, Dv one up to D) has a plan within the 232,448
@@ -162,7 +182,9 @@ def test_tile_plan_fits_a_block_for_every_input_the_kernel_takes():
                 assert plan.keys % 16 == 0 and plan.keys <= 256   # wgmma N
                 assert plan.smem_bytes == tc_smem(D, Dv), (D, Dv)
             else:
-                assert (plan.rows, plan.keys, plan.stages) == (64, 64, 1)
+                assert (plan.rows, plan.keys, plan.stages) == \
+                    (128, mma_keys(dtype, D), 2), (dtype, D, Dv, plan)
+                assert plan.smem_bytes == mma_smem(dtype, D, Dv), (D, Dv)
 
 
 def test_serving_widths_go_to_the_tensor_cores():

@@ -305,10 +305,18 @@ def test_backward_plan_fits_shared_memory_at_every_head_dim(dtype):
         tc = dtype == torch.bfloat16 and (D, D) in fa.TENSOR_CORE_PAIRS
         plan = fa.backward_plan(dtype, D, route="cuda_cores" if tc else None)
         assert plan.route == "cuda_cores"
-        assert plan.smem_bytes <= fa.MAX_SMEM, (D, plan)
-        assert plan.rows == 64 and plan.launches == 3
-        assert plan.keys == (32 if D > 128 else 64)
-        assert fa.backward_plan(dtype, D, 4) == plan   # Dv shares the tiles
+        assert max(plan.smem_bytes, plan.dq_smem_bytes) <= fa.MAX_SMEM, \
+            (D, plan)
+        assert plan.launches == 3 and plan.dq_stages == 2
+        fp32 = dtype == torch.float32
+        assert (plan.keys, plan.rows, plan.dq_rows, plan.dq_keys) == (
+            (32 if D > 192 else 64, 64 if D <= 64 else 32,
+             32 if D > 192 else 64, 32 if D > 128 else 64) if fp32
+            else (64, 64, 64, 64)), (D, plan)
+        narrow = fa.backward_plan(dtype, D, 4,
+                                  route="cuda_cores" if tc else None)
+        assert narrow.smem_bytes <= plan.smem_bytes  # V's tiles follow Dv
+        assert (narrow.rows, narrow.keys) == (plan.rows, plan.keys)
     with pytest.raises(ValueError):
         fa.backward_plan(dtype, 260)
     with pytest.raises(ValueError):

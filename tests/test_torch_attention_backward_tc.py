@@ -200,9 +200,14 @@ def test_executed_work_of_the_route():
         wide, wide_v = 64 * math.ceil(D / 64), 64 * math.ceil(Dv / 64)
         assert got == 2 * (3 * D + 2 * Dv + wide_v + 2 * wide)
         assert 1.5 <= got / need <= 2.0
+    # the mma.sync route: S and dP twice, dV, dK, dQ; fp32 three TF32
+    # products each, bf16 dK and dQ twice (dS as hi + lo), widths rounded up
+    # to the product's step (8 in fp32, 16 in bf16)
     assert fa.backward_executed_ops(torch.float32, 80, 80) == \
-        2 * (2 * 80 + 2 * 80 + 3 * 128)
+        3 * 2 * (4 * 80 + 3 * 80)
+    assert fa.backward_executed_ops(torch.float32, 36, 20) == \
+        3 * 2 * (4 * 40 + 3 * 24)
     assert fa.backward_executed_ops(torch.bfloat16, 96, 64) == \
-        2 * (2 * 96 + 2 * 64 + 3 * 128)
+        2 * (6 * 96 + 3 * 64)
     assert fa.backward_executed_ops(torch.bfloat16, 128, 128,
-                                    route="cuda_cores") == 2 * 7 * 128
+                                    route="cuda_cores") == 2 * 9 * 128

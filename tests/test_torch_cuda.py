@@ -1765,6 +1765,123 @@ def test_flash_backward_tc_kernel_info_matches_the_plan(cuda_device):
             "tensor_cores"
 
 
+# --------- the mma.sync route (fp32, and bf16 that TMA cannot read) --------- #
+
+def check_mma_backward(q, k, v, do, **kw):
+    """One forward launch and one backward call on the "cuda_cores"
+    (mma.sync) route, held to the plain versions (check_flash's bounds,
+    BWD_ROW_TOL) and, in fp32, to the split mirror
+    (ref.attention_split_reference and its backward: the kernels'
+    arithmetic on the card's own terms) at the same bounds; a second
+    backward call repeats the first bitwise."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    check_route("cuda_cores", q, k, v, **kw)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    if q.dtype == torch.float32:
+        want = fa_ref.attention_split_reference(q, k, v, **kw)
+        row_err = ((o - want).abs().amax(-1)
+                   / want.abs().amax(-1).clamp_min(1e-30)).max()
+        assert float(row_err) <= FLASH_ROW_TOL[q.dtype], float(row_err)
+    assert fa.backward_route(q, k, v, o, do) == "cuda_cores"
+    tc, cc = flash_bwd_route_counts()
+    got = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    assert flash_bwd_route_counts() == (tc, cc + 2)
+    wants = [fa_ref.attention_backward_reference(q, k, v, o, lse, do, **kw)]
+    if q.dtype == torch.float32:
+        wants.append(fa_ref.attention_backward_split_reference(
+            q, k, v, o, lse, do, **kw))
+    for g, h, x in zip(got, again, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, h)
+    for want in wants:
+        errs = [grad_row_err(g, w) for g, w in zip(got, want)]
+        assert max(errs) <= BWD_ROW_TOL[q.dtype], (errs, kw)
+
+
+@pytest.mark.parametrize("D,Dv,causal", [(192, 128, True), (80, 80, False)],
+                         ids=["mla", "hubert"])
+def test_flash_mma_route_fp32_at_mla_and_hubert(cuda_device, fp32_exact, D,
+                                                Dv, causal):
+    """MLA's prefill pair (D 192, Dv 128, causal, scale 1/sqrt(192)) and
+    hubert's (D 80, not causal) in fp32, forward and backward, GQA 4 over
+    2, a length (300) that no tile divides, a softcap and a window."""
+    for n, kw in enumerate([dict(causal=causal),
+                            dict(causal=causal, window=64, cap=30.0)]):
+        check_mma_backward(*flash_bwd_inputs(2, 4, 2, 300, D, Dv,
+                                             torch.float32, D + n,
+                                             cuda_device),
+                           scale=1.0 / float(np.sqrt(D)), **kw)
+
+
+@pytest.mark.parametrize("D,Dv", [(80, 80), (192, 128)],
+                         ids=["hubert", "mla"])
+def test_flash_mma_route_bf16_that_tma_cannot_read(cuda_device, fp32_exact, D,
+                                                    Dv):
+    """bf16 at a tensor-core pair, as copies 8 bytes past 16-byte alignment
+    (the route's 4-element alignment, not TMA's 16 bytes): forward and
+    backward on the mma.sync route, within the bf16 bounds of the plain
+    versions."""
+    for n, kw in enumerate([dict(causal=True), dict(causal=False, window=40),
+                            dict(causal=True, window=48, cap=20.0)]):
+        check_mma_backward(*(shifted_copy(t) for t in flash_bwd_inputs(
+            2, 4, 2, 200, D, Dv, torch.bfloat16, 3 * D + n, cuda_device)),
+            **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_mma_route_backward_repeats_bitwise(cuda_device, dtype):
+    """No atomics: two backward calls on the mma.sync route give the same
+    bits (fp32, and bf16 copies TMA cannot read), GQA 6 over 2."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v, do = (shifted_copy(t) for t in flash_bwd_inputs(
+        1, 6, 2, 333, 128, 128, dtype, 11, cuda_device))
+    kw = dict(causal=True, window=100, cap=30.0)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert fa.backward_route(q, k, v, o, do) == "cuda_cores"
+    a = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    b = fa.flash_attention_backward_cuda(q, k, v, o, lse, do, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_mma_route_instantiations_match_the_plan_and_do_not_spill(
+        cuda_device):
+    """Every instantiation the mma.sync route builds (fp32 and bf16 at
+    widths 64, 128, 192 and 256, with and without a softcap): the card's
+    plan is the host's (forward and backward) and no kernel spills."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for D, Dv in ((32, 32), (64, 64), (80, 80), (96, 64), (128, 128),
+                      (160, 160), (192, 128), (256, 256), (256, 128)):
+            plan = fa.tile_plan(dtype, D, Dv)
+            for capped in (False, True):
+                info = fa.kernel_info(dtype, D, capped, v_head_dim=Dv,
+                                      route="cuda_cores")
+                assert info["route"] == "cuda_cores"
+                if plan.route == "cuda_cores":
+                    assert (info["rows"], info["keys"], info["stages"],
+                            info["smem_bytes"]) == \
+                        (plan.rows, plan.keys, plan.stages, plan.smem_bytes)
+                assert info["local_bytes"] == 0, (dtype, D, Dv, info)
+                assert info["max_threads"] >= 256
+            binfo = fa.backward_kernel_info(dtype, D, Dv, route="cuda_cores")
+            bplan = fa.backward_plan(dtype, D, Dv, route="cuda_cores")
+            assert {f: binfo[f] for f in ("rows", "keys", "smem_bytes",
+                                          "dq_rows", "dq_keys",
+                                          "dq_smem_bytes", "dq_stages")} == \
+                {f: getattr(bplan, f) for f in (
+                    "rows", "keys", "smem_bytes", "dq_rows", "dq_keys",
+                    "dq_smem_bytes", "dq_stages")}
+            assert all(b == 0 for b in binfo["local_bytes"].values()), binfo
+
+
 def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda_device,
                                                        fp32_exact):
     """mamba2-130m (reduced) in fp32: one journaled train step on the card

@@ -189,19 +189,20 @@ def test_attention_with_a_narrower_value_head_matches_jax(B, H, S, D, Dv,
 
 def test_mla_and_hubert_prefills_take_the_cuda_core_plan():
     """In fp32 (the card-vs-CPU checks) MLA's prefill (D 192, Dv 128) and
-    hubert's (D 80) take the CUDA-core kernel's plan at the 256- and
-    128-wide instantiations; so does bf16 at a head dim of 128 with Dv 64,
-    a pair without a tensor-core instantiation."""
+    hubert's (D 80) take the mma.sync kernel's plan (the "cuda_cores"
+    route) at the 192- and 128-wide instantiations, 32 and 64 keys a tile;
+    so does bf16 at a head dim of 128 with Dv 64, a pair without a
+    tensor-core instantiation."""
     full = get_config(NAME)
     D, Dv = full.qk_nope_dim + full.qk_rope_dim, full.v_head_dim
     hubert = get_config("hubert-xlarge").resolved_head_dim
     assert (D, Dv, hubert) == (192, 128, 80)
     plan = fa.tile_plan(torch.float32, D, Dv)
-    assert plan.route == "cuda_cores"
-    assert plan.smem_bytes == (2 * 64 * 260 + 64 * 256 + 64 * 68) * 4
+    assert plan.route == "cuda_cores" and plan.keys == 32
+    assert plan.smem_bytes == (128 * 196 + 2 * 32 * (196 + 132)) * 4
     plan = fa.tile_plan(torch.float32, hubert)
-    assert plan.route == "cuda_cores"
-    assert plan.smem_bytes == (2 * 64 * 132 + 64 * 128 + 64 * 68) * 4
+    assert plan.route == "cuda_cores" and plan.keys == 64
+    assert plan.smem_bytes == (128 * 84 + 2 * 64 * (84 + 84)) * 4
     assert fa.tile_plan(torch.bfloat16, 128, 64).route == "cuda_cores"
 
 
