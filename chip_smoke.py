@@ -2,7 +2,8 @@
 """Run the PyTorch port of the Arcadia log on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
-        [--phase ssd_backward|flash_backward|distributed|whole_models|faults]
+        [--phase ssd|ssd_backward|flash|flash_backward|distributed|
+                 whole_models|faults]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
 Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
@@ -75,17 +76,27 @@ from ``src/repro_torch/csrc``
                 block's largest value), each case on the route the table
                 names (bf16 at widths that are multiples of 16 and chunks
                 of 64·k on the tensor cores, also as the mixer's strided
-                views; the rest on the CUDA cores), with its median time,
-                the plain version's time and its bound; in fp32 both
-                against a float64 recurrence, where at N = 128 the kernel
-                may be no further from it than the plain one; at the
-                serving shape the scan of the second half alone and the
-                scan with decays twice as fast must fail the block check,
-                and the mixer's views and contiguous copies of them are
-                timed in turns on the same data: the scan alone (20
-                scans replayed from a CUDA graph), per call with the L2
-                flushed, the host's time to issue a call, and each of the
-                three launches' device time (torch.profiler);
+                views; fp32, and bf16 at a chunk of 16 and at S = 100, on
+                the "cuda_cores" route, whose three launches also
+                run on the tensor cores: fp32 as three TF32 products, held
+                to ``ref.ssd_split_reference`` too, bf16 with the
+                tensor-core route's roundings), with its median time, the
+                plain version's time and its bound (fp32 at three TF32
+                products, with the 67 TFLOP/s fp32 figure beside it); in
+                fp32 both against a float64 recurrence, where at N = 128
+                the kernel may be no further from it than the plain one;
+                the fp32 serving shape also alone (CUDA graph) and per
+                launch (torch.profiler); at the serving shape the scan of
+                the second half alone and the scan with decays twice as
+                fast must fail the block check, and the mixer's views and
+                contiguous copies of them are timed in turns on the same
+                data: the scan alone (20 scans replayed from a CUDA
+                graph), per call with the L2 flushed, the host's time to
+                issue a call, and each of the three launches' device time
+                (torch.profiler); then each "cuda_cores" launch's
+                registers and spill bytes at each (P, dtype) of its cases
+                (a spill fails).  ``--phase ssd`` runs it alone and prints
+                its JSON;
   serving       mamba2-130m at full width from --seed, saved as a
                 checkpoint whose manifest commits through a replicated log
                 (2 backups, W = 2 of 3, phash threshold 256 B), the log
@@ -95,8 +106,9 @@ from ``src/repro_torch/csrc``
                 with 4 teacher-forced
                 decode steps held against the prefill logits;
   card vs cpu   the restored params in fp32, one 512-token prefill on the
-                card (kernel) and on the CPU (plain): logits within 2e-3
-                and the same next greedy token.  The teacher-forced and
+                card (kernel, a scan a layer on the "cuda_cores" route) and
+                on the CPU (plain): logits within 2e-3 and the same next
+                greedy token.  The teacher-forced and
                 card-vs-CPU checks run again on a variant of the params in
                 which the scan carries each mixer's output (at init it is
                 mostly the 4-token conv);
@@ -107,7 +119,10 @@ from ``src/repro_torch/csrc``
                 the route the table names (bf16 with chunks of 64·k on the
                 tensor cores, also as the mixer's views, and held to the
                 kernel's CPU mirror and a float64 gradient too; fp32, a
-                chunk of 16 and a misaligned bf16 copy on the CUDA cores),
+                chunk of 16 and a misaligned bf16 copy on the "cuda_cores"
+                route — seven launches on the tensor cores, fp32 held to
+                ``ref.ssd_backward_split_reference``, bf16 to the
+                tensor-core route's mirror),
                 at the CPU tests' shapes, at jamba's groups (G 8) over
                 chunks, at the widest P and N the tensor cores take, and
                 at mamba2-130m's training shape
@@ -117,16 +132,18 @@ from ``src/repro_torch/csrc``
                 sequence alone (no adjoint or no state across the halves)
                 must fail the check; with its median time a call, alone
                 (CUDA graph) and per launch (torch.profiler) at the training
-                shape, the plain versions' and its bound; then each
-                tensor-core launch's registers and spill bytes at each
-                (P, N) of its cases.  ``--phase ssd_backward`` builds the
+                shape (the fp32 and misaligned bf16 cases too), the plain
+                versions' and its bound (fp32 at three TF32 products and at
+                67 TFLOP/s); then each launch's registers and spill bytes at
+                each (P, N) of its cases on both routes (a spill on the
+                "cuda_cores" route fails).  ``--phase ssd_backward`` builds the
                 kernels, runs this phase alone and prints its JSON (not
                 the run's result line);
   train         mamba2-130m at full width and depth (24 layers, bf16 compute,
                 fp32 master params) trained on 8 x 4096 synthetic tokens a
                 step with AdamW (peak lr 3e-4): a profiled step (24 SSD
                 forward launches, 24 remat recomputes, 24 backward
-                launches on the tensor cores and none on the CUDA cores,
+                launches on the tensor cores and none on "cuda_cores",
                 one hash launch
                 per grad leaf; ms, tokens/s, peak memory, busy share, top
                 kernels), then 8 steps through the journaled, checkpointed
@@ -139,9 +156,10 @@ from ``src/repro_torch/csrc``
                 plain hash of its grads on the CPU;
   train cpu     mamba2-130m at full width cut to 2 layers, fp32: one AdamW
                 step of 1 x 512 tokens on the card and on the CPU from the
-                same state (the fp32 backward on the CUDA cores), loss
+                same state (the fp32 scans and backward on "cuda_cores"), loss
                 within 1e-5 relative and grads, moments and params within
-                1e-4 of each leaf's scale, where a backward run chunk by
+                1e-4 of each leaf's scale (its 2 + 2 scans and 2 gradients
+                on the "cuda_cores" route), where a backward run chunk by
                 chunk must move the grads past that;
   flash kernel  the flash-attention kernels against their plain version
                 (within tol·(1 + |plain|), tol 2e-5 fp32 / 3e-2 bf16, and
@@ -1623,7 +1641,8 @@ def faults_phase(base: bytes, seed: int) -> dict:
 # tokens) in both dtypes; the bf16 twins that the tensor-core kernel takes
 # (a chunk of 64, 3 groups, mamba2's widths in two chunks), and the serving
 # shape as the mixer passes it: views of one conv output (token stride
-# H·P + 2·G·N).  fp32, and bf16 at other widths, stay on the CUDA cores.
+# H·P + 2·G·N).  fp32, and bf16 at other widths or chunks, take the
+# "cuda_cores" route (csrc/ssd_scan.cu, on the tensor cores too).
 TC, CC = "tensor_cores", "cuda_cores"
 SSD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32", "contiguous", CC),
               ((1, 128, 2, 64, 1, 32, 32), "float32", "contiguous", CC),
@@ -1696,18 +1715,33 @@ def ssd_bound_ms(shape, dtype) -> tuple[float, str]:
     """Least time for the scan: inputs read and outputs written once at the
     HBM rate, against its operations — the causal half of the intra-chunk
     products, Q(Q+1)(N+P) per chunk, plus 4·Q·N·P for the inter-chunk term
-    and the state update — at the peak rate for the dtype (bf16 tensor
-    cores; fp32 CUDA cores)."""
-    B, S, H, P, G, N, chunk = shape
-    Q = min(chunk, S)
+    and the state update — at the peak rate for the dtype (``ops_ms``: bf16
+    on the tensor cores; fp32 as three TF32 products on them)."""
+    B, S, H, P, G, N, _ = shape
     el = 2 if dtype == "bfloat16" else 4
     n_bytes = (2 * B * S * H * P * el + B * S * H * 4 + H * 4
                + 2 * B * S * G * N * el + B * H * P * N * 4)
-    ops = B * H * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
+    t_ops = ops_ms(ssd_ops(shape), dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_ops(shape, backward: bool = False) -> int:
+    """The least operations of the scan (``ssd_bound_ms``) or of its
+    gradient (``ssd_bwd_bound_ms``)."""
+    B, S, H, P, G, N, chunk = shape
+    Q = min(chunk, S)
+    if backward:
+        return B * (S // Q) * (H * (Q * (Q + 1) * 2 * P + 10 * Q * N * P)
+                               + G * Q * (Q + 1) * 3 * N)
+    return B * H * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+
+
+def ssd_fp32_rate_ms(shape, backward: bool = False) -> float:
+    """The scan's (or its gradient's) operations at the card's 67 TFLOP/s
+    fp32 rate: the bound an fp32 kernel on the CUDA cores had, kept beside
+    the three-TF32-product bound."""
+    return ssd_ops(shape, backward) / FP32_OPS_PER_S * 1e3
 
 
 def ssd_planted_faults(args, chunk: int, y_plain: torch.Tensor) -> dict:
@@ -1794,7 +1828,9 @@ def ssd_kernel_phase(seed: int) -> dict:
     """Each case: one scan on the route the table names (one launch count,
     one on the route's count), held against the plain version elementwise
     and, in bf16, per (batch, head, chunk) block; fp32 also against a
-    float64 recurrence; planted faults at the serving shape."""
+    float64 recurrence and, on "cuda_cores", the split mirror; planted
+    faults at the serving shape; then the "cuda_cores" launches' registers
+    and spills."""
     from repro_torch.kernels.ssd_scan import ops, ref, ssd_scan
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
@@ -1854,33 +1890,74 @@ def ssd_kernel_phase(seed: int) -> dict:
             if shape[5] == 128 and err64["kernel"] > err64["plain"]:
                 raise AssertionError(f"SSD {shape}: kernel further from "
                                      f"float64 than the plain version")
+        mirror = None
+        if route == CC and dtype == "float32":
+            # the split mirror of the route's fp32 arithmetic (plain
+            # PyTorch, here on the card in full fp32)
+            ym, sm = ref.ssd_split_reference(*args, chunk=chunk)
+            mirror = max(float((g - w).abs().max() / w.abs().max())
+                         for g, w in ((y, ym), (st, sm)))
+            if not mirror <= tol:
+                raise AssertionError(f"{name}: kernel differs from the split "
+                                     f"mirror by {mirror:.3e} of the largest "
+                                     f"value (tolerance {tol})")
+            del ym, sm
         big = shape[0] * shape[1] > 4096
-        ms = timed_ms(lambda: ops.ssd(*args, chunk=chunk), 10 if big else 20,
-                      flush)
+        scan = lambda: ops.ssd(*args, chunk=chunk)  # noqa: E731
+        ms = timed_ms(scan, 10 if big else 20, flush)
+        alone = per_launch = None
+        if big and route == CC:
+            alone = kernel_alone_ms(scan, 5)
+            per_launch = profiled_launch_ms(scan, r"ssd_cc_\w+(<[^>]*>)?",
+                                            3)
         plain = timed_ms(lambda: ref.ssd_reference(*args, chunk=chunk),
                          3 if big else 20, flush)
         b, by = ssd_bound_ms(shape, dtype)
+        b32 = ssd_fp32_rate_ms(shape) if dtype == "float32" else None
         turns = ssd_layouts(args, chunk, flush) \
             if layout == "mixer views" else None
         results[name] = dict(shape=list(shape), dtype=dtype, layout=layout,
                              route=route, max_abs_err=err, tol=tol,
                              block_rel_err=blk, block_tol=SSD_BLOCK_TOL,
                              planted_fault_block_rel_err=faults, ms=ms,
+                             alone_ms=alone, launch_ms=per_launch,
                              plain_ms=plain, bound_ms=b, bound_by=by,
+                             bound_fp32_rate_ms=b32,
+                             mirror_rel_err=mirror,
                              err_from_float64=err64, layouts=turns)
         blk_txt = "" if blk is None else f", block err {blk:.3e} (within " \
             f"{SSD_BLOCK_TOL:.4g})"
         fault_txt = "" if faults is None else "; planted faults: " + ", ".join(
             f"{f} {e:.3e} of a block off" for f, e in faults.items())
         log(f"kernel {name} ({route}): max abs err {err:.3e} (within {tol} + "
-            f"{tol}·|plain|){blk_txt}{fault_txt}; {ms:.6f} ms, plain "
-            f"{plain:.6f} ms, bound {b:.6f} ms ({by})")
+            f"{tol}·|plain|){blk_txt}{fault_txt}"
+            + ("" if mirror is None else
+               f", {mirror:.3e} of the largest value from the split mirror")
+            + f"; {ms:.6f} ms"
+            + ("" if alone is None else f", {alone:.6f} ms alone")
+            + f", plain {plain:.6f} ms, bound {b:.6f} ms ({by})"
+            + ("" if b32 is None else f", {b32:.6f} ms at 67 TFLOP/s fp32"))
+        if per_launch is not None:
+            log(f"kernel {name} ({route}) per launch: " + ", ".join(
+                f"{kn} {v:.6f} ms" for kn, v in per_launch.items()))
         for lay, t in (turns or {}).items():
             log(f"kernel {name}, in turns as {lay}: alone {t['alone_ms']} "
                 f"ms, per call {t['wrapper_ms']} ms, issue {t['issue_ms']} "
                 f"ms (host), launches {t['pass_ms']} ms (device) of "
                 f"{t['pass_count']} recorded")
         del args, y, st, y_ref, st_ref
+    info = {}
+    for P, dtype in sorted({(s_[3], d_) for s_, d_, _, r in SSD_SHAPES
+                            if r == CC}):
+        info[f"P {P} {dtype}"] = rows = ssd_scan.kernel_info(
+            P, getattr(torch, dtype))
+        log(f"kernel ssd scan (cuda_cores) at P {P} {dtype}: " + ", ".join(
+            f"{r['launch']} {r['registers']} registers {r['local_bytes']} "
+            f"spill bytes" for r in rows))
+        if any(r["local_bytes"] for r in rows):
+            raise AssertionError(f"an SSD scan launch spills at P {P} "
+                                 f"{dtype}: {rows}")
+    results["kernel_info"] = info
     torch.cuda.empty_cache()
     return results
 
@@ -2055,7 +2132,6 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
     from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
 
@@ -2063,18 +2139,22 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
     toks = torch.from_numpy(np.random.default_rng(seed + 7).integers(
         0, cfg.vocab_size, (1, 512)))
     out = {}
+    cuda_cores = 0
     for name, params in (("init", restored),
                          ("scan-dominated", scan_dominated(restored))):
-        before = ssd_scan.LAUNCHES
+        zero_ssd_counts()
         card, _ = M.serve_step(params, cfg, {"tokens": toks.to(DEV)}, None,
                                None)
         card = card.cpu()
-        if ssd_scan.LAUNCHES - before != cfg.n_layers:
-            raise AssertionError("the card's prefill did not go through the "
-                                 "kernel")
+        counts = ssd_counts()
+        if counts["forward"] != cfg.n_layers or \
+                counts["cuda_cores"] != cfg.n_layers:
+            raise AssertionError(f"the card's fp32 prefill did not go through "
+                                 f"the CUDA-core route's kernel: {counts}")
+        cuda_cores += counts["cuda_cores"]
         host = tree_map(lambda t: t.cpu(), params)
         plain, _ = M.serve_step(host, cfg, {"tokens": toks}, None, None)
-        if ssd_scan.LAUNCHES - before != cfg.n_layers:
+        if ssd_counts() != counts:
             raise AssertionError("the CPU prefill launched the kernel")
         diff = float((card - plain).abs().max())
         same = bool(torch.equal(card[:, -1].argmax(-1),
@@ -2087,6 +2167,7 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
             raise AssertionError(f"card and CPU disagree ({name} params)")
         out[name] = dict(max_abs_diff=diff, next_token_equal=same,
                          greedy_agreement=agree)
+    out["ssd_cuda_core_launches"] = cuda_cores
     return out
 
 
@@ -2094,11 +2175,11 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
 
 SSD_TRAIN = (8, 4096, 24, 64, 1, 128, 256)     # mamba2-130m, 8 x 4096 tokens
 # Each case with the backward route it must take: the CPU tests' shapes in
-# fp32 (CUDA cores); bf16 twins, a chunk of 64 on the tensor cores
-# (contiguous and as the mixer's views) and a chunk of 16 on the CUDA cores;
+# fp32 ("cuda_cores"); bf16 twins, a chunk of 64 on the tensor cores
+# (contiguous and as the mixer's views) and a chunk of 16 on "cuda_cores";
 # then the training shape as the mixer's bf16 views (tensor cores), as a
-# bf16 copy one element off 16-byte alignment (the CUDA-core kernel on the
-# same data) and in fp32 (CUDA cores)
+# bf16 copy one element off 16-byte alignment (the "cuda_cores" route on
+# the same data) and in fp32 ("cuda_cores")
 SSD_BWD_SHAPES = [((2, 64, 4, 32, 2, 16, 16), "float32", "contiguous", CC),
                   ((1, 128, 2, 64, 1, 32, 32), "float32", "contiguous", CC),
                   ((1, 96, 6, 16, 2, 16, 32), "float32", "contiguous", CC),
@@ -2169,17 +2250,14 @@ def ssd_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
     five Q·N·P state products (two chunk sums, G·B, Gᵀ·x~, h0ᵀ·dy),
     10·Q·N·P; and per (batch, group, chunk) the causal pairs' C·Bᵀ, dB and
     dC products, Q(Q+1)·3N (B and C belong to the group, so dB and dC need
-    only the sum of L∘r over its heads).  Both routes are held to it."""
-    B, S, H, P, G, N, chunk = shape
-    Q = min(chunk, S)
+    only the sum of L∘r over its heads), at ``ops_ms``'s rate (fp32 as
+    three TF32 products).  Both routes are held to it."""
+    B, S, H, P, G, N, _ = shape
     el = 2 if dtype == "bfloat16" else 4
     n_bytes = (3 * B * S * H * P * el + 4 * B * S * G * N * el
                + 2 * B * S * H * 4 + 2 * H * 4)
-    ops = B * (S // Q) * (H * (Q * (Q + 1) * 2 * P + 10 * Q * N * P)
-                          + G * Q * (Q + 1) * 3 * N)
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
+    t_ops = ops_ms(ssd_ops(shape, backward=True), dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2207,25 +2285,41 @@ def ssd_bwd_planted_faults(args, dy, chunk: int, whole, tol: float) -> dict:
     return out
 
 
-def backward_launch_ms(args, dy, chunk: int, calls: int = 5) -> dict:
-    """Each launch's mean device time (ms) in ``calls`` gradient calls
-    without d(state) (torch.profiler), by kernel name."""
+def profiled_launch_ms(fn, pattern: str, launches: int,
+                       calls: int = 5) -> dict:
+    """Each launch's mean device time (ms) in ``calls`` calls of ``fn``
+    (torch.profiler), by kernel name (the part of it ``pattern`` finds).
+    The profiler can drop ctypes-launched kernels: up to three tries for
+    all ``launches`` of a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            m = re.search(pattern, e.key)
+            if e.device_type == DeviceType.CUDA and m:
+                out[m.group(0)] = e.self_device_time_total / e.count / 1e3
+        if len(out) == launches:
+            return out
+    raise AssertionError(f"the profiler saw {sorted(out)}, not {launches} "
+                         f"launches")
+
+
+def backward_launch_ms(args, dy, chunk: int, calls: int = 5) -> dict:
+    """Each launch's mean device time (ms) in ``calls`` gradient calls
+    without d(state) (torch.profiler), by kernel name."""
     from repro_torch.kernels.ssd_scan import ssd_scan
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            ssd_scan.ssd_backward_cuda(*args, dy, None, chunk)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        m = re.search(r"bwd_\w+(<[^>]*>)?", e.key)
-        if e.device_type == DeviceType.CUDA and m:
-            out[m.group(0)] = e.self_device_time_total / e.count / 1e3
-    return out
+    return profiled_launch_ms(
+        lambda: ssd_scan.ssd_backward_cuda(*args, dy, None, chunk),
+        r"bwd_\w+(<[^>]*>)?", 7, calls)
 
 
 def ssd_backward_phase(seed: int) -> dict:
@@ -2275,9 +2369,12 @@ def ssd_backward_phase(seed: int) -> dict:
         errs = {"plain chunked": grad_errs(got, chunked),
                 "plain autograd": grad_errs(got, auto)}
         del auto
-        if route == TC:
+        if route == TC or dtype == "bfloat16":
             errs["mirror"] = grad_errs(got, ref.ssd_backward_tc_reference(
                 *args, dy, ds, chunk))
+        else:
+            errs["split mirror"] = grad_errs(
+                got, ref.ssd_backward_split_reference(*args, dy, ds, chunk))
         err64 = None
         if route == TC or (dtype == "float32" and
                            shape[0] * shape[1] <= 4096):
@@ -2318,6 +2415,8 @@ def ssd_backward_phase(seed: int) -> dict:
                                               None, chunk),
                            3 if big else 10, flush)
         b, by = ssd_bwd_bound_ms(shape, dtype)
+        b32 = ssd_fp32_rate_ms(shape, backward=True) \
+            if dtype == "float32" else None
         results[name] = dict(shape=list(shape), dtype=dtype, layout=layout,
                              route=route, rel_err=errs, tol=tol,
                              dxh_block_rel_err=blk,
@@ -2326,7 +2425,8 @@ def ssd_backward_phase(seed: int) -> dict:
                              planted_fault_rel_err=faults, ms=ms,
                              alone_ms=alone, launch_ms=launch_ms,
                              plain_ms=plain, plain_autograd_ms=auto_ms,
-                             bound_ms=b, bound_by=by, max_abs_err=abs_err)
+                             bound_ms=b, bound_by=by, bound_fp32_rate_ms=b32,
+                             max_abs_err=abs_err)
         worst = {side: max(e, key=e.get) for side, e in errs.items()}
         log(f"kernel {name} ({route}): of each gradient's largest value, "
             "worst "
@@ -2344,7 +2444,8 @@ def ssd_backward_phase(seed: int) -> dict:
             + f"; {ms:.6f} ms a call"
             + ("" if alone is None else f", {alone:.6f} ms alone")
             + f", plain {plain:.6f} ms, plain autograd (forward + backward) "
-            f"{auto_ms:.6f} ms, bound {b:.6f} ms ({by})")
+            f"{auto_ms:.6f} ms, bound {b:.6f} ms ({by})"
+            + ("" if b32 is None else f", {b32:.6f} ms at 67 TFLOP/s fp32"))
         if launch_ms is not None:
             log(f"kernel {name} ({route}) per launch: " + ", ".join(
                 f"{kn} {v:.6f} ms" for kn, v in launch_ms.items()))
@@ -2356,6 +2457,17 @@ def ssd_backward_phase(seed: int) -> dict:
         log(f"kernel ssd backward (tensor_cores) at P {P}, N {N}: "
             + ", ".join(f"{r['launch']} {r['registers']} registers "
                         f"{r['local_bytes']} spill bytes" for r in rows))
+    for P, N, dtype in sorted({(s_[3], s_[5], d_)
+                               for s_, d_, _, r in SSD_BWD_SHAPES
+                               if r == CC}):
+        info[f"P {P}, N {N} {dtype} (cuda_cores)"] = rows = \
+            ssd_scan.bwd_kernel_info(P, N, getattr(torch, dtype))
+        log(f"kernel ssd backward (cuda_cores) at P {P}, N {N} {dtype}: "
+            + ", ".join(f"{r['launch']} {r['registers']} registers "
+                        f"{r['local_bytes']} spill bytes" for r in rows))
+        if any(r["local_bytes"] for r in rows):
+            raise AssertionError(f"an SSD backward launch spills at P {P}, "
+                                 f"N {N} {dtype}: {rows}")
     results["kernel_info"] = info
     torch.cuda.empty_cache()
     return results
@@ -2736,9 +2848,11 @@ def train_card_vs_cpu_phase(seed: int) -> dict:
     counts = ssd_counts()
     if counts["backward"] != cfg.n_layers or \
             counts["backward_cuda_cores"] != cfg.n_layers or \
-            counts["forward"] != 2 * cfg.n_layers:
+            counts["forward"] != 2 * cfg.n_layers or \
+            counts["cuda_cores"] != 2 * cfg.n_layers:
         raise AssertionError(f"card step's SSD launches {counts}: the fp32 "
-                             f"backward belongs on the CUDA cores")
+                             f"scans and backward belong on the "
+                             f"\"cuda_cores\" route")
     (g_cpu, new_cpu), loss_cpu = step(host, "cpu")
     if ssd_counts() != counts:
         raise AssertionError("the CPU step launched a kernel")
@@ -6392,14 +6506,15 @@ def distributed_phase(seed: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=["all", "ssd_backward", "flash",
+    ap.add_argument("--phase", choices=["all", "ssd", "ssd_backward", "flash",
                                         "flash_backward", "distributed",
                                         "whole_models", "faults"],
                     default="all",
-                    help="ssd_backward / flash / flash_backward / "
+                    help="ssd / ssd_backward / flash / flash_backward / "
                          "distributed / whole_models / faults: build, run "
                          "that phase alone and print its JSON, for work on "
-                         "the SSD kernels, the flash forward or backward "
+                         "the SSD scan or its gradient, the flash forward "
+                         "or backward "
                          "kernels, the distributed layer, the configs "
                          "served and trained whole, or the log's fault "
                          "paths")
@@ -6433,6 +6548,12 @@ def main() -> int:
     log(f"kernel build (nvcc, sm_90a, {len(sources)} sources in parallel): "
         f"{build_s:.3f} s")
 
+    if args.phase == "ssd":
+        t0 = time.perf_counter()
+        ssd_out = ssd_kernel_phase(args.seed)
+        log(f"phase ssd: {time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"ssd": ssd_out}))
+        return 0
     if args.phase == "ssd_backward":
         print(json.dumps({"ssd_backward": ssd_backward_phase(args.seed)}))
         return 0
@@ -6589,9 +6710,8 @@ def main() -> int:
     train_ssd = train["main_path_counts"]["ssd"]
     pipe = distributed["pipeline"]
     kernels.append(dict(
-        name="ssd_scan", route="cuda",
+        name="ssd_scan", route="cuda", forward_route="tensor_cores",
         source="src/repro_torch/csrc/ssd_scan_tc.cu",
-        cuda_core_source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
         launches=(serving["ssd_launches"] + train_ssd["forward"]
                   + pipe["ssd_launches"]),
@@ -6605,13 +6725,34 @@ def main() -> int:
         launches_by_path={"serving": serving["ssd_launches"],
                           "train": train_ssd["forward"],
                           "pipeline": pipe["ssd_launches"]},
-        max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
+        max_abs_err=max(r["max_abs_err"] for k, r in ssd.items()
+                        if k != "kernel_info"
+                        and r["route"] == "tensor_cores"),
         ms=float(np.median(turns["mixer views"]["alone_ms"])),
         wrapper_ms=serve_at["ms"],
         contiguous_ms=float(np.median(turns["contiguous"]["alone_ms"])),
         plain_ms=serve_at["plain_ms"],
         bound_ms=serve_at["bound_ms"], bound_by=serve_at["bound_by"],
         library_ms=None))
+    scan_cc = ssd[f"ssd{SSD_SERVE} float32"]
+    scan_cc_launches = {"card vs cpu": cross["ssd_cuda_core_launches"],
+                        "train card vs cpu": train_cpu["ssd_counts"][
+                            "cuda_cores"]}
+    kernels.append(dict(
+        name="ssd_scan_cuda_cores", route="cuda", forward_route="cuda_cores",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        kernel="three launches on mma.sync: fp32 as three TF32 products, "
+               "bf16 with the tensor-core route's roundings",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:29",
+        launches=sum(scan_cc_launches.values()),
+        launches_by_path=scan_cc_launches,
+        max_abs_err=max(r["max_abs_err"] for k, r in ssd.items()
+                        if k != "kernel_info" and r["route"] == "cuda_cores"),
+        ms=scan_cc["alone_ms"], wrapper_ms=scan_cc["ms"],
+        launch_ms=scan_cc["launch_ms"], plain_ms=scan_cc["plain_ms"],
+        bound_ms=scan_cc["bound_ms"], bound_by=scan_cc["bound_by"],
+        bound_fp32_rate_ms=scan_cc["bound_fp32_rate_ms"],
+        mirror_rel_err=scan_cc["mirror_rel_err"], library_ms=None))
     bwd_tc = ssd_bwd[f"ssd_bwd{SSD_TRAIN} bfloat16 mixer views"]
     bwd_cc = ssd_bwd[f"ssd_bwd{SSD_TRAIN} float32"]
     bwd_cc16 = ssd_bwd[f"ssd_bwd{SSD_TRAIN} bfloat16 misaligned"]
@@ -6644,8 +6785,10 @@ def main() -> int:
         launch_ms=bwd_cc["launch_ms"], plain_ms=bwd_cc["plain_ms"],
         plain_autograd_ms=bwd_cc["plain_autograd_ms"],
         bound_ms=bwd_cc["bound_ms"], bound_by=bwd_cc["bound_by"],
+        bound_fp32_rate_ms=bwd_cc["bound_fp32_rate_ms"],
         bf16_ms=bwd_cc16["alone_ms"], bf16_wrapper_ms=bwd_cc16["ms"],
-        library_ms=None))
+        bf16_launch_ms=bwd_cc16["launch_ms"],
+        bf16_bound_ms=bwd_cc16["bound_ms"], library_ms=None))
     flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
     by_path = {"gemma2-9b": dict(
         all=gemma["flash_launches"],

@@ -6,18 +6,22 @@ falls back: a CUDA tensor never reaches the plain version, and a kernel
 that cannot build or launch raises.
 
 On the card ``ssd_scan.route`` picks the kernel by dtype, shape and
-layout.  The tensor-core route reads xh, Bm and Cm through their strides
-(the mixer's views of its conv output go in as they are).  The CUDA-core
-route copies views to contiguous tensors for its kernel: that is the
-fp32 path, and bf16 views whose pointers or strides are not 16-byte
-aligned, which the router sends there.
+layout: bf16 at widths of 16·k and chunks of 64·k, 16-byte aligned, to
+``csrc/ssd_scan_tc.cu``; fp32 and the rest of bf16 to the "cuda_cores"
+route, ``csrc/ssd_scan.cu``.  Both run the same three launches (chunk
+states, state passing, chunk output) with their products on the tensor
+cores (mma.sync; the "cuda_cores" route keeps its name): fp32 as three
+TF32 products, bf16 with the tensor-core route's roundings.  Both read xh,
+Bm and Cm through their strides, so the mixer's views of its conv output
+go in as they are, whatever their dtype or alignment.
 
 The scan of CUDA tensors is a ``torch.autograd.Function``: its forward is
 the kernel above, its backward the hand-written backward kernel that
 ``ssd_scan.backward_route`` picks inside ``ssd_scan.ssd_backward_cuda``
-(tensor cores for bf16 at widths of 16·k and chunks of 64·k, reading the
-mixer's views as they are; CUDA cores for the rest, on contiguous
-copies).  CPU tensors run ``ref.ssd_reference`` under plain autograd.
+(``csrc/ssd_scan_bwd_tc.cu`` for bf16 at widths of 16·k and chunks of
+64·k, ``csrc/ssd_scan_bwd.cu`` — the "cuda_cores" route, seven launches
+on the tensor cores — for the rest; both read the mixer's views as they
+are).  CPU tensors run ``ref.ssd_reference`` under plain autograd.
 
 ``ssd_decode`` (one token) is plain PyTorch on either device: three small
 einsums, no kernel, as in the JAX package.  The kernels' launch counts

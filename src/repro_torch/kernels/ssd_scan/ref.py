@@ -15,16 +15,21 @@ The chunk states are combined by a loop over the chunks in order (the
 only serial dependency).  Everything is computed in fp32 (float64 for
 float64 inputs, the oracle of the accuracy checks); ``y`` comes back in
 ``xh``'s dtype and the state as ``[B,H,P,N]`` fp32, as in the JAX
-package's ``kernels/ssd_scan/ref.py``.  This is what the CUDA kernel
-(``ssd_scan.py``) is held against, and what CPU tensors run, under
+package's ``kernels/ssd_scan/ref.py``.  This is what the CUDA kernels
+(``ssd_scan.py``) are held against, and what CPU tensors run, under
 autograd on the CPU.
 
-``ssd_backward_reference`` is the scan's gradient in the chunked passes
-of the backward kernel (``csrc/ssd_scan_bwd.cu``): the CPU tests and
-``chip_smoke.py`` hold the kernel against it; no main path runs it.
+``ssd_backward_reference`` is the scan's gradient in chunked passes (the
+chunk-start states, the adjoint passed backwards, the per-chunk products
+and d(cum) by fixed-order fp64 sums, as the backward kernels take them):
+the CPU tests and ``chip_smoke.py`` hold both backward kernels against it;
+no main path runs it.
 ``ssd_backward_tc_reference`` is the tensor-core backward
 (``csrc/ssd_scan_bwd_tc.cu``) in plain PyTorch, rounding where it rounds
-(tests only).
+(tests only).  ``ssd_split_reference`` and
+``ssd_backward_split_reference`` are the fp32 arithmetic of the
+``cuda_cores`` route (``csrc/ssd_scan.cu``, ``csrc/ssd_scan_bwd.cu``):
+the same passes, each fp32 product as three TF32 products (tests only).
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ..flash_attention.ref import split_einsum
 
 F32 = torch.float32
 
@@ -98,7 +105,7 @@ def ssd_backward_reference(xh: torch.Tensor, dt: torch.Tensor,
     """Gradient of ``ssd_reference`` given dy [B,S,H,P] and an optional
     d(final state) [B,H,P,N] -> (dxh, ddt, dA_log, dBm, dCm), dxh, dBm and
     dCm in their inputs' dtypes, ddt and dA_log in fp32 (float64 for
-    float64 inputs), in the passes of the backward kernel.
+    float64 inputs), in the chunked passes of the backward kernels.
 
     Per head, with x~_t = dt_t·x_t, h_t the state after token t and the
     adjoint g_t = dL/dh_t = dy_t ⊗ C_t + e^{a_{t+1}} g_{t+1}:
@@ -415,6 +422,181 @@ def ssd_three_pass_reference(xh: torch.Tensor, dt: torch.Tensor,
         (torch.einsum("bchij,bcjhp->bcihp", P_hi, x)
          + torch.einsum("bchij,bcjhp->bcihp", P_lo, x))
     return y.reshape(B_, S, H, P).to(xh.dtype), h
+
+
+
+def _split_check(xh, products: int) -> None:
+    if xh.dtype != F32:
+        raise TypeError(f"the split mirrors fp32 inputs, got {xh.dtype}")
+    if products not in (1, 3):
+        raise ValueError(f"products must be 1 or 3, got {products}")
+
+
+def ssd_split_reference(xh: torch.Tensor, dt: torch.Tensor,
+                        A_log: torch.Tensor, Bm: torch.Tensor,
+                        Cm: torch.Tensor, chunk: int, products: int = 3
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 scan of the ``cuda_cores`` route (``csrc/ssd_scan.cu``) in
+    plain PyTorch: its three passes, with each product a·b as the kernel
+    takes it on the tensor cores — three TF32 products aₗ·bₕ + aₕ·bₗ +
+    aₕ·bₕ, hi = tf32(v) and lo = tf32(v - hi) (``split_einsum``), or the
+    one product tf32(a)·tf32(b) with ``products=1`` (what the split is
+    there to avoid).  Tests only; never on the main path.
+
+    1. chunk states: cum in fp64, each difference rounded to fp32 once;
+       B'_j = B_j · (dt_j · exp(cum_Q - cum_j)) in fp32, S_c = Σ_j x_j ⊗ B'_j;
+    2. state passing in fp32: h_prev[c] = h, h <- exp(cum_Q)·h + S_c;
+    3. chunk output: scores C_i·B_j, 0 where j > i (the exp not taken),
+       else times exp(cum_i - cum_j) and dt_j; y = exp(cum_i)·(C_i·h_prev)
+       + scores·x.
+
+    fp32 inputs only."""
+    _split_check(xh, products)
+    mm = lambda eq, a, b: split_einsum(eq, a, b, products)  # noqa: E731
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc, rep = S // Q, H // G
+    x = xh.reshape(B_, nc, Q, H, P)
+    Bq = Bm.reshape(B_, nc, Q, G, N).repeat_interleave(rep, 3)
+    Cq = Cm.reshape(B_, nc, Q, G, N).repeat_interleave(rep, 3)
+    dt32 = dt.to(F32).reshape(B_, nc, Q, H)
+    A = -torch.exp(A_log.to(F32))
+    cum = torch.cumsum(A.double() * dt32.double(), dim=2)     # [B,nc,Q,H]
+    total = cum[:, :, -1:, :]
+
+    # 1. chunk states
+    w = dt32 * torch.exp((total - cum).to(F32))
+    S_c = mm("bcqhn,bcqhp->bchpn", Bq * w[..., None], x)
+
+    # 2. state passing (one fused multiply-add a step)
+    h = torch.zeros(B_, H, P, N, dtype=F32, device=xh.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        decay = torch.exp(total[:, c, 0].to(F32))[:, :, None, None]
+        h = (decay.double() * h.double() + S_c[:, c].double()).to(F32)
+    h_prev = torch.stack(h_prev, dim=1)                       # [B,nc,H,P,N]
+
+    # 3. chunk output
+    scores = mm("bcihn,bcjhn->bchij", Cq, Bq)
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(F32)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    below = tri[None, None, :, :, None]
+    decay = torch.where(below, torch.exp(torch.where(below, seg, 0.0)),
+                        0.0).permute(0, 1, 4, 2, 3)           # [B,nc,H,i,j]
+    dt_j = dt32.permute(0, 1, 3, 2)[:, :, :, None, :]
+    v = torch.where(tri, scores * decay * dt_j, 0.0)
+    y = torch.exp(cum.to(F32))[..., None] * \
+        mm("bcihn,bchpn->bcihp", Cq, h_prev) + \
+        mm("bchij,bcjhp->bcihp", v, x)
+    return y.reshape(B_, S, H, P), h
+
+
+def ssd_backward_split_reference(xh: torch.Tensor, dt: torch.Tensor,
+                                 A_log: torch.Tensor, Bm: torch.Tensor,
+                                 Cm: torch.Tensor, dy: torch.Tensor,
+                                 dstate: Optional[torch.Tensor], chunk: int,
+                                 products: int = 3
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The fp32 gradient of the ``cuda_cores`` route
+    (``csrc/ssd_scan_bwd.cu``) in plain PyTorch: the passes of
+    ``ssd_backward_tc_reference`` with every product as three TF32
+    products (``split_einsum``; one with ``products=1``) and nothing
+    rounded to bf16 — h0 and G stay fp32.  Tests only.
+
+    1. chunk sums: S_c = Σ_j x_j ⊗ (B_j·dt_j·exp(cum_Q - cum_j)), D_c =
+       Σ_i dy_i ⊗ (C_i·exp(cum_i)), cum in fp64;
+    2. state passes in fp32: h0 forward, G backward; <G, h0> in fp64;
+    3. s = C·Bᵀ once per group, r = dt_j (dy_i·x_j) per head, L masked
+       before the exp; W = the heads' fp32 sum of L∘r; M = (L∘s)∘r below
+       the diagonal, its row and column sums in fp64;
+    4. dx~ = exp(cum_Q - cum_j)·(G B_j) + (L∘s)ᵀ dy; <x, dx~>; v in fp64;
+    5. dB = Σ_h dt·exp(cum_Q - cum)·(x G) + Wᵀ C, dC = Σ_h exp(cum)·(dy h0)
+       + W B; u in fp64;
+    6. da, ddt and dA_log as ``ssd_backward_reference`` takes them.
+
+    fp32 inputs only."""
+    _split_check(xh, products)
+    mm = lambda eq, a, b: split_einsum(eq, a, b, products)  # noqa: E731
+    B_, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    nc, rep = S // Q, H // G
+    x = xh.reshape(B_, nc, Q, H, P)
+    Bg = Bm.reshape(B_, nc, Q, G, N)
+    Cg = Cm.reshape(B_, nc, Q, G, N)
+    Bh, Ch = Bg.repeat_interleave(rep, 3), Cg.repeat_interleave(rep, 3)
+    dyq = dy.reshape(B_, nc, Q, H, P)
+    dtc = dt.to(F32).reshape(B_, nc, Q, H)
+    A = -torch.exp(A_log.to(F32))
+    cum = torch.cumsum(A.double() * dtc.double(), dim=2)      # [B,nc,Q,H]
+    total = cum[:, :, -1:]
+    w = torch.exp((total - cum).to(F32))                      # e^{cum_Q-cum_j}
+    ecum = torch.exp(cum.to(F32))
+
+    # 1. chunk sums
+    S_c = mm("bcqhn,bcqhp->bchpn", Bh * (dtc * w)[..., None], x)
+    D_c = mm("bcqhn,bcqhp->bchpn", Ch * ecum[..., None], dyq)
+
+    # 2. state passes
+    decay = torch.exp(total[:, :, 0].to(F32)).double()[..., None, None]
+    h = torch.zeros(B_, H, P, N, dtype=F32, device=xh.device)
+    h0 = []
+    for c in range(nc):
+        h0.append(h)
+        h = (decay[:, c] * h.double() + S_c[:, c].double()).to(F32)
+    h0 = torch.stack(h0, 1)                                   # [B,nc,H,P,N]
+    g = torch.zeros_like(h) if dstate is None else dstate.to(F32)
+    Ge = [None] * nc
+    for c in reversed(range(nc)):
+        Ge[c] = g
+        g = (decay[:, c] * g.double() + D_c[:, c].double()).to(F32)
+    Ge = torch.stack(Ge, 1)
+    c0 = torch.exp(total[:, :, 0]) * (Ge.double() * h0.double()).sum((-1, -2))
+
+    # 3. pairs
+    s = mm("bcign,bcjgn->bcgij", Cg, Bg)                      # [B,nc,G,i,j]
+    r = mm("bcihp,bcjhp->bchij", dyq, x) * \
+        dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xh.device))
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(F32)
+    below = tri[None, None, :, :, None]
+    L = torch.where(below, torch.exp(torch.where(below, seg, 0.0)),
+                    0.0).permute(0, 1, 4, 2, 3)               # [B,nc,H,i,j]
+    Ls = L * s.repeat_interleave(rep, 2)
+    M = torch.where(torch.tril(tri, -1), Ls * r, 0.0).double()
+    row, col = M.sum(-1), M.sum(-2)                           # [B,nc,H,Q]
+    W = _head_sum(L * r, G, 2)
+
+    # 4. columns
+    GB = mm("bchpn,bcjhn->bcjhp", Ge, Bh)                     # G B_j
+    dxdt = w[..., None] * GB + mm("bchij,bcihp->bcjhp", Ls, dyq)
+    xdx = (x * dxdt).sum(-1)
+    v = w.double() * ((x * dtc[..., None]) * GB).double().sum(-1)
+
+    # 5. group
+    hdy = mm("bcqhp,bchpn->bcqhn", dyq, h0)                   # h0ᵀ dy
+    u = ecum.double() * (Ch * hdy).double().sum(-1)
+    dB = _head_sum(mm("bcqhp,bchpn->bcqhn", x, Ge) * (dtc * w)[..., None],
+                   G, 3) + mm("bcgij,bcign->bcjgn", W, Cg)
+    dC = _head_sum(hdy * ecum[..., None], G, 3) + \
+        mm("bcgij,bcjgn->bcign", W, Bg)
+
+    # 6. finalize
+    rows = row.permute(0, 1, 3, 2) + u
+    cols = col.permute(0, 1, 3, 2)
+    rev = torch.flip(torch.cumsum(torch.flip(rows - cols, [2]), 2), [2])
+    da64 = rev + (torch.cumsum(v, 2) - v) + c0[:, :, None]
+    ddt = xdx + A * da64.to(F32)
+    dA_log = ((A * dtc).double() * da64).sum((0, 1, 2)).to(F32)
+    dxh = (dxdt * dtc[..., None]).reshape(B_, S, H, P)
+    return (dxh, ddt.reshape(B_, S, H), dA_log, dB.reshape(B_, S, G, N),
+            dC.reshape(B_, S, G, N))
 
 
 def chunk_block_rel_err(got: torch.Tensor, want: torch.Tensor,

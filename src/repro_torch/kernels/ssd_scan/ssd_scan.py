@@ -13,9 +13,16 @@ shape and layout (``route``):
   on the tensor cores (mma.sync).  The inputs are read through their
   strides, so the mixer's views of its conv output go in without a copy.
 * ``"cuda_cores"`` (``csrc/ssd_scan.cu``) — fp32, and bf16 at other widths
-  or layouts: one block per (batch, head) walks its chunks in order with
-  the running state in shared memory, fp32 products out of shared memory;
-  it takes contiguous inputs, so this route copies views.
+  (P or N not a multiple of 16), chunks (not 64·k) or layouts (not 16-byte
+  aligned): the same three launches with every chunk in parallel and the
+  products on the tensor cores too (mma.sync; the route keeps its name).
+  fp32 takes each product as three TF32 products, its operands split into
+  hi and lo planes once as they are staged (``ref.ssd_split_reference`` is
+  the CPU mirror); bf16 keeps the tensor-core route's roundings.  Operands
+  land through a cp.async ring where the alignment allows and plain loads
+  where it does not, with the same arithmetic; views are read through
+  their strides, so the mixer's views go in without a copy (only a view
+  whose last dimension is not contiguous is copied first).
 
 See the notes at the top of the sources.  Each source is compiled with
 ``nvcc`` at first use and bound with ``ctypes`` (``kernels/nvcc.py``);
@@ -37,8 +44,13 @@ The gradient (``ssd_backward_cuda``) has two routes too, chosen by
   over a group's heads inside the kernel, the inputs read through their
   strides;
 * ``"cuda_cores"`` (``csrc/ssd_scan_bwd.cu``) — fp32, and bf16 at other
-  widths or layouts, P <= 128 and N <= 256: seven launches on the CUDA
-  cores in fp32, on contiguous copies of views.
+  widths, chunks or layouts, P <= 128 and N <= 256: the same seven launches
+  as the tensor-core gradient, every product on the tensor cores
+  (mma.sync): fp32 as three TF32 products with h0 and G kept in fp32
+  (``ref.ssd_backward_split_reference`` is the CPU mirror), bf16 with the
+  tensor-core gradient's roundings; views read through their strides
+  (one whose last dimension is not contiguous, such as autograd's
+  expanded cotangent of ``y.sum()``, copied first).
 
 Neither uses atomics, so two calls give the same bits.
 ``BACKWARD_LAUNCHES`` counts gradient calls that launched, one per call,
@@ -66,10 +78,17 @@ SOURCE = nvcc.CSRC / "ssd_scan.cu"
 TC_SOURCE = nvcc.CSRC / "ssd_scan_tc.cu"
 BWD_SOURCE = nvcc.CSRC / "ssd_scan_bwd.cu"
 BWD_TC_SOURCE = nvcc.CSRC / "ssd_scan_bwd_tc.cu"
-# the tensor-core backward's launches, in order (``bwd_tc_kernel_info``)
-BWD_TC_LAUNCH_NAMES = ("chunk sums", "state passes", "pairs", "columns",
-                       "group", "finalize", "dA_log")
+# the backward's launches, in order, on either route (``bwd_kernel_info``,
+# ``bwd_tc_kernel_info``)
+BWD_LAUNCH_NAMES = (
+    "chunk sums", "state passes", "pairs", "columns", "group", "finalize",
+    "dA_log")
 SLICE_P = 32                       # kSliceP of ssd_scan_bwd_tc.cu
+# the CUDA-core scan's launches, in order (``kernel_info``)
+LAUNCH_NAMES = ("chunk state", "state passing", "chunk output")
+SLICE = 32                         # kSlice of ssd_scan.cu, ssd_scan_bwd.cu
+STATE_ROWS = 64                    # kStateRows: head columns a chunk-sum block
+STATE_BLOCK = 128                  # kStateBlock: its state columns
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_TILE = 64                      # kTile of ssd_scan_tc.cu
 PAD = 8                            # kPad: bf16 of padding a shared row
@@ -80,9 +99,15 @@ MAX_GRID_YZ = 65535                # heads and batch span grid.y and grid.z
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.arcadia_ssd_scan.argtypes = [p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, i, p]
+    lib.arcadia_ssd_scan.argtypes = [p] * 10 + [i] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong), p]
     lib.arcadia_ssd_scan.restype = ctypes.c_int
+    lib.arcadia_ssd_scan_plan.argtypes = [i, i, i, i,
+                                          ctypes.POINTER(ctypes.c_longlong)]
+    lib.arcadia_ssd_scan_plan.restype = None
+    lib.arcadia_ssd_scan_info.argtypes = [i, i, i,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.arcadia_ssd_scan_info.restype = ctypes.c_int
 
 
 def _bind_tc(lib: ctypes.CDLL) -> None:
@@ -97,11 +122,17 @@ def _bind_tc(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.arcadia_ssd_scan_bwd.argtypes = [p] * 22 + [i] * 8 + [p]
+    lib.arcadia_ssd_scan_bwd.argtypes = [p] * 13 + [i] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong), p]
     lib.arcadia_ssd_scan_bwd.restype = ctypes.c_int
-    lib.arcadia_ssd_scan_bwd_plan.argtypes = [i, i, i,
-                                              ctypes.POINTER(ctypes.c_longlong)]
+    lib.arcadia_ssd_scan_bwd_plan.argtypes = [
+        i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
     lib.arcadia_ssd_scan_bwd_plan.restype = None
+    lib.arcadia_ssd_scan_bwd_scratch_bytes.argtypes = [i] * 8
+    lib.arcadia_ssd_scan_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.arcadia_ssd_scan_bwd_info.argtypes = [i, i, i, i,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.arcadia_ssd_scan_bwd_info.restype = ctypes.c_int
 
 
 def _bind_bwd_tc(lib: ctypes.CDLL) -> None:
@@ -169,14 +200,105 @@ def backward_route(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return "tensor_cores"
 
 
-def bwd_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
-    """Shared bytes of the backward's chunk-sum launch (cum fp64, 32-token
-    tiles of x~, B, dy, C), of its row and column launches (cum, k-major
-    64-token tiles of C, B, dy and x~ and one of pair weights, each row
-    padded to 65 floats) and of its finalize launch (da, fp64);
-    ``arcadia_ssd_scan_bwd_plan`` reports the same on the card."""
-    tile = 8 * Q + 4 * (ROW_TILE + 1) * (2 * N + 2 * P + ROW_TILE)
-    return 8 * Q + 4 * 32 * (2 * P + 2 * N), tile, 8 * Q
+def bwd_plan(P: int, N: int, Q: int, dtype: torch.dtype
+             ) -> Tuple[int, int, int, int, int]:
+    """Shared bytes of the CUDA-core backward's launches, as
+    ``arcadia_ssd_scan_bwd_plan`` reports them: chunk sums (cum, warp sums,
+    the token factors, two landing stages of x or dy [32][64 p] and B or C
+    [32][128 n], their planes), pairs (two stages of two [64][32] slices,
+    their planes, the cross-warp row sums, a head's cum and dt), columns
+    (cum, two stages of B_J [64][32] and G [P][32] fp32 or dy [32][P], their
+    planes), group (a head's cum and dt, u's halves, two stages of a
+    [64][32] fp32 slice and a [32][N] fp32 one, two A planes and the B
+    planes) and finalize (da, the row minus column sums, v).  Planes: fp32
+    as TF32 hi and lo (rows of 36 words), bf16 one plane (rows of 40)."""
+    el, ld, planes = (4, SLICE + 4, 2) if dtype == torch.float32 else \
+        (2, SLICE + 8, 1)
+    t, sl = ROW_TILE, SLICE
+    P16, N16, Qp = _ceil(P, 16), _ceil(N, 16), _ceil(Q, ROW_TILE)
+    rb = max(t, P16)
+    plane = lambda rows: rows * ld * el  # noqa: E731
+    sums = (8 * Qp + 8 * 16 + 4 * Qp
+            + 2 * (_landed(sl, STATE_ROWS, el) + _landed(sl, STATE_BLOCK, el))
+            + plane(STATE_ROWS + STATE_BLOCK) * planes)
+    pairs = (2 * 2 * _landed(t, sl, el) + 2 * plane(t) * planes + 8 * 4 * t
+             + 8 * 2 * t + 4 * t)
+    cols = (8 * Qp + 2 * (_landed(t, sl, el) + max(_landed(rb, sl, 4),
+                                                   _landed(sl, P16, el)))
+            + plane(t + rb) * planes)
+    group = (8 * t + 16 + 4 * t + 8 * 2 * t
+             + 2 * (max(_landed(t, sl, 4), _landed(sl, t, 4))
+                    + _landed(sl, N16, 4))
+             + 2 * plane(t) + plane(N16) * planes)
+    return sums, pairs, cols, group, 24 * Q
+
+
+def _ceil(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _landed(rows: int, cols: int, el: int) -> int:
+    """Bytes of a landed [rows][cols] tile of el-byte values, each row
+    padded by 16 bytes (``raw_bytes`` of the sources)."""
+    return rows * (cols + 16 // el) * el
+
+
+def plan(P: int, N: int, Q: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Shared bytes of the CUDA-core route's chunk-state and chunk-output
+    launches (``arcadia_ssd_scan_plan`` reports the same on the card): cum
+    fp64 over the chunk's 64-token tiles, the chunk-state launch's warp sums
+    and token factors or the chunk-output launch's dt, two landing stages
+    of a 32-deep slice as stored (x [32][64 p] and B [32][128 n]; C_I
+    [64][32] and B_J, h_prev [P][32] or x [32][P]), and the slice split
+    into its operand planes (fp32: TF32 hi and lo, rows of 36 words; bf16:
+    one plane, rows of 40).  N is streamed in slices and does not enter."""
+    del N
+    el, ld, planes = (4, SLICE + 4, 2) if dtype == torch.float32 else \
+        (2, SLICE + 8, 1)
+    P16, Qp = _ceil(P, 16), _ceil(Q, ROW_TILE)
+    rb = max(ROW_TILE, P16)
+    rows = STATE_ROWS + STATE_BLOCK
+    state = (8 * Qp + 8 * 16 + 4 * Qp
+             + 2 * (_landed(SLICE, STATE_ROWS, el)
+                    + _landed(SLICE, STATE_BLOCK, el))
+             + rows * ld * el * planes)
+    scan = (8 * Qp + 4 * Qp
+            + 2 * (_landed(ROW_TILE, SLICE, el)
+                   + max(_landed(rb, SLICE, el), _landed(SLICE, P16, el)))
+            + (ROW_TILE + rb) * ld * el * planes)
+    return state, scan
+
+
+def kernel_plan(P: int, N: int, Q: int, dtype: torch.dtype
+                ) -> Tuple[int, int]:
+    """``arcadia_ssd_scan_plan`` of the built library (held to ``plan`` by
+    the card tests)."""
+    lib = nvcc.load(SOURCE, _bind)
+    out = (ctypes.c_longlong * 2)()
+    lib.arcadia_ssd_scan_plan(P, N, Q, _DTYPES[dtype], out)
+    return int(out[0]), int(out[1])
+
+
+def kernel_info(P: int, dtype: torch.dtype) -> list:
+    """``cudaFuncGetAttributes`` of each launch's kernel of the CUDA-core
+    scan at head dim P: a dict per launch (``LAUNCH_NAMES`` order) with
+    registers a thread, local (spill) bytes, static shared bytes and max
+    threads a block."""
+    return _info(nvcc.load(SOURCE, _bind).arcadia_ssd_scan_info, LAUNCH_NAMES,
+                 (P, _DTYPES[dtype]))
+
+
+def _info(fn, names, args) -> list:
+    out = []
+    for k, name in enumerate(names):
+        vals = (ctypes.c_int * 4)()
+        err = fn(k, *args, vals)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed ({err}) for "
+                               f"the {name} launch")
+        out.append(dict(launch=name, registers=vals[0], local_bytes=vals[1],
+                        static_shared_bytes=vals[2], max_threads=vals[3]))
+    return out
 
 
 def tc_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
@@ -225,6 +347,14 @@ def route(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return "tensor_cores"
 
 
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the CUDA-core kernels read it: through its batch, token and
+    head or group strides, with the last dimension contiguous.  A view whose
+    last dimension is not (a transpose, or autograd's expanded cotangent of
+    a ``sum()``) is copied; any other goes in as it is."""
+    return t if t.shape[3] == 1 or t.stride(3) == 1 else t.contiguous()
+
+
 def _check(xh, dt, A_log, Bm, Cm, chunk: int) -> int:
     if xh.device.type != "cuda":
         raise ValueError(f"SSD kernel needs CUDA tensors, got {xh.device}")
@@ -265,40 +395,48 @@ def ssd_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD scan of CUDA tensors on the kernel that ``route`` picks: the
     contract of ``ref.ssd_reference`` -> (y [B,S,H,P] in xh's dtype,
-    contiguous; state [B,H,P,N] fp32).  The tensor-core kernel reads xh,
-    Bm and Cm through their strides; the CUDA-core kernel takes contiguous
-    tensors, so its route copies views (fp32 mixer views, and bf16 views
-    whose alignment the tensor cores cannot take)."""
+    contiguous; state [B,H,P,N] fp32).  Both routes read xh, Bm and Cm
+    through their strides (the CUDA-core route copies a view whose last
+    dimension is not contiguous; the tensor-core route never gets one) and
+    take their intermediates from ``torch.empty``: S_c [B,H,S/Q,P,N] fp32, cum
+    [B,H,S] fp64, h_prev [B,H,S/Q,P,N] (bf16 on the tensor-core route, the
+    inputs' dtype on the CUDA-core one)."""
     global LAUNCHES, TENSOR_CORE_LAUNCHES, CUDA_CORE_LAUNCHES
     Q = _check(xh, dt, A_log, Bm, Cm, chunk)
     kind = route(xh, Bm, Cm, Q)
     B_, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if kind == "cuda_cores":
-        xh, Bm, Cm = xh.contiguous(), Bm.contiguous(), Cm.contiguous()
+        xh, Bm, Cm = (_readable(t) for t in (xh, Bm, Cm))
+        if P > MAX_P or max(B_, H) > MAX_GRID_YZ or \
+                max(plan(P, N, Q, xh.dtype)) > MAX_SMEM:
+            raise ValueError(f"SSD kernel takes P <= {MAX_P} within "
+                             f"{MAX_SMEM} shared bytes: P={P}, Q={Q}")
     y = torch.empty((B_, S, H, P), dtype=xh.dtype, device=xh.device)
     state = torch.empty((B_, H, P, N), dtype=torch.float32, device=xh.device)
     if y.numel() == 0:
         return y, state.zero_()
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
+        nc = S // Q
+        chunk_state = torch.empty((B_, H, nc, P, N), dtype=torch.float32,
+                                  device=xh.device)
+        cum = torch.empty((B_, H, S), dtype=torch.float64, device=xh.device)
+        strides = (ctypes.c_longlong * 9)(
+            *_strides(xh), *_strides(Bm), *_strides(Cm))
         if kind == "cuda_cores":
             lib = nvcc.load(SOURCE, _bind)
+            h_prev = torch.empty((B_, H, nc, P, N), dtype=xh.dtype,
+                                 device=xh.device)
             err = lib.arcadia_ssd_scan(
                 xh.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-                B_, S, H, P, G, N, Q, _DTYPES[xh.dtype], stream)
+                chunk_state.data_ptr(), cum.data_ptr(), h_prev.data_ptr(),
+                B_, S, H, P, G, N, Q, _DTYPES[xh.dtype], strides, stream)
         else:
             lib = nvcc.load(TC_SOURCE, _bind_tc)
-            nc = S // Q
-            chunk_state = torch.empty((B_, H, nc, P, N), dtype=torch.float32,
-                                      device=xh.device)
-            cum = torch.empty((B_, H, S), dtype=torch.float64,
-                              device=xh.device)
             h_prev = torch.empty((B_, H, nc, P, N), dtype=torch.bfloat16,
                                  device=xh.device)
-            strides = (ctypes.c_longlong * 9)(
-                *_strides(xh), *_strides(Bm), *_strides(Cm))
             err = lib.arcadia_ssd_scan_tc(
                 xh.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
@@ -323,8 +461,10 @@ def ssd_backward_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     ``ref.ssd_backward_reference``) on the kernel that ``backward_route``
     picks: dy [B,S,H,P] in xh's dtype and an optional d(final state)
     [B,H,P,N] -> (dxh, ddt, dA_log, dBm, dCm), each in its input's dtype,
-    contiguous.  The tensor-core kernel reads xh, Bm, Cm and dy through
-    their strides; the CUDA-core kernel takes contiguous copies."""
+    contiguous.  Both kernels read xh, Bm, Cm and dy through their strides
+    (the CUDA-core route copies a view whose last dimension is not
+    contiguous, as ``_readable`` says) and take one scratch buffer the
+    size their library reports."""
     global BACKWARD_LAUNCHES, BACKWARD_TENSOR_CORE_LAUNCHES, \
         BACKWARD_CUDA_CORE_LAUNCHES
     Q = _check(xh, dt, A_log, Bm, Cm, chunk)
@@ -343,40 +483,36 @@ def ssd_backward_cuda(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         BACKWARD_TENSOR_CORE_LAUNCHES += 1
         return grads
     if P > MAX_P or N > MAX_N or max(B_, H) > MAX_GRID_YZ or \
-            max(bwd_plan(P, N, Q)[:2]) > MAX_SMEM:
+            max(bwd_plan(P, N, Q, xh.dtype)) > MAX_SMEM:
         raise ValueError(f"SSD backward takes P <= {MAX_P}, N <= {MAX_N} "
                          f"within {MAX_SMEM} shared bytes: P={P}, N={N}, Q={Q}")
-    xh, Bm, Cm, dy = (t.contiguous() for t in (xh, Bm, Cm, dy))
+    xh, Bm, Cm, dy = (_readable(t) for t in (xh, Bm, Cm, dy))
     if dstate is not None:
         dstate = dstate.float().contiguous()
-    nc = S // Q
     dev = xh.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dxh = torch.empty_like(xh)
-    ddt = torch.empty((B_, S, H), **f32)
-    dA_log = torch.empty((H,), **f32)
-    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
-    cum = torch.empty((B_, H, S), dtype=torch.float64, device=dev)
-    hbuf = torch.empty((B_, H, nc, P, N), **f32)
-    gbuf = torch.empty((B_, H, nc, P, N), **f32)
-    dB_part = torch.empty((B_, S, H, N), **f32)
-    dC_part = torch.empty((B_, S, H, N), **f32)
-    row, col, v = (torch.empty((B_, H, S), dtype=torch.float64, device=dev)
-                   for _ in range(3))
-    xdx = torch.empty((B_, H, S), **f32)
-    dA_part = torch.empty((B_, H, nc), dtype=torch.float64, device=dev)
+    dxh = torch.empty((B_, S, H, P), dtype=xh.dtype, device=dev)
+    ddt = torch.empty((B_, S, H), dtype=torch.float32, device=dev)
+    dA_log = torch.empty((H,), dtype=torch.float32, device=dev)
+    dBm = torch.empty((B_, S, G, N), dtype=Bm.dtype, device=dev)
+    dCm = torch.empty_like(dBm)
     if xh.numel() == 0:
-        return dxh.zero_(), ddt.zero_(), dA_log.zero_(), dBm.zero_(), \
-            dCm.zero_()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        return dxh, ddt.zero_(), dA_log.zero_(), dBm.zero_(), dCm.zero_()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         lib = nvcc.load(BWD_SOURCE, _bind_bwd)
+        n_scratch = lib.arcadia_ssd_scan_bwd_scratch_bytes(
+            B_, S, H, P, G, N, Q, _DTYPES[xh.dtype])
+        if n_scratch < 0:
+            raise ValueError(f"SSD backward refuses B={B_}, S={S}, H={H}, "
+                             f"P={P}, G={G}, N={N}, Q={Q}")
+        scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
+        strides = (ctypes.c_longlong * 12)(
+            *_strides(xh), *_strides(Bm), *_strides(Cm), *_strides(dy))
         err = lib.arcadia_ssd_scan_bwd(
-            *(ptr(t) for t in (xh, dt, A_log, Bm, Cm, dy, dstate, dxh, ddt,
-                               dA_log, dBm, dCm, cum, hbuf, gbuf, dB_part,
-                               dC_part, row, col, v, xdx, dA_part)),
-            B_, S, H, P, G, N, Q, _DTYPES[xh.dtype], stream)
+            *(None if t is None else t.data_ptr() for t in (
+                xh, dt, A_log, Bm, Cm, dy, dstate, dxh, ddt, dA_log, dBm,
+                dCm, scratch)),
+            B_, S, H, P, G, N, Q, _DTYPES[xh.dtype], strides,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"SSD backward kernel launch failed: cudaError_t "
                            f"{err} (B={B_}, S={S}, H={H}, P={P}, G={G}, N={N}, "
@@ -438,28 +574,29 @@ def bwd_tc_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, ...]:
 def bwd_tc_kernel_info(P: int, N: int) -> list:
     """``cudaFuncGetAttributes`` of each launch's kernel of the tensor-core
     backward at head dim P and state dim N: a dict per launch (in
-    ``BWD_TC_LAUNCH_NAMES`` order) with registers a thread, local (spill)
+    ``BWD_LAUNCH_NAMES`` order) with registers a thread, local (spill)
     bytes, static shared bytes and max threads a block."""
-    lib = nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc)
-    out = []
-    for k, name in enumerate(BWD_TC_LAUNCH_NAMES):
-        vals = (ctypes.c_int * 4)()
-        err = lib.arcadia_ssd_scan_bwd_tc_info(k, P, N, vals)
-        if err != 0:
-            raise RuntimeError(f"cudaFuncGetAttributes failed ({err}) for "
-                               f"the {name} launch")
-        out.append(dict(launch=name, registers=vals[0], local_bytes=vals[1],
-                        static_shared_bytes=vals[2], max_threads=vals[3]))
-    return out
+    return _info(nvcc.load(BWD_TC_SOURCE, _bind_bwd_tc)
+                 .arcadia_ssd_scan_bwd_tc_info, BWD_LAUNCH_NAMES, (P, N))
 
 
-def bwd_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:
+def bwd_kernel_plan(P: int, N: int, Q: int, dtype: torch.dtype
+                    ) -> Tuple[int, ...]:
     """``arcadia_ssd_scan_bwd_plan`` of the built library (held to
     ``bwd_plan`` by the card tests)."""
     lib = nvcc.load(BWD_SOURCE, _bind_bwd)
-    out = (ctypes.c_longlong * 3)()
-    lib.arcadia_ssd_scan_bwd_plan(P, N, Q, out)
-    return int(out[0]), int(out[1]), int(out[2])
+    out = (ctypes.c_longlong * 5)()
+    lib.arcadia_ssd_scan_bwd_plan(P, N, Q, _DTYPES[dtype], out)
+    return tuple(int(v) for v in out)
+
+
+def bwd_kernel_info(P: int, N: int, dtype: torch.dtype) -> list:
+    """``cudaFuncGetAttributes`` of each launch's kernel of the CUDA-core
+    backward at head dim P and state dim N: a dict per launch (in
+    ``BWD_LAUNCH_NAMES`` order) with registers a thread, local (spill)
+    bytes, static shared bytes and max threads a block."""
+    return _info(nvcc.load(BWD_SOURCE, _bind_bwd).arcadia_ssd_scan_bwd_info,
+                 BWD_LAUNCH_NAMES, (P, N, _DTYPES[dtype]))
 
 
 def tc_kernel_plan(P: int, N: int, Q: int) -> Tuple[int, int, int]:

@@ -1027,8 +1027,8 @@ def test_ssd_tensor_cores_read_the_mixers_views(cuda_device):
 
 def test_ssd_misaligned_views_go_to_the_cuda_cores(cuda_device, fp32_exact):
     """A token stride that is not a multiple of 8 elements: the router
-    sends the views to the CUDA-core kernel, whose route gives it
-    contiguous copies."""
+    sends the views to the CUDA-core route's kernel, which reads them
+    through their strides."""
     B, S, H, P, G, N = 1, 256, 4, 64, 1, 128
     xh, Bm, Cm = mixer_views(B, S, H, P, G, N, cuda_device, pad=1)
     _, dt, A, _, _ = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, 4,
@@ -1224,7 +1224,8 @@ def test_ssd_backward_planted_faults_fail(cuda_device):
 def test_ssd_backward_plan_matches_the_host(cuda_device):
     for P, N, Q in ((64, 128, 256), (16, 16, 16), (128, 192, 128),
                     (32, 64, 96)):
-        assert ssd_scan.bwd_kernel_plan(P, N, Q) == ssd_scan.bwd_plan(P, N, Q)
+        assert ssd_scan.bwd_kernel_plan(P, N, Q, torch.float32) == \
+            ssd_scan.bwd_plan(P, N, Q, torch.float32)
 
 
 # ------------------ SSD backward on the tensor cores --------------------- #
@@ -1317,7 +1318,7 @@ def test_ssd_backward_tc_launches_do_not_spill(cuda_device):
     for P, N in ((64, 128), (128, 256), (16, 16)):
         info = ssd_scan.bwd_tc_kernel_info(P, N)
         assert [r["launch"] for r in info] == \
-            list(ssd_scan.BWD_TC_LAUNCH_NAMES)
+            list(ssd_scan.BWD_LAUNCH_NAMES)
         assert all(r["local_bytes"] == 0 for r in info), info
 
 
@@ -1349,6 +1350,179 @@ def test_ssd_backward_bf16_off_the_tensor_cores_is_the_cuda_core_result(
     for want in (on_tc, ssd_ref.ssd_backward_reference(*args, dy, ds, Q)):
         errs = [rel_err(g, w) for g, w in zip(g1, want)]
         assert max(errs) <= BWD_TOL[torch.bfloat16], errs
+
+
+# -------------- the SSD scan's CUDA-core route (mma.sync) ---------------- #
+
+# fp32 shapes of the route: a chunk of 16 over G = 2, one ragged chunk of
+# 100 tokens and two chunks of 256 at mamba2-130m's widths, widths that are
+# not multiples of 16, and the widest head and state
+SPLIT_SHAPES = [(2, 64, 4, 32, 2, 16, 16), (1, 100, 24, 64, 1, 128, 256),
+                (1, 512, 24, 64, 1, 128, 256), (1, 96, 4, 20, 2, 24, 48),
+                (1, 256, 4, 128, 2, 256, 128)]
+# Against the split mirror (the same TF32 products, fp32 sums in another
+# order, no truncation in the tensor cores' sums): chip_smoke.py's SSD
+# phases put the kernels at most 4.7e-7 (scan) and 2.7e-6 (gradient) of
+# the largest value from it
+SPLIT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+def test_ssd_cuda_core_scan_matches_the_split_mirror(cuda_device, fp32_exact,
+                                                    shape):
+    """One launch of the route (three kernels) in fp32: y and the state
+    within SPLIT_TOL of the largest value of ``ref.ssd_split_reference``
+    run on the card, and within 1e-4 of the plain version."""
+    *dims, chunk = shape
+    args = ssd_inputs(*dims, torch.float32, sum(shape), cuda_device,
+                      mixer=dims[5] == 128)
+    assert ssd_scan.route(args[0], args[3], args[4], chunk) == "cuda_cores"
+    before = ssd_launches()
+    y, st = ssd_ops.ssd(*args, chunk=chunk)
+    assert tuple(a - b for a, b in zip(ssd_launches(), before)) == (1, 0, 1)
+    y_m, st_m = ssd_ref.ssd_split_reference(*args, chunk=chunk)
+    assert rel_err(y, y_m) <= SPLIT_TOL and rel_err(st, st_m) <= SPLIT_TOL
+    y_p, st_p = ssd_ref.ssd_reference(*args, chunk=chunk)
+    assert rel_err(y, y_p) <= 1e-4 and rel_err(st, st_p) <= 1e-4
+
+
+@pytest.mark.parametrize("with_dstate", [False, True],
+                         ids=["no-dstate", "dstate"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+def test_ssd_cuda_core_backward_matches_the_split_mirror(
+        cuda_device, fp32_exact, shape, with_dstate):
+    """The route's gradient in fp32 within SPLIT_TOL of each gradient's
+    largest value from ``ref.ssd_backward_split_reference`` on the card; a
+    second call repeats it bitwise."""
+    *dims, chunk = shape
+    args, dy, ds = bwd_inputs(*dims, torch.float32, cuda_device,
+                              seed=3 * sum(shape) + with_dstate)
+    ds = ds if with_dstate else None
+    assert ssd_scan.backward_route(args[0], args[3], args[4], dy, chunk) == \
+        "cuda_cores"
+    tc, cc = bwd_route_counts()
+    got = ssd_scan.ssd_backward_cuda(*args, dy, ds, chunk)
+    again = ssd_scan.ssd_backward_cuda(*args, dy, ds, chunk)
+    assert bwd_route_counts() == (tc, cc + 2)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+    want = ssd_ref.ssd_backward_split_reference(*args, dy, ds, chunk)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= SPLIT_TOL, errs
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 2, 32, 1, 16, 16),
+                                   (1, 100, 24, 64, 1, 128, 256),
+                                   (1, 96, 4, 20, 2, 24, 48)], ids=str)
+def test_ssd_cuda_core_bf16_keeps_the_tensor_core_roundings(
+        cuda_device, fp32_exact, shape):
+    """bf16 the tensor-core route refuses (a chunk of 16, 100 tokens,
+    widths that are not multiples of 16) against the CPU mirror of the
+    tensor-core passes, whose roundings this route keeps: y within 5e-2
+    elementwise and 2^-7 per block, the state within 2e-3; the gradient
+    within 5e-2 of each gradient's largest value of the tensor-core
+    backward's mirror."""
+    *dims, chunk = shape
+    args = ssd_inputs(*dims, torch.bfloat16, sum(shape), cuda_device,
+                      mixer=dims[5] == 128)
+    assert ssd_scan.route(args[0], args[3], args[4], chunk) == "cuda_cores"
+    y, st = ssd_ops.ssd(*args, chunk=chunk)
+    y_m, st_m = ssd_ref.ssd_three_pass_reference(*(a.cpu() for a in args),
+                                                 chunk=chunk)
+    torch.testing.assert_close(y.cpu().float(), y_m.float(), atol=5e-2,
+                               rtol=5e-2)
+    assert ssd_ref.chunk_block_rel_err(y.cpu(), y_m, chunk) <= 2.0 ** -7
+    torch.testing.assert_close(st.cpu(), st_m, atol=2e-3, rtol=2e-3)
+    bargs, dy, ds = bwd_inputs(*dims, torch.bfloat16, cuda_device,
+                               seed=sum(shape))
+    got = ssd_scan.ssd_backward_cuda(*bargs, dy, ds, chunk)
+    want = ssd_ref.ssd_backward_tc_reference(*bargs, dy, ds, chunk)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= BWD_TOL[torch.bfloat16], errs
+
+
+def test_ssd_cuda_core_route_reads_views(cuda_device, fp32_exact):
+    """fp32 xh, Bm and Cm as views of one conv output (the mixer's split)
+    go in without a copy: the scan and its gradient equal those of
+    contiguous copies, bitwise."""
+    B, S, H, P, G, N, Q = 2, 512, 24, 64, 1, 128, 256
+    args, dy, ds = bwd_inputs(B, S, H, P, G, N, torch.float32, cuda_device,
+                              seed=4)
+    xh, dt, A, Bm, Cm = args
+    conv = torch.cat([xh.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
+                      Cm.reshape(B, S, G * N)], dim=-1)
+    xi, bv, cv = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+    views = (xi.reshape(B, S, H, P), dt, A, bv.reshape(B, S, G, N),
+             cv.reshape(B, S, G, N))
+    assert not views[0].is_contiguous()
+    for u, v in zip(ssd_ops.ssd(*views, chunk=Q), ssd_ops.ssd(*args, chunk=Q)):
+        assert torch.equal(u, v)
+    for u, v in zip(ssd_scan.ssd_backward_cuda(*views, dy, ds, Q),
+                    ssd_scan.ssd_backward_cuda(*args, dy, ds, Q)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_gradient_of_a_reduction_of_a_transposed_view(
+        cuda_device, fp32_exact, dtype, reduce):
+    """``y.sum()`` / ``y.mean()`` hand the backward an expanded cotangent
+    (every stride 0) and xh comes as a transposed view (its last dimension
+    strided): the CUDA-core routes copy those two and read the rest as they
+    are.  The scan matches the plain version within 1e-4 (fp32) / 5e-2
+    (bf16) and, in fp32, a contiguous copy's scan bitwise; the gradient
+    matches plain autograd within the same tolerances of each gradient's
+    largest value."""
+    B, S, H, P, G, N, Q = 2, 128, 4, 32, 1, 64, 64
+    args, _, _ = bwd_inputs(B, S, H, P, G, N, dtype, cuda_device, seed=11)
+    xt = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    assert xt.stride(3) != 1 and torch.equal(xt, args[0])
+    assert ssd_scan.route(xt, args[3], args[4], Q) == "cuda_cores"
+    tol = BWD_TOL[dtype]
+    got = ssd_ops.ssd(xt, *args[1:], chunk=Q)
+    for g, w in zip(got, ssd_ref.ssd_reference(*args, chunk=Q)):
+        assert rel_err(g, w) <= tol
+    if dtype == torch.float32:
+        for g, w in zip(got, ssd_ops.ssd(*args, chunk=Q)):
+            assert torch.equal(g, w)
+
+    def grads(scan, x):
+        leaves = [x.detach().requires_grad_()] + \
+            [a.detach().requires_grad_() for a in args[1:]]
+        y, _ = scan(*leaves, chunk=Q)
+        getattr(y, reduce)().backward()
+        return [t.grad for t in leaves]
+
+    tc, cc = bwd_route_counts()
+    got = grads(ssd_ops.ssd, xt)
+    assert bwd_route_counts() == (tc, cc + 1)
+    want = grads(ssd_ref.ssd_reference, args[0])
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= tol, errs
+
+
+def test_ssd_cuda_core_plans_match_the_host(cuda_device):
+    for dtype in (torch.float32, torch.bfloat16):
+        for P, N, Q in ((64, 128, 256), (16, 16, 16), (128, 256, 256),
+                        (20, 24, 100), (128, 192, 2048)):
+            assert ssd_scan.kernel_plan(P, N, Q, dtype) == \
+                ssd_scan.plan(P, N, Q, dtype)
+            assert ssd_scan.bwd_kernel_plan(P, N, Q, dtype) == \
+                ssd_scan.bwd_plan(P, N, Q, dtype)
+
+
+def test_ssd_cuda_core_launches_do_not_spill(cuda_device):
+    for dtype in (torch.float32, torch.bfloat16):
+        for P in (16, 20, 64, 128):
+            info = ssd_scan.kernel_info(P, dtype)
+            assert [r["launch"] for r in info] == list(ssd_scan.LAUNCH_NAMES)
+            assert all(r["local_bytes"] == 0 for r in info), info
+        for P, N in ((64, 128), (128, 256), (16, 16), (20, 24)):
+            info = ssd_scan.bwd_kernel_info(P, N, dtype)
+            assert [r["launch"] for r in info] == \
+                list(ssd_scan.BWD_LAUNCH_NAMES)
+            assert all(r["local_bytes"] == 0 for r in info), info
 
 
 def test_attention_refuses_a_gradient_on_the_card(cuda_device, fp32_exact):

@@ -30,10 +30,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from ablate_common import card as card_line, median_ms, variant
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -60,38 +61,6 @@ BACKWARD = {
     "no_dp": [("dots_fp32<NT>(dp, dOs, ldv, m0, Vs, ldv, n0, a.Dv, lane);", "")],
     "no_copy": [("      issue(i + 1, st ^ 1);\n", ""), ("      issue(kt + 1, st ^ 1);\n", "")],
 }
-
-
-def variant(source: Path, name: str, subs) -> Path:
-    """``source`` with ``subs`` applied, built into its own library."""
-    from repro_torch.kernels import nvcc
-
-    text = source.read_text()
-    for old, new in subs:
-        if old not in text:
-            raise RuntimeError(f"{name}: {source.name} no longer has {old[:60]!r}")
-        text = text.replace(old, new)
-    nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = nvcc.BUILD_DIR / f"ablate_mma_{source.stem}_{name}.cu"
-    path.write_text(text)
-    nvcc.build(path)
-    return path
-
-
-def median_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def inputs(shape, dtype, shifted: bool):
@@ -122,14 +91,13 @@ def main() -> int:
         return 2
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     jobs = [(fa.SOURCE, n, s) for n, s in FORWARD.items()] + \
         [(fa.BWD_SOURCE, n, s) for n, s in BACKWARD.items()]
     with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(lambda j: variant(*j), jobs))
+        built = list(pool.map(lambda j: variant(j[0], "ablate_mma", *j[1:]),
+                              jobs))
     fwd = dict(zip(FORWARD, built[:len(FORWARD)]))
     bwd = dict(zip(BACKWARD, built[len(FORWARD):]))
     source, bwd_source = fa.SOURCE, fa.BWD_SOURCE
