@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -41,6 +42,7 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..core.log import Log, LogFullError
+from ..trace import span
 from ..tree import leaf_paths, map_with_path, tree_map
 from .codec import (ShardCorruptError, ShardMeta, decode_shard, encode_shard,
                     shard_checksum)
@@ -107,6 +109,8 @@ class CheckpointManager:
                                              thread_name_prefix="ckpt-save")
         self._save_lock = threading.Lock()
         self._async: List[Future] = []
+        self.snapshot_bytes = 0      # bytes save_async copied to the host
+        self.snapshot_s = 0.0        # ... and the host seconds it took
 
     # ------------------------------------------------------------------ #
     # save path
@@ -147,14 +151,15 @@ class CheckpointManager:
         manifest = dict(step=step, entries=entries, checksums=checksums,
                         extra=extra or {})
         payload = MANIFEST_TAG + json.dumps(manifest).encode()
-        with self._save_lock:              # manifests commit in step order
-            rid, view = self.log.reserve(len(payload))
-            if view is not None:
-                view[:] = payload
-            else:
-                self.log.copy(rid, payload)
-            self.log.complete(rid)
-        self.log.force(rid, freq=1 if sync else self.cfg.force_freq)
+        with span("ckpt.manifest"):
+            with self._save_lock:          # manifests commit in step order
+                rid, view = self.log.reserve(len(payload))
+                if view is not None:
+                    view[:] = payload
+                else:
+                    self.log.copy(rid, payload)
+                self.log.complete(rid)
+            self.log.force(rid, freq=1 if sync else self.cfg.force_freq)
         return rid
 
     def save_async(self, step: int, state,
@@ -163,7 +168,12 @@ class CheckpointManager:
         save worker serializes saves, so manifests commit in step order
         (the log's in-order-commit invariant extended to checkpoints);
         shard writes within each save still fan out over _pool."""
-        state = _snapshot(state)
+        t = time.perf_counter()
+        with span("ckpt.snapshot"):
+            state = _snapshot(state)
+        self.snapshot_s += time.perf_counter() - t
+        self.snapshot_bytes += sum(leaf.nbytes for _, leaf in
+                                   leaf_paths(state))
         fut = self._save_pool.submit(self.save, step, state, extra)
         self._async.append(fut)
         return fut
@@ -175,9 +185,17 @@ class CheckpointManager:
 
     def _put_shard(self, key: str, chunk: np.ndarray, meta: ShardMeta
                    ) -> Tuple[str, int]:
-        raw = encode_shard(chunk, meta)
-        self.store.put(key, raw)
+        with span("ckpt.encode"):
+            raw = encode_shard(chunk, meta)
+        with span("ckpt.put"):
+            self.store.put(key, raw)
         return key, shard_checksum(raw)
+
+    def stats(self) -> dict:
+        """The snapshot counters: bytes ``save_async`` copied to the host
+        and the host seconds it took, over the manager's life."""
+        return dict(snapshot_bytes=self.snapshot_bytes,
+                    snapshot_s=self.snapshot_s)
 
     # ------------------------------------------------------------------ #
     # journal records (same log, same policy)

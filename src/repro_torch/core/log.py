@@ -57,6 +57,7 @@ import torch
 
 from ..kernels.checksum.ops import tensor_checksum_batch
 from ..device import resolve_device
+from ..trace import span
 from .pmem import PMEMDevice
 from .primitives import (AtomicRegion, ForceRound, REP_LF, reissue_segs,
                          write_and_force, write_and_force_segs_async)
@@ -672,6 +673,8 @@ class Log:
         self.full_reclaims = 0        # LogFullError last-ditch reclaims
         self.trimmed_records_total = 0
         self.trimmed_bytes_total = 0
+        self.forces = 0               # force calls that reached a round
+        self.force_s = 0.0            # ... and their host seconds
         self.force_vns_total = 0.0    # accumulated modelled hardware WORK
         # virtual-timeline modelled TIME (DESIGN.md §14): retired rounds
         # are placed on per-resource clocks (cpu / flush / wire:<id>),
@@ -1147,6 +1150,19 @@ class Log:
         if freq > 1 and lsn % freq != 0:
             with self._commit_cv:
                 return self._durable_lsn
+        t0 = time.perf_counter()
+        try:
+            with span("log.force"):
+                return self._force(lsn, timeout, wait)
+        finally:
+            dt = time.perf_counter() - t0
+            with self._commit_cv:
+                self.forces += 1
+                self.force_s += dt
+
+    def _force(self, lsn: int, timeout: Optional[float], wait: bool) -> int:
+        """``force`` past its frequency filter: wait for every earlier
+        record to complete, then lead or join the covering round."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._commit_cv:
             # total order: wait for every earlier record to be complete
@@ -2382,4 +2398,5 @@ class Log:
                         salvage_spilled_images=self.salvage_spilled_images,
                         depth_bdp=self._ack_est.bdp_rounds(),
                         force_vns_total=self.force_vns_total,
-                        durable_vtime=self._durable_vtime)
+                        durable_vtime=self._durable_vtime,
+                        forces=self.forces, force_s=self.force_s)

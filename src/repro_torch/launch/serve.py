@@ -30,6 +30,7 @@ from ..configs import ARCH_NAMES, get_config, reduced_config
 from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..trace import span
 
 
 def check_servable(cfg: ModelConfig, prompt_len: int) -> None:
@@ -56,7 +57,8 @@ class Generation:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with span("serve.sync"):
+            torch.cuda.synchronize(device)
 
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int,
@@ -75,17 +77,19 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, gen: int,
     cache = M.init_cache(cfg, B, P + gen, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = M.serve_step(params, cfg, batch, cache, 0)
-    tok = logits[:, -1:].argmax(-1)
+    with span("serve.prefill"):
+        logits, cache = M.serve_step(params, cfg, batch, cache, 0)
+        tok = logits[:, -1:].argmax(-1)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
-    for j in range(gen - 1):
-        step_logits, cache = M.serve_step(params, cfg, {"tokens": tok}, cache,
-                                          P + j)
-        tok = step_logits[:, -1:].argmax(-1)
-        out.append(tok)
+    with span("serve.decode"):
+        for j in range(gen - 1):
+            step_logits, cache = M.serve_step(params, cfg, {"tokens": tok},
+                                              cache, P + j)
+            tok = step_logits[:, -1:].argmax(-1)
+            out.append(tok)
     _sync(device)
     return Generation(torch.cat(out, dim=1), logits, t_prefill,
                       time.perf_counter() - t0, gen - 1)

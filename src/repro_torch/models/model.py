@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed.sharding import placements
+from ..trace import span
 from ..tree import leaf_paths, map_with_path, tree_map
 from . import layers as L
 from .config import LayerKind, ModelConfig
@@ -235,34 +236,47 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
             for k, v in params.items()}
 
 
+def _norm(x, w, cfg: ModelConfig):
+    with span("model.norm"):
+        return L.rms_norm(x, w, cfg.norm_eps)
+
+
 def _apply_layer(h, p, cfg: ModelConfig, kind: LayerKind, cache, index):
     """One residual layer.  Returns (h, new_cache, aux)."""
-    p = _cast_compute(p, cfg)
+    with span("model.cast"):
+        p = _cast_compute(p, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    u = L.rms_norm(h, p["ln1"]["w"], cfg.norm_eps)
+    u = _norm(h, p["ln1"]["w"], cfg)
     if kind.mixer == "attn" and cfg.use_mla:
-        mix, new_cache = L.mla_attention(u, p["attn"], cfg, cache=cache,
-                                         index=index)
+        with span("model.mixer.mla"):
+            mix, new_cache = L.mla_attention(u, p["attn"], cfg, cache=cache,
+                                             index=index)
     elif kind.mixer == "attn":
-        mix, new_cache = L.gqa_attention(u, p["attn"], cfg, local=kind.local,
-                                         cache=cache, index=index)
+        with span("model.mixer.attn"):
+            mix, new_cache = L.gqa_attention(u, p["attn"], cfg,
+                                             local=kind.local, cache=cache,
+                                             index=index)
     else:
-        mix, new_cache = L.ssm_mixer(u, p["ssm"], cfg, cache=cache)
+        with span("model.mixer.ssm"):
+            mix, new_cache = L.ssm_mixer(u, p["ssm"], cfg, cache=cache)
     if "ffn" not in p:                         # mamba2: mixer-only layer
         return h + mix, new_cache, aux
     if cfg.parallel_block:                     # command-r: shared-norm ||
-        ff = L.mlp(u, p["ffn"], cfg)
+        with span("model.mlp"):
+            ff = L.mlp(u, p["ffn"], cfg)
         return h + mix + ff, new_cache, aux
     if cfg.use_post_norm:
-        mix = L.rms_norm(mix, p["post_ln1"]["w"], cfg.norm_eps)
+        mix = _norm(mix, p["post_ln1"]["w"], cfg)
     h = h + mix
-    u2 = L.rms_norm(h, p["ln2"]["w"], cfg.norm_eps)
+    u2 = _norm(h, p["ln2"]["w"], cfg)
     if kind.moe:
-        ff, aux = L.moe_ffn(u2, p["ffn"], cfg)
+        with span("model.moe"):
+            ff, aux = L.moe_ffn(u2, p["ffn"], cfg)
     else:
-        ff = L.mlp(u2, p["ffn"], cfg)
+        with span("model.mlp"):
+            ff = L.mlp(u2, p["ffn"], cfg)
     if cfg.use_post_norm:
-        ff = L.rms_norm(ff, p["post_ln2"]["w"], cfg.norm_eps)
+        ff = _norm(ff, p["post_ln2"]["w"], cfg)
     return h + ff, new_cache, aux
 
 
@@ -362,31 +376,35 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
     dtype.  The frontends are stubs, as in the JAX package: frames and
     patches arrive as precomputed embeddings and go through one learned
     projection each; a VLM's patches come before its tokens."""
-    dt = torch_dtype(cfg.compute_dtype)
+    with span("model.embed"):
+        dt = torch_dtype(cfg.compute_dtype)
 
-    def project(x, proj):
-        return torch.matmul(x.to(dt), proj["w"].to(dt)) + proj["b"].to(dt)
+        def project(x, proj):
+            return torch.matmul(x.to(dt), proj["w"].to(dt)) + \
+                proj["b"].to(dt)
 
-    if cfg.input_kind == "frames":
-        return project(batch["frames"], params["frame_proj"])
-    parts = []
-    if cfg.input_kind == "tokens+patches" and "patches" in batch:
-        parts.append(project(batch["patches"], params["patch_proj"]))
-    if "tokens" in batch:
-        ht = params["embed"]["w"].to(dt)[batch["tokens"]]
-        if cfg.scale_embeddings:              # gemma-style embed scaling
-            ht = ht * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
-        parts.append(ht)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if cfg.input_kind == "frames":
+            return project(batch["frames"], params["frame_proj"])
+        parts = []
+        if cfg.input_kind == "tokens+patches" and "patches" in batch:
+            parts.append(project(batch["patches"], params["patch_proj"]))
+        if "tokens" in batch:
+            ht = params["embed"]["w"].to(dt)[batch["tokens"]]
+            if cfg.scale_embeddings:          # gemma-style embed scaling
+                ht = ht * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+            parts.append(ht)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def _logits(params: Params, cfg: ModelConfig, h):
-    h = L.rms_norm(h, params["final_norm"]["w"], cfg.norm_eps)
-    if cfg.tie_embeddings and cfg.input_kind != "frames":
-        logits = torch.matmul(h, params["embed"]["w"].to(h.dtype).t())
-    else:
-        logits = torch.matmul(h, params["lm_head"]["w"].to(h.dtype))
-    return L.softcap(logits, cfg.final_logit_softcap)
+    """The final norm and the LM head at every position."""
+    with span("model.logits"):
+        h = L.rms_norm(h, params["final_norm"]["w"], cfg.norm_eps)
+        if cfg.tie_embeddings and cfg.input_kind != "frames":
+            logits = torch.matmul(h, params["embed"]["w"].to(h.dtype).t())
+        else:
+            logits = torch.matmul(h, params["lm_head"]["w"].to(h.dtype))
+        return L.softcap(logits, cfg.final_logit_softcap)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -394,14 +412,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """fp32 cross-entropy with an ignore mask; logits [B,S,V] (any float
     dtype), in the JAX package's operations: max-shifted log-sum-exp minus
     the gold logit, averaged over the labels that are not ``ignore``."""
-    lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    safe = torch.clamp(labels, min=0)
-    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
-    nll = lse - gold
-    mask = (labels != ignore).float()
-    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    with span("model.loss"):
+        lf = logits.float()
+        m = lf.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+        safe = torch.clamp(labels, min=0)
+        gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+        nll = lse - gold
+        mask = (labels != ignore).float()
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Any]

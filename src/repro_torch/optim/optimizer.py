@@ -34,6 +34,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..models.layers import TensorSpec
+from ..trace import span
 from ..tree import leaf_paths, tree_map
 
 F32 = torch.float32
@@ -230,27 +231,28 @@ def apply_updates(params, grads, state, step: torch.Tensor, cfg: OptConfig,
     which are returned (bitwise what the functional update returns)."""
     if cfg.name not in ("adamw", "adafactor"):
         raise ValueError(f"unknown optimizer {cfg.name!r}")
-    lr = schedule(step, cfg)
-    gnorm = _global_norm(leaf for _, leaf in leaf_paths(grads))
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
-        if cfg.clip_norm else 1.0
-    t = step.to(F32) + 1.0
-    beta = 1.0 - t ** (-cfg.decay_rate)
+    with span("optim.apply_updates"):
+        lr = schedule(step, cfg)
+        gnorm = _global_norm(leaf for _, leaf in leaf_paths(grads))
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
+            if cfg.clip_norm else 1.0
+        t = step.to(F32) + 1.0
+        beta = 1.0 - t ** (-cfg.decay_rate)
 
-    def walk(p, g, s):                   # params, grads and state in step
-        if isinstance(p, dict):
-            pairs = {k: walk(p[k], g[k], s[k]) for k in p}
-            return ({k: v[0] for k, v in pairs.items()},
-                    {k: v[1] for k, v in pairs.items()})
-        if cfg.name == "adamw" and donate:
-            return _adamw_in_place(p, g, s, scale, lr, t, cfg)
-        if cfg.name == "adamw":
-            return _adamw_leaf(p, g, s, scale, lr, t, cfg, p.dim() >= 2)
-        if donate:
-            return _adafactor_leaf(p, g, s, scale, lr, t, beta, cfg, p, s)
-        return _adafactor_leaf(p, g, s, scale, lr, t, beta, cfg,
-                               torch.empty_like(p),
-                               {k: torch.empty_like(v) for k, v in s.items()})
+        def walk(p, g, s):               # params, grads and state in step
+            if isinstance(p, dict):
+                pairs = {k: walk(p[k], g[k], s[k]) for k in p}
+                return ({k: v[0] for k, v in pairs.items()},
+                        {k: v[1] for k, v in pairs.items()})
+            if cfg.name == "adamw" and donate:
+                return _adamw_in_place(p, g, s, scale, lr, t, cfg)
+            if cfg.name == "adamw":
+                return _adamw_leaf(p, g, s, scale, lr, t, cfg, p.dim() >= 2)
+            if donate:
+                return _adafactor_leaf(p, g, s, scale, lr, t, beta, cfg, p, s)
+            return _adafactor_leaf(
+                p, g, s, scale, lr, t, beta, cfg, torch.empty_like(p),
+                {k: torch.empty_like(v) for k, v in s.items()})
 
-    new_params, new_state = walk(params, grads, state)
-    return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
+        new_params, new_state = walk(params, grads, state)
+        return new_params, new_state, {"lr": lr, "grad_norm": gnorm}

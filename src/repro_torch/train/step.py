@@ -24,6 +24,7 @@ from ..models.config import ModelConfig
 from ..models.layers import TensorSpec
 from ..optim import OptConfig, apply_updates, init_opt_state, \
     opt_state_specs
+from ..trace import span
 from ..tree import leaf_paths, map_with_path
 
 
@@ -52,9 +53,11 @@ def grads_and_metrics(params, batch: Dict[str, torch.Tensor],
     leaves = [t.detach().requires_grad_(True) for _, t in leaf_paths(params)]
     by_name = dict(zip(names, leaves))
     with torch.enable_grad():
-        loss, metrics = M.forward_train(
-            map_with_path(lambda n, _: by_name[n], params), cfg, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("step.forward"):
+            loss, metrics = M.forward_train(
+                map_with_path(lambda n, _: by_name[n], params), cfg, batch)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     g = {n: torch.zeros_like(t) if gr is None else gr
          for n, t, gr in zip(names, leaves, grads)}
     return (map_with_path(lambda n, _: g[n], params),
@@ -81,7 +84,8 @@ def apply_step(state, grads, metrics: Dict[str, torch.Tensor],
         state["params"], grads, state["opt"], state["step"], opt_cfg, donate)
     metrics = {**metrics, **opt_metrics}
     if journal:
-        metrics["integrity"] = cksum.tree_checksums(grads)
+        with span("step.hash"):
+            metrics["integrity"] = cksum.tree_checksums(grads)
     new_state = {"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}
     return new_state, metrics

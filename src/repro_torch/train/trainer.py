@@ -24,6 +24,7 @@ bound), which a caller may wrap.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from functools import partial
 from typing import List, Optional
@@ -35,6 +36,7 @@ from ..data import SyntheticDataset
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..optim import OptConfig
+from ..trace import span
 from .step import init_train_state, train_step
 
 
@@ -56,6 +58,7 @@ class TrainerReport:
     ckpts_skipped: int = 0       # straggler mitigation skips
     restarts: int = 0
     restored_step: Optional[int] = None
+    data_s: float = 0.0          # host seconds in the batch fetch
 
 
 class Trainer:
@@ -104,10 +107,14 @@ class Trainer:
         end = min(self.tcfg.total_steps,
                   start + (n_steps or self.tcfg.total_steps))
         for s in range(start, end):
-            batch = self.data.tensors_at(s, self.device)
+            t = time.perf_counter()
+            with span("trainer.data"):
+                batch = self.data.tensors_at(s, self.device)
+            self.report.data_s += time.perf_counter() - t
             self.data.step = s + 1
             self.state, metrics = self.step_fn(self.state, batch)
-            loss = float(metrics["loss"])
+            with span("trainer.sync"):
+                loss = float(metrics["loss"])
             self.report.losses.append(loss)
             self.report.steps_run += 1
             if s % self.tcfg.journal_every == 0:

@@ -70,11 +70,13 @@ def assert_same_log(jdev, jlog, tdev, tl):
     assert tl.force_vns_total == jlog.force_vns_total
     # depth_bdp is AckRateEstimator.bdp_rounds(): a ratio of two
     # time.monotonic() averages, so it is held to its range on each side;
-    # every other field must be equal
+    # the port's force counters (calls past the frequency filter and their
+    # host seconds) have no JAX twin; every other field must be equal
     port, ref = tl.stats(), jlog.stats()
     for side in (port, ref):
         bdp = side.pop("depth_bdp")
         assert bdp is None or bdp >= 1
+    assert port.pop("forces") >= 0 and port.pop("force_s") >= 0.0
     assert port == ref
 
 
