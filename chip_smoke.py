@@ -2,8 +2,8 @@
 """Run the PyTorch port of the Arcadia log on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
-        [--phase ssd|ssd_backward|flash|flash_backward|distributed|
-                 whole_models|faults]
+        [--phase ssd|ssd_backward|flash|flash_backward|causal_conv|
+                 distributed|whole_models|faults]
 
 Builds the CUDA kernels of the lane-polynomial integrity hash, of the
 Mamba2 SSD chunked scan (tensor-core and CUDA-core sources) and its
@@ -102,12 +102,13 @@ from ``src/repro_torch/csrc``
                 (2 backups, W = 2 of 3, phash threshold 256 B), the log
                 reopened and the params restored byte-exact, then 8
                 prompts of 4096 tokens prefilled (one SSD launch per
-                layer, on the tensor cores) and 32 greedy decode steps,
+                layer, on the tensor cores) and 32 greedy decode steps
+                (one conv launch per layer and step, prefill included),
                 with 4 teacher-forced
                 decode steps held against the prefill logits;
   card vs cpu   the restored params in fp32, one 512-token prefill on the
-                card (kernel, a scan a layer on the "cuda_cores" route) and
-                on the CPU (plain): logits within 2e-3 and the same next
+                card (kernels: a scan a layer on the "cuda_cores" route, a
+                conv a layer in fp32) and on the CPU (plain): logits within 2e-3 and the same next
                 greedy token.  The teacher-forced and
                 card-vs-CPU checks run again on a variant of the params in
                 which the scan carries each mixer's output (at init it is
@@ -139,12 +140,27 @@ from ``src/repro_torch/csrc``
                 "cuda_cores" route fails).  ``--phase ssd_backward`` builds the
                 kernels, runs this phase alone and prints its JSON (not
                 the run's result line);
+  causal conv   the mixer's conv kernels against their plain versions
+                at mamba2-130m's training shape as the mixer's views (bf16
+                and fp32), a misaligned view (copied first), prefill,
+                decode and two rows with a state: the forward within one
+                bf16 ulp of the fp32 mirror and the new state bitwise the
+                plain route's, the gradient within 2^-7 (fp32: 1e-5) of
+                each gradient's largest value off fp32 autograd and
+                bitwise on a second call; the pair's time alone (CUDA
+                graph, L2 flushed) and a call beside the bytes bound and
+                the plain version's; registers and spills (a spill fails).
+                The conv's launches are counted on every mamba2-130m path
+                (serving, card vs cpu, train, train cpu, the pipeline) and
+                must be one a layer for each forward, remat recompute and
+                gradient.  ``--phase causal_conv`` runs it alone and prints
+                its JSON;
   train         mamba2-130m at full width and depth (24 layers, bf16 compute,
                 fp32 master params) trained on 8 x 4096 synthetic tokens a
                 step with AdamW (peak lr 3e-4): a profiled step (24 SSD
                 forward launches, 24 remat recomputes, 24 backward
                 launches on the tensor cores and none on "cuda_cores",
-                one hash launch
+                and the conv's 48 + 24 in the trainer's run, one hash launch
                 per grad leaf; ms, tokens/s, peak memory, busy share, top
                 kernels), then 8 steps through the journaled, checkpointed
                 trainer (checkpoint every 4, F = 4, manifests and journal
@@ -2039,7 +2055,14 @@ def serving_phase(seed: int) -> dict:
     del params, template
 
     served = M.cast_params(restored, cfg)
+    zero_conv_counts()
     res = serve.generate(served, cfg, prompts, SERVE_DECODE + 1)
+    out["conv_launches"] = conv_counts()
+    want_conv = dict(forward=cfg.n_layers * (1 + res.decode_steps),
+                     backward=0)
+    if out["conv_launches"] != want_conv:
+        raise AssertionError(f"prefill and decode made conv launches "
+                             f"{out['conv_launches']}, expected {want_conv}")
     out["ssd_launches"] = ssd_scan.LAUNCHES
     out["ssd_tensor_core_launches"] = ssd_scan.TENSOR_CORE_LAUNCHES
     out["checksum_launches"] = checksum.LAUNCHES
@@ -2072,7 +2095,8 @@ def serving_phase(seed: int) -> dict:
         f"({out['ssd_tensor_core_launches']} on the tensor cores); decode: "
         f"{res.decode_steps} "
         f"steps, {out['decode_ms_per_step']:.3f} ms/step "
-        f"({out['decode_tokens_per_s']:.1f} tok/s)")
+        f"({out['decode_tokens_per_s']:.1f} tok/s); conv launches "
+        f"{out['conv_launches']['forward']} (one a layer and step)")
 
     # teacher-forced decode from a shorter prefill must reproduce the
     # prefill logits (tests/test_arch_smoke.py's check, in bf16), with the
@@ -2139,23 +2163,27 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
     toks = torch.from_numpy(np.random.default_rng(seed + 7).integers(
         0, cfg.vocab_size, (1, 512)))
     out = {}
-    cuda_cores = 0
+    cuda_cores = conv_launches = 0
     for name, params in (("init", restored),
                          ("scan-dominated", scan_dominated(restored))):
         zero_ssd_counts()
+        zero_conv_counts()
         card, _ = M.serve_step(params, cfg, {"tokens": toks.to(DEV)}, None,
                                None)
         card = card.cpu()
-        counts = ssd_counts()
+        counts, conv = ssd_counts(), conv_counts()
         if counts["forward"] != cfg.n_layers or \
-                counts["cuda_cores"] != cfg.n_layers:
+                counts["cuda_cores"] != cfg.n_layers or \
+                conv["forward"] != cfg.n_layers:
             raise AssertionError(f"the card's fp32 prefill did not go through "
-                                 f"the CUDA-core route's kernel: {counts}")
+                                 f"the CUDA-core route's kernel and the conv "
+                                 f"kernel: {counts}, conv {conv}")
         cuda_cores += counts["cuda_cores"]
+        conv_launches += conv["forward"]
         host = tree_map(lambda t: t.cpu(), params)
         plain, _ = M.serve_step(host, cfg, {"tokens": toks}, None, None)
-        if ssd_counts() != counts:
-            raise AssertionError("the CPU prefill launched the kernel")
+        if ssd_counts() != counts or conv_counts() != conv:
+            raise AssertionError("the CPU prefill launched a kernel")
         diff = float((card - plain).abs().max())
         same = bool(torch.equal(card[:, -1].argmax(-1),
                                 plain[:, -1].argmax(-1)))
@@ -2168,6 +2196,7 @@ def card_vs_cpu_phase(restored, seed: int) -> dict:
         out[name] = dict(max_abs_diff=diff, next_token_equal=same,
                          greedy_agreement=agree)
     out["ssd_cuda_core_launches"] = cuda_cores
+    out["conv_launches"] = conv_launches
     return out
 
 
@@ -2509,6 +2538,18 @@ def zero_ssd_counts() -> None:
     ssd_scan.BACKWARD_CUDA_CORE_LAUNCHES = 0
 
 
+def zero_conv_counts() -> None:
+    from repro_torch.kernels.causal_conv import causal_conv
+    causal_conv.LAUNCHES = causal_conv.BACKWARD_LAUNCHES = 0
+
+
+def conv_counts() -> dict:
+    """The mixer's conv kernels' calls since the counts were last zeroed."""
+    from repro_torch.kernels.causal_conv import causal_conv
+    return dict(forward=causal_conv.LAUNCHES,
+                backward=causal_conv.BACKWARD_LAUNCHES)
+
+
 def ssd_counts() -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan
     return dict(forward=ssd_scan.LAUNCHES,
@@ -2686,6 +2727,7 @@ def train_phase(seed: int, card: str) -> dict:
         return tr
 
     zero_ssd_counts()
+    zero_conv_counts()
     zero_hash_counts()
     t0 = time.perf_counter()
     rs, stores = deployment()
@@ -2697,7 +2739,8 @@ def train_phase(seed: int, card: str) -> dict:
     finally:
         rs.shutdown()
     run_s = time.perf_counter() - t0
-    main_counts = dict(ssd=ssd_counts(), hash=hash_counts())
+    main_counts = dict(ssd=ssd_counts(), conv=conv_counts(),
+                       hash=hash_counts())
     ref_steps = ref_tr.step_fn
     final = ref_tr.state
     del ref_tr, stores, rs
@@ -2745,6 +2788,10 @@ def train_phase(seed: int, card: str) -> dict:
         raise AssertionError(f"train run's SSD launches {main_counts['ssd']}: "
                              f"expected {2 * expect} forward, {expect} "
                              f"backward")
+    if main_counts["conv"] != dict(forward=2 * expect, backward=expect):
+        raise AssertionError(f"train run's conv launches "
+                             f"{main_counts['conv']}: expected {2 * expect} "
+                             f"forward, {expect} backward")
     ms = ref_steps.ms[1:]
     out.update(
         losses=rep.losses, resumed_losses=rep2.losses,
@@ -2844,8 +2891,9 @@ def train_card_vs_cpu_phase(seed: int) -> dict:
         return out
 
     zero_ssd_counts()
+    zero_conv_counts()
     (g_card, new_card), loss_card = step(card, DEV)
-    counts = ssd_counts()
+    counts, conv = ssd_counts(), conv_counts()
     if counts["backward"] != cfg.n_layers or \
             counts["backward_cuda_cores"] != cfg.n_layers or \
             counts["forward"] != 2 * cfg.n_layers or \
@@ -2853,8 +2901,12 @@ def train_card_vs_cpu_phase(seed: int) -> dict:
         raise AssertionError(f"card step's SSD launches {counts}: the fp32 "
                              f"scans and backward belong on the "
                              f"\"cuda_cores\" route")
+    if conv != dict(forward=2 * cfg.n_layers, backward=cfg.n_layers):
+        raise AssertionError(f"card step's conv launches {conv}: expected "
+                             f"{2 * cfg.n_layers} forward, {cfg.n_layers} "
+                             f"backward")
     (g_cpu, new_cpu), loss_cpu = step(host, "cpu")
-    if ssd_counts() != counts:
+    if ssd_counts() != counts or conv_counts() != conv:
         raise AssertionError("the CPU step launched a kernel")
     grad_err = leaf_errs(g_card, g_cpu)
     moment_err = leaf_errs(new_card["opt"], new_cpu["opt"])
@@ -2906,7 +2958,7 @@ def train_card_vs_cpu_phase(seed: int) -> dict:
     return dict(loss_rel_err=loss_rel, worst_leaf_err=worst,
                 grad_leaf_err=grad_err, sign_floor_skipped=skipped,
                 planted_fault_grad_err=fault, tol=TRAIN_CPU_TOL,
-                ssd_counts=counts)
+                ssd_counts=counts, conv_counts=conv)
 
 
 # ---------------------------- flash attention ---------------------------- #
@@ -6480,22 +6532,25 @@ def distributed_phase(seed: int, card: str) -> dict:
                 want, seq_ms = timed_call(lambda: torch.stack(
                     [stage_fn(blocks, xs[i]) for i in range(PIPE_MICRO)]))
                 zero_ssd_counts()
+                zero_conv_counts()
                 got, pipe_ms = timed_call(pipeline)
-                counts = ssd_counts()
+                counts, conv = ssd_counts(), conv_counts()
         if not bitwise_equal(got, want):
             raise AssertionError("one-stage pipeline is not the stack run "
                                  "on each microbatch in turn")
         n_scans = PIPE_MICRO * mcfg.n_blocks
         if counts["forward"] != n_scans or \
-                counts["tensor_cores"] != n_scans:
-            raise AssertionError(f"pipeline: SSD launches {counts}, expected "
-                                 f"{n_scans} on the tensor cores")
+                counts["tensor_cores"] != n_scans or \
+                conv != dict(forward=n_scans, backward=0):
+            raise AssertionError(f"pipeline: SSD launches {counts}, conv "
+                                 f"{conv}, expected {n_scans} of each, the "
+                                 f"scans on the tensor cores")
         out["pipeline"] = dict(
             config=describe(mcfg, [], card)["config"], stages=1,
             micro=PIPE_MICRO, microbatch=list(PIPE_MB), bitwise=True,
             hop="local copy (one stage)", ssd_launches=counts["forward"],
             ssd_tensor_core_launches=counts["tensor_cores"],
-            ms=pipe_ms, sequential_ms=seq_ms)
+            conv_launches=conv["forward"], ms=pipe_ms, sequential_ms=seq_ms)
         log(f"distributed pipeline (mamba2-130m, 1 stage, {PIPE_MICRO} x "
             f"{PIPE_MB}): bitwise the sequential run, {counts['forward']} SSD "
             f"scans on the tensor cores; {pipe_ms:.3f} ms, sequential "
@@ -6503,19 +6558,174 @@ def distributed_phase(seed: int, card: str) -> dict:
     return out
 
 
+CONV_SHAPE = (8, 4096, 1536, 128, 24)   # mamba2-130m: B, S, di, G·ds, nh
+CONV_W = 4
+
+
+def conv_inputs(B, S, di, gds, nh, dtype, seed, shift=0):
+    """(the xBC view of an in_proj-shaped output, w [4,C] in its dtype, b
+    [C] fp32, state [B,3,C]) on the card from ``seed``; ``shift`` moves the
+    view off the mixer's columns (a misaligned view)."""
+    C = di + 2 * gds
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    r = lambda *s: torch.randn(s, device=DEV, generator=gen)  # noqa: E731
+    zxbcdt = r(B, S, 2 * di + 2 * gds + nh + shift).to(dtype)
+    return (zxbcdt[..., di + shift:di + shift + C],
+            (r(CONV_W, C) / 2).to(dtype), r(C) / 4,
+            r(B, CONV_W - 1, C).to(dtype))
+
+
+def alone_flushed_ms(fn, flush: torch.Tensor, launches: int = 20) -> float:
+    """Device time of one call of ``fn`` with a cold L2: a CUDA graph of
+    ``launches`` (flush, call) pairs less one of ``launches`` flushes, over
+    ``launches``."""
+    with_call = kernel_alone_ms(lambda: (flush.zero_(), fn()), launches)
+    return with_call - kernel_alone_ms(flush.zero_, launches)
+
+
+def causal_conv_phase(seed: int) -> dict:
+    """The conv kernels (``csrc/causal_conv.cu``) on the card: the forward
+    within one bf16 ulp of the fp32 mirror (fp32: 1e-5, fused against
+    separate multiply-adds over taps up to about 8) and its new state
+    bitwise the plain route's, the gradient against fp32 autograd of the
+    plain conv (2^-7 of each gradient's largest value in bf16, 1e-5 in
+    fp32) and bitwise on a second call, at mamba2-130m's training shape as
+    the mixer's views, a misaligned view (copied first), decode and
+    prefill with a state; the pair's time alone (CUDA graph, L2 flushed)
+    and per call beside its bytes bound and the plain route's; registers
+    and spills (a spill fails).  The launches on the model paths are
+    counted where those paths run."""
+    from repro_torch.kernels.causal_conv import causal_conv as cc
+    from repro_torch.kernels.causal_conv import ref
+
+    def ulps(a, b):
+        ia, ib = (t.view(torch.int16).to(torch.int32) for t in (a, b))
+        ia = torch.where(ia < 0, -32768 - ia, ia)
+        ib = torch.where(ib < 0, -32768 - ib, ib)
+        return int((ia - ib).abs().max())
+
+    def grads_fp32(x, w, b, dy, st):
+        xf, wf, bf = (t.detach().float().requires_grad_(True)
+                      for t in (x, w, b))
+        out, _ = ref.causal_conv_fp32_reference(
+            xf, wf, bf, None if st is None else st.float())
+        return torch.autograd.grad(out, (xf, wf, bf), dy.float())
+
+    out = {"cases": []}
+    B, S, di, gds, nh = CONV_SHAPE
+    cases = [("train view", (B, S), torch.bfloat16, 0, False),
+             ("train view fp32", (B, S), torch.float32, 0, False),
+             ("misaligned view", (2, S), torch.bfloat16, 1, False),
+             ("prefill with state", (B, 1000), torch.bfloat16, 0, True),
+             ("decode", (B, 1), torch.bfloat16, 0, True),
+             ("two rows", (B, 2), torch.bfloat16, 0, True)]
+    for k, (name, (b_, s_), dtype, shift, with_state) in enumerate(cases):
+        x, w, b, st = conv_inputs(b_, s_, di, gds, nh, dtype, seed + k, shift)
+        st = st if with_state else None
+        if cc.aligned(x) != (shift == 0):
+            raise AssertionError(f"conv {name}: read as it lies "
+                                 f"{cc.aligned(x)}, expected {shift == 0}")
+        n0, n1 = cc.LAUNCHES, cc.BACKWARD_LAUNCHES
+        y, new = cc.causal_conv_cuda(x, w, b, st)
+        want, plain_state = ref.causal_conv_fp32_reference(x, w, b, st)
+        fwd_err = ulps(y, want) if dtype == torch.bfloat16 else \
+            float((y - want).abs().max())
+        if fwd_err > (1 if dtype == torch.bfloat16 else 1e-5):
+            raise AssertionError(f"conv {name}: forward {fwd_err} off the "
+                                 f"mirror")
+        if with_state and not torch.equal(new, plain_state):
+            raise AssertionError(f"conv {name}: new state differs")
+        dy = torch.randn(x.shape, device=DEV, generator=torch.Generator(
+            device=DEV).manual_seed(seed + 100 + k)).to(dtype)
+        grads = cc.causal_conv_backward_cuda(x, w, b, dy, st)
+        again = cc.causal_conv_backward_cuda(x, w, b, dy, st)
+        if not all(torch.equal(p, q) for p, q in zip(grads, again)):
+            raise AssertionError(f"conv {name}: gradient not bitwise repeated")
+        tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        errs = []
+        for g_name, got, ref_g in zip(("dx", "dw", "db"), grads,
+                                      grads_fp32(x, w, b, dy, st)):
+            e = float((got.float() - ref_g).abs().max() /
+                      ref_g.abs().max().clamp_min(1e-30))
+            errs.append(e)
+            if not e <= tol:
+                raise AssertionError(f"conv {name}: {g_name} {e:.3e} of its "
+                                     f"largest off fp32 autograd ({tol})")
+        if (cc.LAUNCHES - n0, cc.BACKWARD_LAUNCHES - n1) != (1, 2):
+            raise AssertionError(f"conv {name}: launch counts moved "
+                                 f"{cc.LAUNCHES - n0}, "
+                                 f"{cc.BACKWARD_LAUNCHES - n1}")
+        log(f"conv {name} {tuple(x.shape)} {dtype}: forward "
+            f"{fwd_err} {'ulp' if dtype == torch.bfloat16 else 'abs'} off "
+            f"the mirror, dx/dw/db {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
+            f"of the largest off fp32 autograd, bitwise repeat")
+        out["cases"].append(dict(case=name, shape=list(x.shape),
+                                 dtype=str(dtype), fwd_err=fwd_err,
+                                 grad_err=errs))
+        del x, w, b, st, y, new, want, dy, grads, again
+
+    # times at the training shape, bf16, as the mixer's views
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    x, w, b, _ = conv_inputs(B, S, di, gds, nh, torch.bfloat16, seed)
+    dy = torch.randn(x.shape, device=DEV).to(torch.bfloat16)
+    nbytes = x.numel() * x.element_size()
+    fwd = lambda: cc.causal_conv_cuda(x, w, b)                # noqa: E731
+    bwd = lambda: cc.causal_conv_backward_cuda(x, w, b, dy)   # noqa: E731
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+    bg = b.detach().requires_grad_(True)
+    plain_out, _ = ref.causal_conv_reference(xg, wg, bg)
+    plain_fwd = lambda: ref.causal_conv_reference(x, w, b)    # noqa: E731
+    plain_bwd = lambda: torch.autograd.grad(                  # noqa: E731
+        plain_out, (xg, wg, bg), dy, retain_graph=True)
+    times = dict(
+        forward_alone=alone_flushed_ms(fwd, flush),
+        forward_call=timed_ms(fwd, 20, flush),
+        forward_bound=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+        forward_plain=timed_ms(plain_fwd, 10, flush),
+        backward_alone=alone_flushed_ms(bwd, flush),
+        backward_call=timed_ms(bwd, 20, flush),
+        backward_bound=3 * nbytes / HBM_BYTES_PER_S * 1e3,
+        backward_plain=timed_ms(plain_bwd, 10, flush))
+    for part in ("forward", "backward"):
+        log(f"conv {part} {tuple(x.shape)} bf16 view: alone "
+            f"{times[part + '_alone']:.6f} ms, a call "
+            f"{times[part + '_call']:.6f}, bound "
+            f"{times[part + '_bound']:.6f} (bytes), plain "
+            f"{times[part + '_plain']:.6f}")
+    out["times_ms"] = times
+    del x, w, b, dy, xg, wg, bg, plain_out, flush
+
+    info = []
+    for dtype in cc.DTYPES:
+        for kinfo in cc.kernel_info(CONV_W, dtype):
+            kinfo.update(dtype=str(dtype))
+            info.append(kinfo)
+            log(f"conv {kinfo['launch']} kernel {dtype}: "
+                f"{kinfo['registers']} registers, "
+                f"{kinfo['local_bytes']} local bytes, "
+                f"{kinfo['static_shared_bytes']} shared bytes")
+            if kinfo["local_bytes"]:
+                raise AssertionError(f"conv kernel spills: {kinfo}")
+    out["kernel_info"] = info
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", choices=["all", "ssd", "ssd_backward", "flash",
-                                        "flash_backward", "distributed",
-                                        "whole_models", "faults"],
+                                        "flash_backward", "causal_conv",
+                                        "distributed", "whole_models",
+                                        "faults"],
                     default="all",
                     help="ssd / ssd_backward / flash / flash_backward / "
-                         "distributed / whole_models / faults: build, run "
-                         "that phase alone and print its JSON, for work on "
-                         "the SSD scan or its gradient, the flash forward "
-                         "or backward "
-                         "kernels, the distributed layer, the configs "
+                         "causal_conv / distributed / whole_models / faults: "
+                         "build, run that phase alone and print its JSON, "
+                         "for work on the SSD scan or its gradient, the "
+                         "flash forward or backward kernels, the mixer's "
+                         "conv kernels, the distributed layer, the configs "
                          "served and trained whole, or the log's fault "
                          "paths")
     args = ap.parse_args()
@@ -6524,6 +6734,7 @@ def main() -> int:
         return 2
     from repro_torch.core.log import REC_HDR_SIZE
     from repro_torch.kernels import nvcc
+    from repro_torch.kernels.causal_conv import causal_conv
     from repro_torch.kernels.checksum import checksum
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -6538,7 +6749,7 @@ def main() -> int:
     sources = [checksum.SOURCE, ssd_scan.SOURCE, ssd_scan.TC_SOURCE,
                ssd_scan.BWD_SOURCE, ssd_scan.BWD_TC_SOURCE,
                flash_attention.SOURCE, flash_attention.BWD_SOURCE,
-               flash_attention.BWD_TC_SOURCE]
+               flash_attention.BWD_TC_SOURCE, causal_conv.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
         list(pool.map(nvcc.build, sources))         # re-raises a failure
     build_s = time.perf_counter() - t0
@@ -6569,6 +6780,12 @@ def main() -> int:
         bwd_out = flash_backward_phase(args.seed)
         log(f"phase flash backward: {time.perf_counter() - t0:.3f} s")
         print(json.dumps({"flash_backward": bwd_out}))
+        return 0
+    if args.phase == "causal_conv":
+        t0 = time.perf_counter()
+        conv_out = causal_conv_phase(args.seed)
+        log(f"phase causal conv: {time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"causal_conv": conv_out}))
         return 0
     if args.phase == "distributed":
         t0 = time.perf_counter()
@@ -6616,6 +6833,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ssd_bwd = ssd_backward_phase(args.seed)
     log(f"phase ssd backward: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    conv = causal_conv_phase(args.seed)
+    log(f"phase causal conv: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     train = train_phase(args.seed, card)
     log(f"phase train: {time.perf_counter() - t0:.3f} s")
@@ -6789,6 +7009,35 @@ def main() -> int:
         bf16_ms=bwd_cc16["alone_ms"], bf16_wrapper_ms=bwd_cc16["ms"],
         bf16_launch_ms=bwd_cc16["launch_ms"],
         bf16_bound_ms=bwd_cc16["bound_ms"], library_ms=None))
+    conv_t = conv["times_ms"]
+    conv_fwd_by_path = {
+        "serving": serving["conv_launches"]["forward"],
+        "card vs cpu": cross["conv_launches"],
+        "train": train["main_path_counts"]["conv"]["forward"],
+        "train card vs cpu": train_cpu["conv_counts"]["forward"],
+        "pipeline": pipe["conv_launches"]}
+    conv_bwd_by_path = {
+        "train": train["main_path_counts"]["conv"]["backward"],
+        "train card vs cpu": train_cpu["conv_counts"]["backward"]}
+    kernels.append(dict(
+        name="causal_conv", route="cuda",
+        source="src/repro_torch/csrc/causal_conv.cu",
+        kernel="causal_conv_fwd_kernel; gradient causal_conv_bwd_kernel + "
+               "causal_conv_wsum_kernel",
+        replaces="src/repro/models/layers.py:594 (_causal_conv, XLA-fused; "
+                 "no TPU kernel)",
+        launches=sum(conv_fwd_by_path.values()),
+        launches_by_path=conv_fwd_by_path,
+        backward_launches=sum(conv_bwd_by_path.values()),
+        backward_launches_by_path=conv_bwd_by_path,
+        max_fwd_err=max(c["fwd_err"] for c in conv["cases"]),
+        max_grad_rel_err=max(max(c["grad_err"]) for c in conv["cases"]),
+        ms=conv_t["forward_alone"], wrapper_ms=conv_t["forward_call"],
+        plain_ms=conv_t["forward_plain"], bound_ms=conv_t["forward_bound"],
+        bound_by="bytes", backward_ms=conv_t["backward_alone"],
+        backward_wrapper_ms=conv_t["backward_call"],
+        backward_plain_ms=conv_t["backward_plain"],
+        backward_bound_ms=conv_t["backward_bound"], library_ms=None))
     flash_at = flash["gemma2 global (2, 16, 8, 8192, 256) bfloat16"]
     by_path = {"gemma2-9b": dict(
         all=gemma["flash_launches"],
@@ -6907,7 +7156,8 @@ def main() -> int:
                       "faults": faults,
                       "ssd_shapes": ssd,
                       "serving": serving, "card_vs_cpu": cross,
-                      "ssd_backward_shapes": ssd_bwd, "train": train,
+                      "ssd_backward_shapes": ssd_bwd, "causal_conv": conv,
+                      "train": train,
                       "train_card_vs_cpu": train_cpu,
                       "flash_shapes": flash, "gemma2_serving": gemma,
                       "gemma2_card_vs_cpu": gemma_cpu,

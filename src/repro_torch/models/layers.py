@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..kernels.causal_conv.ops import causal_conv as _causal_conv
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.ssd_scan import ops as ssd_ops
 from .config import ModelConfig
@@ -739,24 +740,6 @@ def ssm_params_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 state: Optional[torch.Tensor] = None):
-    """Depthwise causal conv1d.  x [B,S,C]; w [W,C].  With ``state``
-    ([B,W-1,C]) runs incrementally and returns the new state.  The taps
-    are summed elementwise in x's dtype (no convolution library call, so
-    no TF32 on the card)."""
-    W = w.shape[0]
-    S = x.shape[1]
-    if state is None:
-        xp = F.pad(x, (0, 0, W - 1, 0))
-        new_state = xp[:, -(W - 1):, :] if W > 1 else None
-    else:
-        xp = torch.cat([state.to(x.dtype), x], dim=1)
-        new_state = xp[:, -(W - 1):, :]
-    out = sum(xp[:, i:i + S, :] * w[i] for i in range(W))
-    return F.silu((out + b).float()).to(x.dtype), new_state
-
-
 def ssm_mixer(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
               cache: Optional[Dict[str, torch.Tensor]] = None):
     """Mamba2 block mixer.  cache = {"conv" [B,W-1,C], "state" [B,H,P,N]}.
@@ -765,11 +748,10 @@ def ssm_mixer(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     di, nh, hd, ds = ssm_dims(cfg)
     G = cfg.ssm_n_groups
     zxbcdt = torch.matmul(x, p["in_proj"])
-    z, xi, Bm, Cm, dt = torch.split(zxbcdt, [di, di, G * ds, G * ds, nh],
-                                    dim=-1)
-    conv_in = torch.cat([xi, Bm, Cm], dim=-1)
+    # the conv reads its x, B and C columns where in_proj wrote them
+    z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * G * ds, nh], dim=-1)
     conv_out, new_conv = _causal_conv(
-        conv_in, p["conv_w"], p["conv_b"],
+        xBC, p["conv_w"], p["conv_b"],
         state=None if cache is None else cache["conv"])
     xi, Bm, Cm = torch.split(conv_out, [di, G * ds, G * ds], dim=-1)
     xh = xi.reshape(B, S, nh, hd)

@@ -14,7 +14,10 @@ attribution closes: the owners' sum against the traced device time,
 ``step.hash`` against the hash kernels, each SSD scan kernel's owner, the
 share under the step's spans.  It also reads the port's counters around
 the measured window (``TrainerReport.data_s``, ``Log.stats()``'s
-``forces`` and ``force_s``, ``CheckpointManager.stats()``).
+``forces`` and ``force_s``, ``CheckpointManager.stats()``, the causal
+conv's launch counters) and the conv's counters around every
+``launch/serve.generate`` call; and the device time of each of the port's
+own kernels by name.
 
 The tries record every thread's ranges (``profile_all_threads``), so the
 save workers' ``ckpt.*`` spans are in the trace.  The report is the line
@@ -32,6 +35,7 @@ T0 = time.time()
 import argparse  # noqa: E402
 import functools  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -39,12 +43,36 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 STEP_PREFIXES = ("trainer.", "step.", "optim.", "model.")
+# the port's hand-written kernels, reported by name whatever their rank
+PORT_KERNELS = re.compile(
+    r"\w*(causal_conv_|ssd_|bwd_(tc|cc)_|flash_|checksum_)\w*(<[^()]*>)?")
+
+
+def conv_counters() -> dict:
+    from repro_torch.kernels.causal_conv import causal_conv as cc
+    return {"conv_launches": cc.LAUNCHES,
+            "conv_backward_launches": cc.BACKWARD_LAUNCHES}
 
 
 def counters(tr) -> dict:
     log, mgr = tr.mgr.log.stats(), tr.mgr.stats()
     return {"data_s": tr.report.data_s, "forces": log["forces"],
-            "force_s": log["force_s"], **mgr}
+            "force_s": log["force_s"], **mgr, **conv_counters()}
+
+
+def watch_generate(calls: list) -> None:
+    """Record the conv's counters around every ``generate`` call."""
+    from repro_torch.launch import serve
+    generate = serve.generate
+
+    @functools.wraps(generate)
+    def watched(*args, **kwargs):
+        before = conv_counters()
+        out = generate(*args, **kwargs)
+        after = conv_counters()
+        calls.append(tuple(after[k] - before[k] for k in after))
+        return out
+    serve.generate = watched
 
 
 def watch_runs(calls: list) -> None:
@@ -70,7 +98,9 @@ def window_readings(calls: list) -> dict:
         return {}
     w = max(calls, key=lambda c: c["steps"] or 0)
     out = {"window_steps": w["steps"],
-           "data_ms_per_step": 1e3 * w["data_s"] / w["steps"]}
+           "data_ms_per_step": 1e3 * w["data_s"] / w["steps"],
+           "conv_per_step": [w[k] / w["steps"] for k in (
+               "conv_launches", "conv_backward_launches")]}
     if w["forces"]:
         out["journal_force_ms"] = 1e3 * w["force_s"] / w["forces"]
         out["forces"] = w["forces"]
@@ -90,6 +120,11 @@ def owners_report(t, s, spans, trace) -> dict:
     def share(name):
         return 100.0 * by.get(name, 0.0) / s.busy_s if s.busy_s else None
 
+    port: dict = {}
+    for (_, op), v in got.by_span_op.items():
+        m = PORT_KERNELS.search(op)
+        if m:
+            port[m.group(0)] = port.get(m.group(0), 0.0) + v
     return {
         "units": [s.first, s.last],
         "window_s": s.window_s, "busy_s": s.busy_s,
@@ -99,6 +134,7 @@ def owners_report(t, s, spans, trace) -> dict:
         "top_owners": spans.top(by, 16),
         "top_owner_ops": [[f"{k[0]} | {k[1][:90]}", v] for k, v in
                           spans.top(got.by_span_op, 24)],
+        "port_kernels_s": spans.top(port, 64),
         "optim_share_pct": share("optim.apply_updates"),
         "logits_share_pct": share("model.logits"),
         "step_hash_s": by.get("step.hash"),
@@ -145,11 +181,15 @@ def main() -> int:
         return s
     trace.read = read_and_own
     watch_runs(calls)
+    generate_calls: list = []
+    watch_generate(generate_calls)
 
     rc = hm.main(["--workload", args.workload, "--seed", str(args.seed),
                   "--seconds", str(args.seconds), "--trace", "1"], T0)
     out = {"workload": args.workload, "seed": args.seed, "rc": rc,
-           "counters": window_readings(calls), "tries": reports}
+           "counters": window_readings(calls),
+           "conv_per_generate": sorted(set(generate_calls)),
+           "tries": reports}
     text = json.dumps(out)
     print(f"[owners] {text}", file=sys.stderr, flush=True)
     dest = ROOT / "artifacts" / "trace_owners"
